@@ -1,0 +1,93 @@
+"""Fused engine: a whole block of rounds as ONE call (the port's twin of
+the JAX package's ``core/engines/fused.py``, ``run_schedule`` path).
+
+Client shards upload once (``DeviceStore``). The plans of an eval-to-eval
+block stack along a leading round axis — ghost lanes, all-invalid hops and
+invalid steps pad rounds whose participation drew different shapes — into
+int32/bool/f32 arrays that are the block's entire H2D payload, and
+``LocalTrainer.train_schedule`` runs them.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from repro_torch.core.engines.batched import BatchedEngine
+from repro_torch.core.plan import Schedule
+from repro_torch.data.pipeline import DeviceDataPlane, stack_plan_indices
+from repro_torch.data.store import make_store
+
+
+class FusedEngine(BatchedEngine):
+
+    def __init__(self, trainer, clients, fl):
+        super().__init__(trainer, clients, fl)
+        self.store = make_store(fl.store, clients, trainer.device)
+        self._arena: DeviceDataPlane = None
+
+    @property
+    def plane(self) -> DeviceDataPlane:
+        """The data plane serving the current block."""
+        if self._arena is None:
+            self._arena = self.store.arena(None)
+        return self._arena
+
+    def stage_data(self, visited) -> int:
+        """Block boundary of the residency protocol: the device store
+        serves the same fleet plane every block (its one-time upload is
+        ``plane.nbytes``, not metered as per-block H2D)."""
+        if visited is not None and len(visited) == 0:
+            return 0        # ring_rounds=0: the block gathers nothing
+        self._arena = self.store.arena(visited)
+        return self._arena.nbytes
+
+    def staging_stats(self):
+        return self.store.stage_seconds, self.store.overlapped_stage_seconds
+
+    def run_schedule(self, sched: Schedule, w_glob, lrs):
+        plans = sched.plans
+        if not plans or not plans[0].groups:
+            return w_glob       # ring_rounds=0: rounds leave w unchanged
+        if len(plans[0].groups) > 1:
+            raise NotImplementedError(
+                "multi-group (HierFAVG) schedules are not ported yet "
+                "(ROADMAP A5)")
+        variant = plans[0].groups[0].variant
+        if variant != "plain":
+            raise NotImplementedError(
+                f"loss variant {variant!r} is not ported yet (ROADMAP A4)")
+        xs = self._stack_cohort_schedule(plans, lrs)
+        return self.trainer.train_schedule(w_glob, self.plane, xs)
+
+    def _schedule_dims(self, groups):
+        """(lane pad, hop pad, step pad, batch width) over a block's
+        groups, so per-round shapes stack along one uniform round axis."""
+        Cp = self._pad(max(g.lanes for g in groups))
+        H = max(len(g.hops) for g in groups)
+        S = max(p.shape[0] for g in groups for hop in g.hops
+                for p in hop.plans if p is not None)
+        B = next(p.shape[1] for g in groups for hop in g.hops
+                 for p in hop.plans if p is not None)
+        return Cp, H, S, B
+
+    def _stack_cohort_schedule(self, plans, lrs):
+        """Stack a block of single-group plans along the round axis:
+        ``rows``/``plans``/``valid`` index arrays, per-round ``lr`` and the
+        collapsed eq.-11 weights ``aggv`` (ghost lanes weigh 0)."""
+        groups = [p.groups[0] for p in plans]
+        n = len(groups)
+        Cp, H, S, B = self._schedule_dims(groups)
+        rows = np.zeros((n, H, Cp), np.int32)
+        idx = np.zeros((n, H, Cp, S, B), np.int32)
+        valid = np.zeros((n, H, Cp, S), bool)
+        aggv = np.zeros((n, Cp), np.float32)
+        for r, g in enumerate(groups):
+            for h, hop in enumerate(g.hops):
+                rw, ix, vl = stack_plan_indices(
+                    list(hop.plans), list(hop.ids), pad_to=Cp, steps=S,
+                    width=B)
+                rows[r, h], idx[r, h], valid[r, h] = rw, ix, vl
+            # hops past len(g.hops) stay all-invalid: every lane carried
+            # unchanged, exactly the ring-tail rule
+            aggv[r] = g.agg.matrix(Cp)
+        return {"rows": rows, "plans": idx, "valid": valid,
+                "lr": np.asarray(lrs, np.float32), "aggv": aggv}

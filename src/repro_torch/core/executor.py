@@ -1,0 +1,200 @@
+"""FL experiment executor of the port: dataset -> partition -> blocks of
+rounds -> eval history (the twin of the JAX package's
+``core/executor.py::run_experiment``, serial block loop).
+
+Rounds run in eval-to-eval blocks — plan block -> run block -> eval ->
+record — through ``algo.run_schedule``; under the fused engine a block is
+one ``LocalTrainer.train_schedule`` call. Block boundaries come from
+absolute round indices, as in the reference.
+
+Two arguments the reference does not have: ``init_params`` (the JAX
+package draws its initial weights from ``jax.random``, which torch cannot
+replay, so a parity run passes the reference's ``w_glob`` in, as numpy
+arrays or tensors) and ``device`` (the GPU unless the caller asks for
+another; there is no silent CPU fallback). ``on_block(t0, schedule)`` is
+called with every block's pre-drawn plans before the block runs.
+Checkpoints, the prefetch pipeline and personalization are not ported yet
+(ROADMAP A5, A6, A8) and raise.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, Dict, List, Mapping, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import FLConfig, ModelConfig
+from repro_torch.core.algorithms import make_algorithm
+from repro_torch.core.comm import CommMeter
+from repro_torch.core.local import LocalTrainer
+from repro_torch.core.plan import Schedule
+from repro_torch.data.pipeline import make_clients
+from repro_torch.data.synthetic import Dataset, make_task
+from repro_torch.models.small import (
+    classifier_accuracy, init_small_model, params_from_numpy,
+)
+from repro_torch.optim.schedules import cosine_decay
+from repro_torch.utils.device import resolve_device
+from repro_torch.utils.tree import layout_of, ravel_params, tree_bytes, unravel
+
+
+@dataclasses.dataclass
+class RoundRecord:
+    """One eval point. ``seconds`` covers the wall time since the previous
+    record (the whole block of ``rounds`` rounds plus this eval), fenced by
+    a device synchronize on the GPU."""
+
+    round: int
+    accuracy: float
+    comm: Dict[str, float]
+    lr: float
+    seconds: float
+    rounds: int = 1
+
+
+@dataclasses.dataclass
+class ExperimentResult:
+    algorithm: str
+    task: str
+    partition: str
+    history: List[RoundRecord]
+    final_model: Optional[Dict[str, torch.Tensor]] = None
+    peak_device_bytes: int = 0              # data plane + staged state
+    stage_seconds: float = 0.0              # the data plane's upload wall
+    overlapped_stage_seconds: float = 0.0   # 0: no prefetch pipeline yet
+    dispatch_seconds: float = 0.0           # per-block dispatch-to-sync wall
+    h2d_bytes: int = 0                      # LocalTrainer.h2d_bytes at the end
+    dispatches: int = 0                     # LocalTrainer.dispatches (blocks)
+
+    @property
+    def final_accuracy(self) -> float:
+        return self.history[-1].accuracy if self.history else float("nan")
+
+    def rounds_to_accuracy(self, target: float) -> Optional[int]:
+        for rec in self.history:
+            if rec.accuracy >= target:
+                return rec.round
+        return None
+
+    def comm_to_accuracy(self, target: float) -> Optional[int]:
+        """Total model transfers when target accuracy is first hit (Table III)."""
+        for rec in self.history:
+            if rec.accuracy >= target:
+                return rec.comm["total_transfers"]
+        return None
+
+
+def _check_ported(fl: FLConfig, checkpoint_dir, resume) -> None:
+    if checkpoint_dir or resume:
+        raise NotImplementedError(
+            "checkpoints are not ported yet (ROADMAP A5)")
+    if fl.prefetch:
+        raise NotImplementedError(
+            "the prefetch pipeline (prefetch=1) is not ported yet "
+            "(ROADMAP A6)")
+    if fl.personalize.active:
+        raise NotImplementedError(
+            "personalization is not ported yet (ROADMAP A8)")
+
+
+def run_experiment(
+    *,
+    task: str,
+    model_cfg: ModelConfig,
+    fl: FLConfig,
+    eval_every: int = 1,
+    train: Optional[Dataset] = None,
+    test: Optional[Dataset] = None,
+    quiet: bool = True,
+    checkpoint_dir: Optional[str] = None,
+    resume: bool = False,
+    stop_after: Optional[int] = None,   # simulate interruption after round N
+    init_params: Optional[Mapping] = None,
+    device=None,
+    on_block: Optional[Callable[[int, Schedule], None]] = None,
+) -> ExperimentResult:
+    _check_ported(fl, checkpoint_dir, resume)
+    device = resolve_device(device)
+    if train is None or test is None:
+        train, test = make_task(task, seed=fl.seed)
+    rng = np.random.default_rng(fl.seed)
+    clients = make_clients(
+        train, scheme=fl.partition, num_devices=fl.num_devices,
+        rng=rng, xi=fl.xi, alpha=fl.alpha,
+    )
+    trainer = LocalTrainer(model_cfg, fl, device)
+    if init_params is None:
+        params = init_small_model(torch.Generator().manual_seed(fl.seed),
+                                  model_cfg, device)
+    else:
+        params = params_from_numpy(
+            {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                 else v) for k, v in init_params.items()}, device)
+    layout = layout_of(params)
+    if layout != trainer.layout:
+        raise ValueError(f"init_params layout {layout} does not match the "
+                         f"model's {trainer.layout}")
+    w_glob = ravel_params(params)
+    algo = make_algorithm(fl.algorithm, trainer, clients, fl)
+    meter = CommMeter(model_bytes=tree_bytes(params))
+    lr_fn = cosine_decay(fl.init_lr, fl.final_lr, fl.rounds)
+    state: Dict = {}
+    history: List[RoundRecord] = []
+
+    test_images = torch.from_numpy(test.images).to(device)
+    test_labels = torch.from_numpy(test.labels).to(device)
+
+    def sync() -> None:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    end = fl.rounds if stop_after is None else min(fl.rounds, stop_after)
+
+    def next_boundary(t: int) -> int:
+        return min(end, t - t % eval_every + eval_every)
+
+    t = 0
+    last_time = time.perf_counter()
+    last_round = 0
+    while t < end:
+        stop = next_boundary(t)
+        lrs = np.asarray([float(lr_fn(i)) for i in range(t, stop)])
+        dispatch_t0 = time.perf_counter()
+        sched = algo.plan_schedule(t, len(lrs), rng, state)
+        if on_block is not None:
+            on_block(t, sched)
+        w_glob = algo.dispatch_block(sched, w_glob, lrs, state)
+        algo.finish_block(sched, state, meter)
+        t = stop
+        # `t == end`: a stop_after/rounds not aligned to eval_every still
+        # gets its final partial block evaluated
+        if t % eval_every == 0 or t == end:
+            acc = float(classifier_accuracy(unravel(w_glob, layout),
+                                            test_images, test_labels,
+                                            model_cfg))
+            sync()
+            now = time.perf_counter()
+            algo.residency.record_dispatch(now - dispatch_t0)
+            history.append(RoundRecord(
+                round=t, accuracy=acc, comm=meter.snapshot(),
+                lr=float(lrs[-1]), seconds=now - last_time,
+                rounds=t - last_round,
+            ))
+            last_time, last_round = now, t
+            if not quiet:
+                print(f"  [{fl.algorithm:>12}] round {t:>3} "
+                      f"acc={acc:.4f} lr={lrs[-1]:.5f} "
+                      f"transfers={meter.total_transfers}")
+
+    stage_s, overlap_s = algo.engine.staging_stats()
+    res = algo.residency
+    return ExperimentResult(fl.algorithm, task, fl.partition, history,
+                            final_model=unravel(w_glob, layout),
+                            peak_device_bytes=res.peak_bytes,
+                            stage_seconds=stage_s,
+                            overlapped_stage_seconds=overlap_s,
+                            dispatch_seconds=res.dispatch_seconds,
+                            h2d_bytes=trainer.h2d_bytes,
+                            dispatches=trainer.dispatches)

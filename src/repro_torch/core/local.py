@@ -1,0 +1,164 @@
+"""Local training of the port — the twin of the JAX package's
+``core/local.py`` for the fused engine's block dispatch (``variant="plain"``,
+weighted-mean reduce).
+
+The JAX package compiles one eval-to-eval block of rounds into ONE
+``lax.scan``; here the same block is one Python call
+(``train_schedule``) that loops over rounds and, inside a round, over the
+flat H*S steps of ``_run_hops``. Parameters, gradients and momentum of the
+C lanes each live in ONE contiguous ``(C, P)`` buffer, in the sorted-leaf
+layout of ``utils.tree``; the model reads per-leaf views of it, and one
+update launch covers the whole stack.
+
+Per step: gather the lanes' batches from the device-resident data plane,
+take every lane's gradient with one autograd pass over the lane-summed
+loss (lanes are independent, so each gets its own gradient), concatenate
+the per-leaf gradients into the flat ``(C, P)`` buffer (one ``torch.cat``),
+then apply the masked momentum update. Momentum is zeroed wherever a new
+client visit starts.
+
+The update has two paths, as in the reference, and they round differently
+(ROADMAP C2), so each is held against its own reference path:
+
+* ``use_fused_sgd=False`` — the reference's folded-mask arithmetic,
+  ``m' = m + ok*((mu-1)m + g)``, ``p' = p - (ok*lr)*m'``, in torch ops;
+* ``use_fused_sgd=True`` — ``m' = mu*m + g`` under a per-lane select: the
+  hand-written CUDA kernel on the GPU (``kernels.fused_sgd``), its plain
+  version on the CPU.
+
+Counters, as the reference meters them: ``h2d_bytes`` (the block's index
+plans and per-round arrays — the whole per-block H2D payload) and
+``dispatches`` (one per block).
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import FLConfig, ModelConfig
+from repro_torch.kernels.fused_sgd.ops import fused_sgd_lanes
+from repro_torch.models.small import classifier_loss_lanes, mlp_specs
+from repro_torch.utils.device import resolve_device
+from repro_torch.utils.tree import unravel
+
+
+def _h2d_nbytes(a) -> int:
+    """Bytes that cross H2D for one host array, metered as the reference
+    meters them: 64-bit dtypes count as the 32-bit arrays JAX ships."""
+    a = np.asarray(a)
+    return a.size * min(a.dtype.itemsize, 4)
+
+
+def masked_momentum_update(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
+                           ok: torch.Tensor, lr: torch.Tensor, *, reset: bool,
+                           momentum: float) -> None:
+    """The reference's unfused masked update, in place on (C, P) buffers:
+    an invalid step (ok = 0) is folded into the arithmetic,
+    ``m' = m + ok*((mu-1)m + g)`` and ``p' = p - (ok*lr)*m'``."""
+    if reset:
+        m.zero_()
+    okf = ok.to(p.dtype).view(-1, 1)
+    m.add_(okf * ((momentum - 1.0) * m + g))
+    p.sub_((okf * lr) * m)
+
+
+class LocalTrainer:
+    """Lane-stacked local SGD for one (model, FL) config on one device."""
+
+    def __init__(self, cfg: ModelConfig, fl: FLConfig, device=None):
+        if cfg.family != "mlp":
+            raise NotImplementedError(
+                f"model family {cfg.family!r} is not ported yet (ROADMAP A3)")
+        if fl.reducer != "weighted_mean":
+            raise NotImplementedError(
+                f"reducer {fl.reducer!r} is not ported yet (ROADMAP A7)")
+        if fl.dp_clip > 0:
+            raise NotImplementedError(
+                "DP-SGD (dp_clip > 0) is not ported yet (ROADMAP A7)")
+        self.cfg = cfg
+        self.fl = fl
+        self.device = resolve_device(device)
+        specs = mlp_specs(cfg)
+        self.layout = tuple((k, specs[k].shape) for k in sorted(specs))
+        self.h2d_bytes = 0
+        self.dispatches = 0
+
+    # ------------------------------------------------------------------
+    def lane_grads(self, params: torch.Tensor, batch: Dict[str, torch.Tensor]):
+        """Per-lane losses (C,) and gradients as one contiguous (C, P)
+        buffer, for the (C, P) flat lane stack ``params``."""
+        leaves = {k: v.detach().requires_grad_()
+                  for k, v in unravel(params, self.layout).items()}
+        with torch.enable_grad():
+            losses = classifier_loss_lanes(leaves, batch, self.cfg)
+            grads = torch.autograd.grad(
+                losses.sum(), [leaves[k] for k, _ in self.layout])
+        C = params.shape[0]
+        return losses.detach(), torch.cat([g.reshape(C, -1) for g in grads],
+                                          dim=1)
+
+    def _update(self, p, g, m, ok, lr, reset: bool) -> None:
+        if self.fl.use_fused_sgd:
+            fused_sgd_lanes(p, g, m, ok, lr, reset=reset,
+                            momentum=self.fl.momentum)
+        else:
+            masked_momentum_update(p, g, m, ok, lr, reset=reset,
+                                   momentum=self.fl.momentum)
+
+    @torch.no_grad()
+    def _run_hops(self, params: torch.Tensor, plane, rows: torch.Tensor,
+                  plans: torch.Tensor, valid: torch.Tensor,
+                  lr: torch.Tensor) -> torch.Tensor:
+        """The flat H*S-step gathered-SGD loop over one visit group, in
+        place on the (C, P) lane stack ``params``; ``rows`` (H, C),
+        ``plans`` (H, C, S, B) and ``valid`` (H, C, S) index the
+        device-resident fleet arrays, ``lr`` is a (1,) tensor. Step t
+        starts a client visit when t % S == 0: the momentum is zeroed
+        there (the reference's per-step reset flag)."""
+        H, C, S = valid.shape
+        flat_rows = rows.repeat_interleave(S, dim=0)                 # (HS, C)
+        flat_ix = plans.permute(0, 2, 1, 3).reshape(H * S, C, -1)   # (HS, C, B)
+        flat_ok = valid.permute(0, 2, 1).reshape(H * S, C).contiguous()
+        m = torch.zeros_like(params)
+        for t in range(H * S):
+            # fleet row r, sample i -> flat row offsets[r] + i
+            gidx = (torch.index_select(plane.offsets, 0, flat_rows[t])
+                    .unsqueeze(1) + flat_ix[t]).reshape(-1)
+            batch = {
+                "images": torch.index_select(plane.images, 0, gidx)
+                .reshape(C, -1, *plane.images.shape[1:]),
+                "labels": torch.index_select(plane.labels, 0, gidx)
+                .reshape(C, -1),
+            }
+            _, g = self.lane_grads(params, batch)
+            self._update(params, g, m, flat_ok[t], lr, reset=t % S == 0)
+        return params
+
+    @torch.no_grad()
+    def train_schedule(self, w_glob: torch.Tensor, plane,
+                       xs: Dict[str, np.ndarray]) -> torch.Tensor:
+        """An entire block of FedSR rounds as ONE call (one dispatch).
+
+        ``w_glob`` is the global model as a flat (P,) vector. ``xs`` stacks
+        the block along a leading round axis n (built by
+        ``engines.fused.FusedEngine.run_schedule``): ``rows`` (n, H, C),
+        ``plans`` (n, H, C, S, B), ``valid`` (n, H, C, S), ``lr`` (n,) and
+        the collapsed eq.-11 weights ``aggv`` (n, C) — the block's whole
+        H2D payload. Each round broadcasts the carried global to the C
+        lanes, runs the hop loop and contracts ``aggv`` against the
+        trained stack. Returns the new (P,) global model."""
+        self.h2d_bytes += sum(_h2d_nbytes(v) for v in xs.values())
+        self.dispatches += 1
+        dev = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+               for k, v in xs.items()}
+        n, _, C = xs["rows"].shape
+        w = w_glob
+        for r in range(n):
+            lanes = w.unsqueeze(0).expand(C, -1).contiguous()
+            lanes = self._run_hops(lanes, plane, dev["rows"][r],
+                                   dev["plans"][r], dev["valid"][r],
+                                   dev["lr"][r:r + 1])
+            w = dev["aggv"][r] @ lanes
+        return w

@@ -1,0 +1,149 @@
+"""Per-client data pipeline (the port's twin of the JAX package's
+``data/pipeline.py``, fused-engine parts).
+
+``plan_epoch_indices`` is the one batch-plan primitive: planners pre-draw a
+(steps, batch) index plan per client visit and attach it to the RoundPlan
+IR. The fused engine keeps every shard device-resident
+(``DeviceDataPlane``, uploaded once) and ships only the int32 index form of
+the plans (``stack_plan_indices``). Every function here consumes the numpy
+generator in the reference's order, so plans are bit-identical across the
+two packages.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.data.partition import partition
+from repro_torch.data.synthetic import Dataset
+
+
+def plan_epoch_indices(
+    client: "ClientData", batch_size: int, epochs: int,
+    rng: np.random.Generator,
+) -> np.ndarray:
+    """(steps, batch_size) sample-index plan for ``epochs`` shuffled epochs.
+
+    Each epoch is a permutation; when the shard does not divide evenly into
+    full batches, the final batch is topped up by resampling uniform random
+    indices (``rng.integers``) — an extra draw on the shared stream, made in
+    the same place as in the reference.
+    """
+    n = len(client)
+    num_batches = max(1, int(np.ceil(n / batch_size)))
+    rows = []
+    for _ in range(epochs):
+        idx = rng.permutation(n)
+        if num_batches * batch_size > n:
+            extra = rng.integers(0, n, size=num_batches * batch_size - n)
+            idx = np.concatenate([idx, extra])
+        rows.append(idx.reshape(num_batches, batch_size))
+    return np.concatenate(rows, axis=0)
+
+
+def _plan_batch_width(plans: Sequence[Optional[np.ndarray]],
+                      width: Optional[int] = None) -> int:
+    """Batch width B shared by every real plan in a stack (``width`` when
+    the caller supplies it, since a stack may hold only ``None`` plans)."""
+    if width is not None:
+        return width
+    for p in plans:
+        if p is not None:
+            return p.shape[1]
+    raise ValueError(
+        "cannot stack batch plans: every plan is None (at least one client "
+        "in the stack must have a real (steps, batch) index plan, or pass "
+        "an explicit batch width)")
+
+
+def stack_plan_indices(
+    plans: Sequence[Optional[np.ndarray]],
+    client_rows: Sequence[int],
+    pad_to: Optional[int] = None,
+    steps: Optional[int] = None,
+    width: Optional[int] = None,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """``(rows, idx, valid)`` for one hop: the (C,) int32 fleet row of each
+    lane, the (C, S, B) int32 sample-index plan and the (C, S) bool step
+    mask. ``None`` plans become all-invalid rows pointing at sample 0;
+    ``steps`` forces the step axis to at least S; ``pad_to`` appends ghost
+    rows (row 0, all-invalid)."""
+    B = _plan_batch_width(plans, width)
+    S = max((p.shape[0] for p in plans if p is not None), default=0)
+    if steps is not None:
+        S = max(S, steps)
+    if S == 0:
+        raise ValueError("cannot stack an all-None hop without `steps`")
+    C = len(plans)
+    rows = np.asarray(client_rows, np.int32)
+    idx = np.zeros((C, S, B), np.int32)
+    valid = np.zeros((C, S), bool)
+    for ci, p in enumerate(plans):
+        if p is None:
+            continue
+        idx[ci, : p.shape[0]] = p
+        valid[ci, : p.shape[0]] = True
+    if pad_to is not None and pad_to > C:
+        ghosts = pad_to - C
+        rows = np.concatenate([rows, np.zeros(ghosts, np.int32)])
+        idx = np.concatenate([idx, np.zeros((ghosts, S, B), np.int32)])
+        valid = np.concatenate([valid, np.zeros((ghosts, S), bool)])
+    return rows, idx, valid
+
+
+class DeviceDataPlane:
+    """Client shards resident on the device: upload once, gather per step.
+
+    Shards are concatenated along one flat sample axis — ``images``
+    ``(total, ...)`` float32, ``labels`` ``(total,)`` int32 — with an int32
+    ``offsets`` table giving each client's first row, so client ``r``'s
+    sample ``i`` lives at ``offsets[r] + i``. ``nbytes`` is the upload's
+    size (labels counted as the int32 they are stored as, like the
+    reference's plane).
+    """
+
+    def __init__(self, clients: Sequence["ClientData"],
+                 device: torch.device):
+        if not clients:
+            raise ValueError("DeviceDataPlane needs at least one client shard")
+        self.num_clients = len(clients)
+        sizes = [len(c) for c in clients]
+        imgs = np.concatenate([c.images for c in clients])
+        labs = np.concatenate([c.labels for c in clients]).astype(np.int32)
+        offs = np.cumsum([0] + sizes[:-1]).astype(np.int32)
+        self.nbytes = imgs.nbytes + labs.nbytes + offs.nbytes
+        self.images = torch.from_numpy(imgs).to(device)
+        self.labels = torch.from_numpy(labs).to(device)
+        self.offsets = torch.from_numpy(offs).to(device)
+
+
+@dataclasses.dataclass
+class ClientData:
+    """One FL device's private shard."""
+    client_id: int
+    images: np.ndarray
+    labels: np.ndarray
+
+    def __len__(self) -> int:
+        return len(self.labels)
+
+
+def make_clients(
+    train: Dataset,
+    *,
+    scheme: str,
+    num_devices: int,
+    rng: np.random.Generator,
+    xi: int = 2,
+    alpha: float = 0.3,
+) -> List[ClientData]:
+    parts = partition(
+        train.labels, scheme=scheme, k=num_devices, rng=rng, xi=xi, alpha=alpha
+    )
+    return [
+        ClientData(d, train.images[p], train.labels[p])
+        for d, p in enumerate(parts)
+    ]

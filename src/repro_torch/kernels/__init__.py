@@ -1,0 +1,6 @@
+# Hand-written Hopper kernels of the port. Each kernel's CUDA source lives
+# in repro_torch/csrc/<name>.cu behind a plain C interface; its directory
+# here holds kernel.py (ctypes binding), ops.py (the checked public wrapper
+# with its launch counter) and ref.py (the plain PyTorch version the CPU
+# runs and the card is held against). kernels.build compiles the sources.
+#   fused_sgd/  lane-stacked fused momentum-SGD update (the FL inner update)

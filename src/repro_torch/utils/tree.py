@@ -1,0 +1,45 @@
+"""Parameter-dict helpers of the port (the twin of the JAX package's
+``utils/tree.py``, for the dicts of tensors the port uses as pytrees).
+
+``ravel_params``/``unravel`` are the port's ``ravel_pytree``: leaves are
+laid out in sorted-name order — the order ``jax.flatten_util.ravel_pytree``
+uses for a dict — so a raveled vector lines up element for element across
+the two packages. ``unravel`` returns views, so a ``(C, P)`` lane stack is
+one contiguous buffer that every per-leaf view writes through.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+
+Layout = Tuple[Tuple[str, Tuple[int, ...]], ...]
+
+
+def tree_bytes(params: Dict[str, torch.Tensor]) -> int:
+    return sum(x.numel() * x.element_size() for x in params.values())
+
+
+def layout_of(params: Dict[str, torch.Tensor]) -> Layout:
+    """The (name, shape) sequence of a parameter dict, in sorted order."""
+    return tuple((k, tuple(params[k].shape)) for k in sorted(params))
+
+
+def ravel_params(params: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """One contiguous flat vector of every leaf, in ``layout_of`` order."""
+    return torch.cat([params[k].reshape(-1) for k, _ in layout_of(params)])
+
+
+def unravel(flat: torch.Tensor, layout: Layout) -> Dict[str, torch.Tensor]:
+    """Per-leaf views of a ``(..., P)`` flat buffer: leaf ``k`` becomes
+    ``(..., *shape_k)``. Leading axes (the lane axis C) are kept."""
+    lead = flat.shape[:-1]
+    out, off = {}, 0
+    for name, shape in layout:
+        n = math.prod(shape)
+        out[name] = flat[..., off:off + n].view(*lead, *shape)
+        off += n
+    if off != flat.shape[-1]:
+        raise ValueError(f"flat width {flat.shape[-1]} != layout size {off}")
+    return out

@@ -11,3 +11,5 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running FL convergence tests "
         "(deselect with -m 'not slow')")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; skips without one")

@@ -1,0 +1,356 @@
+"""The port's FedSR main path against the JAX package's.
+
+* Host side, exactly: configs, ``make_task``, the partitions,
+  ``plan_epoch_indices``/``stack_plan_indices``, the data plane's bytes,
+  FedSR's ``plan_schedule`` and the fused engine's stacked block arrays,
+  comm meters, ``h2d_bytes`` and ``dispatches``.
+* One SGD step of the full-width paper MLP: per-lane loss and gradients
+  within 1e-5 (f32, different summation orders).
+* Whole runs of a narrow MLP through ``run_experiment`` from the
+  reference's initial weights, with ``use_fused_sgd`` on and off (each held
+  against its own reference path): final weights within 1e-4 and every
+  eval's accuracy within one test sample.
+* Port rules: the port imports nothing of JAX or of the JAX package, and
+  options it does not run yet raise.
+"""
+import dataclasses
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax
+import jax.numpy as jnp
+
+from torch_parity import (
+    assert_schedules_equal, assert_trees_close, configs, jax_init,
+)
+
+ROOT = Path(__file__).resolve().parents[1]
+SMALL = {"mlp_hidden": (32, 32)}
+CPU = torch.device("cpu")
+
+
+def _fl(**kw):
+    base = {"algorithm": "fedsr", "engine": "fused", "num_devices": 4,
+            "num_edges": 2, "ring_rounds": 2, "rounds": 4, "batch_size": 8,
+            "partition": "pathological"}
+    base.update(kw)
+    return base
+
+
+def _tasks(train_per_class=20, test_per_class=10):
+    from repro.data.synthetic import make_task as ref_make_task
+    from repro_torch.data.synthetic import make_task
+
+    return (ref_make_task("mnist_like", train_per_class=train_per_class,
+                          test_per_class=test_per_class),
+            make_task("mnist_like", train_per_class=train_per_class,
+                      test_per_class=test_per_class))
+
+
+# ---------------------------------------------------------------------------
+# host side, exactly
+
+
+@pytest.mark.parametrize("name", ["ModelConfig", "FLConfig", "ScenarioConfig",
+                                  "AdversaryConfig", "PersonalizeConfig"])
+def test_config_copies_have_the_reference_fields_and_defaults(name):
+    import repro.configs.base as ref
+    import repro_torch.configs.base as port
+
+    def fields(cls):
+        return {f.name: (f.default if f.default is not dataclasses.MISSING
+                         else f.default_factory()
+                         if f.default_factory is not dataclasses.MISSING
+                         else None)
+                for f in dataclasses.fields(cls)}
+
+    rf, pf = fields(getattr(ref, name)), fields(getattr(port, name))
+    assert list(rf) == list(pf)
+    for k in rf:
+        if dataclasses.is_dataclass(rf[k]):
+            assert dataclasses.asdict(rf[k]) == dataclasses.asdict(pf[k]), k
+        else:
+            assert rf[k] == pf[k], k
+
+
+@pytest.mark.parametrize("scheme", ["iid", "pathological", "dirichlet"])
+def test_task_and_partition_are_identical(scheme):
+    from repro.data.pipeline import make_clients as ref_make_clients
+    from repro_torch.data.pipeline import make_clients
+
+    (rtr, rte), (ptr, pte) = _tasks()
+    for a, b in ((rtr, ptr), (rte, pte)):
+        np.testing.assert_array_equal(a.images, b.images)
+        np.testing.assert_array_equal(a.labels, b.labels)
+    rc = ref_make_clients(rtr, scheme=scheme, num_devices=6,
+                          rng=np.random.default_rng(3), alpha=0.5)
+    pc = make_clients(ptr, scheme=scheme, num_devices=6,
+                      rng=np.random.default_rng(3), alpha=0.5)
+    for a, b in zip(rc, pc):
+        assert a.client_id == b.client_id
+        np.testing.assert_array_equal(a.labels, b.labels)
+        np.testing.assert_array_equal(a.images, b.images)
+
+
+def test_batch_plans_and_index_stacks_are_identical():
+    from repro.data.pipeline import ClientData as RefClient
+    from repro.data.pipeline import plan_epoch_indices as ref_plan
+    from repro.data.pipeline import stack_plan_indices as ref_stack
+    from repro_torch.data.pipeline import (
+        ClientData, plan_epoch_indices, stack_plan_indices,
+    )
+
+    labels = np.arange(37) % 10
+    imgs = np.zeros((37, 2, 2, 1), np.float32)
+    rr, pr = np.random.default_rng(5), np.random.default_rng(5)
+    ref_plans, port_plans = [], []
+    for n in (37, 8, 5):
+        a = ref_plan(RefClient(0, imgs[:n], labels[:n]), 8, 2, rr)
+        b = plan_epoch_indices(ClientData(0, imgs[:n], labels[:n]), 8, 2, pr)
+        np.testing.assert_array_equal(a, b)
+        ref_plans.append(a)
+        port_plans.append(b)
+    for plans in ([ref_plans, port_plans],
+                  [ref_plans[:1] + [None], port_plans[:1] + [None]]):
+        ra = ref_stack(plans[0], list(range(len(plans[0]))), pad_to=4,
+                       steps=12)
+        pa = stack_plan_indices(plans[1], list(range(len(plans[1]))),
+                                pad_to=4, steps=12)
+        for x, y in zip(ra, pa):
+            assert x.dtype == y.dtype
+            np.testing.assert_array_equal(x, y)
+
+
+def test_cosine_decay_matches_up_to_the_cosine_rounding():
+    """The port evaluates the schedule in float32 step by step, as XLA
+    does; only XLA's float32 cosine is not correctly rounded. Its error (an
+    ulp of a value below 1, <= 2**-23) is scaled by the half span
+    0.5*(init - final), plus one rounding of the result."""
+    from repro.optim.schedules import cosine_decay as ref_cosine
+    from repro_torch.optim.schedules import cosine_decay
+
+    for T in (4, 10, 50, 1000):
+        ref_fn, fn = ref_cosine(0.01, 1e-5, T), cosine_decay(0.01, 1e-5, T)
+        ref = np.asarray([float(ref_fn(t)) for t in range(T + 2)], np.float32)
+        got = np.asarray([fn(t) for t in range(T + 2)], np.float32)
+        np.testing.assert_allclose(got, ref, rtol=2.0**-23,
+                                   atol=0.5 * (0.01 - 1e-5) * 2.0**-23)
+
+
+def _planners(participation, **fl_kw):
+    """The FedSR planner of each package over identical clients."""
+    from repro.core.algorithms import make_algorithm as ref_make_algorithm
+    from repro.core.local import LocalTrainer as RefTrainer
+    from repro.data.pipeline import make_clients as ref_make_clients
+    from repro_torch.core.algorithms import make_algorithm
+    from repro_torch.core.local import LocalTrainer
+    from repro_torch.data.pipeline import make_clients
+
+    (rm, rfl), (pm, pfl) = configs(SMALL, **_fl(
+        num_devices=8, num_edges=2, participation=participation, **fl_kw))
+    (rtr, _), (ptr, _) = _tasks()
+    rc = ref_make_clients(rtr, scheme="dirichlet", num_devices=8,
+                          rng=np.random.default_rng(0), alpha=0.5)
+    pc = make_clients(ptr, scheme="dirichlet", num_devices=8,
+                      rng=np.random.default_rng(0), alpha=0.5)
+    ref = ref_make_algorithm("fedsr", RefTrainer(rm, rfl), rc, rfl)
+    port = make_algorithm("fedsr", LocalTrainer(pm, pfl, CPU), pc, pfl)
+    return ref, port
+
+
+@pytest.mark.parametrize("participation", [1.0, 0.75])
+def test_fedsr_schedule_and_block_arrays_are_identical(participation):
+    """Same seed -> same rings, batch plans, weights and comm; and the fused
+    engine stacks them into identical block arrays (participation 0.75
+    draws rings of uneven size: all-invalid ring-tail hops)."""
+    ref, port = _planners(participation)
+    rr, pr = np.random.default_rng(7), np.random.default_rng(7)
+    lrs = np.asarray([0.05, 0.04, 0.03])
+    rs = ref.plan_schedule(0, 3, rr, {})
+    ps = port.plan_schedule(0, 3, pr, {})
+    assert_schedules_equal(rs, ps)
+    np.testing.assert_array_equal(rs.visited(), ps.visited())
+    rxs = ref.engine._stack_cohort_schedule(rs.plans, lrs, "plain", {})
+    pxs = port.engine._stack_cohort_schedule(ps.plans, lrs)
+    assert sorted(rxs) == sorted(pxs)
+    for k in rxs:
+        assert rxs[k].dtype == pxs[k].dtype, k
+        np.testing.assert_array_equal(rxs[k], pxs[k], err_msg=k)
+    assert rr.bit_generator.state == pr.bit_generator.state
+
+
+def test_blocks_meter_identically_and_train_alike():
+    """Two blocks through ``run_schedule`` in both packages from the same
+    weights: identical comm meters, ``h2d_bytes``, ``dispatches`` (one per
+    block) and data-plane bytes; the trained global model within 1e-4."""
+    from repro.core.comm import CommMeter as RefMeter
+    from repro_torch.core.comm import CommMeter
+    from repro_torch.models.small import params_from_numpy
+    from repro_torch.utils.tree import layout_of, ravel_params, unravel
+
+    ref, port = _planners(1.0)
+    w0 = jax_init(ref.trainer.cfg)
+    rw = jax.tree.map(jnp.asarray, w0)
+    params = params_from_numpy(w0, CPU)
+    pw = ravel_params(params)
+    rmeter, pmeter = RefMeter(model_bytes=4), CommMeter(model_bytes=4)
+    rr, pr = np.random.default_rng(1), np.random.default_rng(1)
+    for t0, lrs in ((0, [0.05, 0.04]), (2, [0.03])):
+        rw, _ = ref.run_schedule(rw, t0, np.asarray(lrs), rr, rmeter, {})
+        pw, _ = port.run_schedule(pw, t0, np.asarray(lrs), pr, pmeter, {})
+    assert rmeter.snapshot() == pmeter.snapshot()
+    assert ref.trainer.h2d_bytes == port.trainer.h2d_bytes > 0
+    assert ref.trainer.dispatches == port.trainer.dispatches == 2
+    assert ref.engine.plane.nbytes == port.engine.plane.nbytes
+    assert ref.residency.peak_bytes == port.residency.peak_bytes
+    assert_trees_close(unravel(pw, layout_of(params)), rw, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# one SGD step of the full-width paper MLP
+
+
+def test_full_width_mlp_step_loss_and_lane_gradients():
+    from repro.models.small import classifier_loss as ref_loss
+    from repro_torch.core.local import LocalTrainer
+    from repro_torch.models.small import params_from_numpy
+    from repro_torch.utils.tree import ravel_params, unravel
+
+    (rm, _), (pm, pfl) = configs()
+    C, B = 3, 16
+    lanes = [jax_init(rm, seed) for seed in range(C)]
+    rng = np.random.default_rng(0)
+    images = rng.random((C, B, 28, 28, 1), dtype=np.float32)
+    labels = rng.integers(0, 10, (C, B)).astype(np.int32)
+
+    stacked = {k: jnp.stack([w[k] for w in lanes]) for k in lanes[0]}
+    ref_l, ref_g = jax.vmap(jax.value_and_grad(
+        lambda p, x, y: ref_loss(p, {"images": x, "labels": y}, rm)))(
+        stacked, jnp.asarray(images), jnp.asarray(labels))
+
+    trainer = LocalTrainer(pm, pfl, CPU)
+    flat = torch.stack([ravel_params(params_from_numpy(w, CPU))
+                        for w in lanes])
+    assert flat.shape == (C, 199_210)
+    losses, grads = trainer.lane_grads(
+        flat, {"images": torch.from_numpy(images),
+               "labels": torch.from_numpy(labels)})
+    assert grads.shape == flat.shape and grads.is_contiguous()
+    np.testing.assert_allclose(losses.numpy(), np.asarray(ref_l), atol=1e-5)
+    assert_trees_close(unravel(grads, trainer.layout), ref_g, atol=1e-5)
+    # the step itself, from zero momentum at a visit start: p - lr * g
+    lr = 0.05
+    trainer._update(flat, grads, torch.zeros_like(flat),
+                    torch.ones(C, dtype=torch.bool), torch.tensor([lr]),
+                    reset=True)
+    want = {k: stacked[k] - lr * ref_g[k] for k in stacked}
+    assert_trees_close(unravel(flat, trainer.layout), want, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# whole runs
+
+
+@pytest.mark.parametrize("use_fused_sgd", [True, False])
+def test_whole_run_matches_reference(use_fused_sgd):
+    from repro.core.executor import run_experiment as ref_run
+    from repro_torch.core.executor import run_experiment
+
+    (rm, rfl), (pm, pfl) = configs(SMALL, **_fl(use_fused_sgd=use_fused_sgd))
+    (rtr, rte), (ptr, pte) = _tasks()
+    ref = ref_run(task="mnist_like", model_cfg=rm, fl=rfl, eval_every=2,
+                  train=rtr, test=rte)
+    port = run_experiment(task="mnist_like", model_cfg=pm, fl=pfl,
+                          eval_every=2, train=ptr, test=pte,
+                          init_params=jax_init(rm, rfl.seed), device="cpu")
+    assert [r.round for r in ref.history] == [r.round for r in port.history]
+    for a, b in zip(ref.history, port.history):
+        assert abs(a.accuracy - b.accuracy) <= 1.0 / len(rte) + 1e-6
+        assert a.comm == b.comm
+        assert a.rounds == b.rounds
+        assert np.float32(a.lr) == np.float32(b.lr)
+    assert port.dispatches == 2
+    assert_trees_close(port.final_model, ref.final_model, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# port rules
+
+_PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+_FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|jaxlib|repro)\b",
+                        re.MULTILINE)
+
+
+def test_port_sources_import_nothing_of_jax_or_the_reference():
+    offenders = [str(f.relative_to(ROOT)) for f in _PORT_FILES
+                 if _FORBIDDEN.search(f.read_text())]
+    assert offenders == []
+
+
+def test_importing_the_port_leaves_jax_unloaded():
+    mods = ["repro_torch", "repro_torch.core", "repro_torch.core.executor",
+            "repro_torch.core.algorithms", "repro_torch.core.local",
+            "repro_torch.core.engines.fused", "repro_torch.data",
+            "repro_torch.data.store", "repro_torch.kernels.fused_sgd",
+            "repro_torch.kernels.fused_sgd.kernel",
+            "repro_torch.models.small", "repro_torch.configs.fedsr_mlp"]
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+            "print(bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize("override", [
+    {"algorithm": "fedavg"}, {"engine": "batched"}, {"engine": "sequential"},
+    {"store": "host"}, {"prefetch": 1}, {"reducer": "median"},
+    {"dp_clip": 1.0}, {"mesh_data_axis": "data"},
+    {"scenario": "drop"}, {"adversary": "sign_flip"},
+    {"personalize": "full"}, {"family": "cnn"}, {"checkpoint": True},
+])
+def test_unported_options_raise(override, tmp_path):
+    from repro_torch.configs.base import (
+        AdversaryConfig, PersonalizeConfig, ScenarioConfig,
+    )
+    from repro_torch.core.executor import run_experiment
+
+    override = dict(override)
+    model_kw, run_kw = dict(SMALL), {}
+    if override.pop("family", None):
+        model_kw["family"] = "cnn"
+    if override.pop("checkpoint", None):
+        run_kw["checkpoint_dir"] = str(tmp_path)
+    if override.pop("scenario", None):
+        override["scenario"] = ScenarioConfig(drop_rate=0.5)
+    if override.pop("adversary", None):
+        override["adversary"] = AdversaryConfig(frac=0.25)
+    if override.pop("personalize", None):
+        override["personalize"] = PersonalizeConfig(epochs=1)
+    _, (pm, pfl) = configs(model_kw, **_fl(**override))
+    _, (ptr, pte) = _tasks(train_per_class=4, test_per_class=1)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        run_experiment(task="mnist_like", model_cfg=pm, fl=pfl, train=ptr,
+                       test=pte, device="cpu", **run_kw)
+
+
+def test_entry_point_refuses_to_fall_back_to_the_cpu(monkeypatch):
+    from repro_torch.core.executor import run_experiment
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, (pm, pfl) = configs(SMALL, **_fl())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_experiment(task="mnist_like", model_cfg=pm, fl=pfl)

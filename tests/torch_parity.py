@@ -1,0 +1,74 @@
+"""Shared helpers of the PyTorch-port parity tests (NOT a test module).
+
+Every port test runs the JAX package (the reference, ``repro``) and its
+twin in ``repro_torch`` on the same inputs — configs built field for field
+in both packages, data and weights made from a seed with numpy — and
+compares what they return, exactly for host-side integer/plan data and
+within a stated tolerance for float math. Data crosses between the two
+packages only as numpy arrays.
+"""
+import dataclasses
+
+import numpy as np
+
+
+def configs(model_overrides=None, **fl_kw):
+    """``((ref_model, ref_fl), (port_model, port_fl))``: the paper MLP and
+    one FLConfig, built with the same overrides in both packages."""
+    from repro.configs.base import FLConfig as RefFL
+    from repro.configs.fedsr_mlp import CONFIG as REF_MLP
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.configs.fedsr_mlp import CONFIG
+
+    mo = dict(model_overrides or {})
+    return ((dataclasses.replace(REF_MLP, **mo), RefFL(**fl_kw)),
+            (dataclasses.replace(CONFIG, **mo), FLConfig(**fl_kw)))
+
+
+def jax_init(ref_cfg, seed: int = 0) -> dict:
+    """The reference's initial ``w_glob`` (``init_small_model`` from
+    ``PRNGKey(seed)``, as its executor draws it) as numpy arrays."""
+    import jax
+    from repro.models.small import init_small_model
+
+    return to_numpy(init_small_model(jax.random.PRNGKey(seed), ref_cfg))
+
+
+def to_numpy(tree) -> dict:
+    """A parameter dict of either package as float32 numpy arrays."""
+    out = {}
+    for k, v in tree.items():
+        if hasattr(v, "detach"):
+            v = v.detach().cpu().numpy()
+        out[k] = np.asarray(v, np.float32)
+    return out
+
+
+def assert_trees_close(a, b, *, atol: float, rtol: float = 0.0) -> None:
+    a, b = to_numpy(a), to_numpy(b)
+    assert sorted(a) == sorted(b), (sorted(a), sorted(b))
+    for k in a:
+        np.testing.assert_allclose(a[k], b[k], atol=atol, rtol=rtol,
+                                   err_msg=f"leaf {k}")
+
+
+def assert_schedules_equal(ref_sched, port_sched) -> None:
+    """Two Schedules (one per package) hold identical plans: same ids,
+    same batch-index arrays, same aggregation weights, comm records and
+    simulated seconds."""
+    assert ref_sched.comm == port_sched.comm
+    assert len(ref_sched.plans) == len(port_sched.plans)
+    for rp, pp in zip(ref_sched.plans, port_sched.plans):
+        assert rp.comm == pp.comm
+        assert rp.sim_seconds == pp.sim_seconds
+        assert len(rp.groups) == len(pp.groups)
+        for rg, pg in zip(rp.groups, pp.groups):
+            assert rg.agg.lane_weights == pg.agg.lane_weights
+            assert rg.agg.group_weights == pg.agg.group_weights
+            assert len(rg.hops) == len(pg.hops)
+            for rh, ph in zip(rg.hops, pg.hops):
+                assert rh.ids == ph.ids
+                for a, b in zip(rh.plans, ph.plans):
+                    assert (a is None) == (b is None)
+                    if a is not None:
+                        np.testing.assert_array_equal(a, b)
