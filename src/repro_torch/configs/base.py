@@ -61,6 +61,17 @@ class ModelConfig:
     cnn_channels: Tuple[int, ...] = (32, 64, 64)
     source: str = ""                # citation for the config
 
+    @property
+    def resolved_head_dim(self) -> int:
+        if self.head_dim:
+            return self.head_dim
+        return self.d_model // max(self.num_heads, 1)
+
+    def moe_on_layer(self, layer: int) -> bool:
+        if self.num_experts <= 0:
+            return False
+        return layer % max(self.moe_every, 1) == self.moe_offset
+
 
 @dataclasses.dataclass(frozen=True)
 class ScenarioConfig:

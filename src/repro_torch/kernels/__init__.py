@@ -3,4 +3,6 @@
 # here holds kernel.py (ctypes binding), ops.py (the checked public wrapper
 # with its launch counter) and ref.py (the plain PyTorch version the CPU
 # runs and the card is held against). kernels.build compiles the sources.
-#   fused_sgd/  lane-stacked fused momentum-SGD update (the FL inner update)
+#   fused_sgd/         lane-stacked fused momentum-SGD update (the FL inner update)
+#   flash_attention/   blockwise causal GQA attention (prefill)
+#   decode_attention/  one-query GQA attention over a KV cache (decode)

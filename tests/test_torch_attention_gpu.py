@@ -1,0 +1,123 @@
+"""The flash- and decode-attention CUDA kernels against their plain
+PyTorch versions, on the card.
+
+Needs a CUDA device and the CUDA toolkit; imports no JAX, so it runs on a
+GPU machine without the JAX package's dependencies:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_attention_gpu.py
+
+Without a card every case skips. Online softmax sums in another order than
+the plain version, so the two agree within 1e-5 in float32 and 2e-2 in
+bfloat16 (one rounding of the output), the bounds of
+``tests/test_kernels.py``.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels.decode_attention.ops import (
+    decode_attention, decode_attention_plain,
+)
+from repro_torch.kernels.flash_attention.ops import (
+    flash_attention, flash_attention_plain,
+)
+
+TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _randn(rng, shape, dtype, device):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
+        device=device, dtype=dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,kv,hd,window,causal", [
+    (2, 64, 4, 2, 32, 0, True),
+    (1, 128, 8, 8, 64, 0, True),
+    (2, 64, 4, 1, 32, 0, True),           # MQA
+    (1, 256, 4, 2, 128, 0, True),
+    (1, 128, 4, 2, 32, 16, True),
+    (1, 128, 4, 2, 32, 48, True),
+    (1, 128, 4, 2, 32, 100, True),
+    (1, 1000, 8, 2, 64, 0, True),         # ragged S
+    (1, 1000, 8, 2, 64, 300, True),
+    (2, 64, 4, 2, 32, 0, False),
+    (1, 256, 32, 4, 128, 0, True),        # yi-9b heads
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain_version(cuda, b, s, h, kv, hd, window,
+                                            causal, dtype):
+    rng = np.random.default_rng(s + h + window)
+    q = _randn(rng, (b, s, h, hd), dtype, cuda)
+    k = _randn(rng, (b, s, kv, hd), dtype, cuda)
+    v = _randn(rng, (b, s, kv, hd), dtype, cuda)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    assert out.dtype == dtype and out.shape == q.shape
+    err = (out.float() - want.float()).abs().max().item()
+    assert err <= TOL[dtype], err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,kv,t,hd,window", [
+    (2, 8, 2, 256, 32, 0),
+    (2, 8, 2, 256, 32, 100),
+    (1, 4, 4, 512, 64, 0),
+    (1, 4, 4, 512, 64, 100),
+    (3, 8, 1, 128, 128, 0),               # MQA
+    (3, 8, 1, 128, 128, 100),
+    (4, 32, 4, 48, 128, 0),               # yi-9b serving default
+    (2, 32, 2, 300, 128, 0),              # G = 16
+])
+@pytest.mark.parametrize("qd,cd", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("edge", [None, "one", "full"])
+def test_decode_kernel_matches_plain_version(cuda, b, h, kv, t, hd, window,
+                                             qd, cd, edge):
+    rng = np.random.default_rng(b + t + hd + window)
+    q = _randn(rng, (b, 1, h, hd), qd, cuda)
+    k = _randn(rng, (b, t, kv, hd), cd, cuda)
+    v = _randn(rng, (b, t, kv, hd), cd, cuda)
+    lengths = {None: rng.integers(1, t + 1, size=b), "one": np.ones(b),
+               "full": np.full(b, t)}[edge]
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    before = decode_attention.launches
+    out = decode_attention(q, k, v, lengths, window=window)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    want = decode_attention_plain(q, k, v, lengths, window=window)
+    assert out.dtype == qd and out.shape == q.shape
+    err = (out.float() - want.float()).abs().max().item()
+    assert err <= TOL[qd], err
+
+
+@pytest.mark.gpu
+def test_cuda_tensors_never_fall_back_to_the_plain_version(cuda):
+    q = torch.zeros(1, 8, 4, 48, device=cuda)      # hd the kernel lacks
+    with pytest.raises(ValueError):
+        flash_attention(q, q[:, :, :2], q[:, :, :2])
+    with pytest.raises(ValueError):                 # mixed devices
+        flash_attention(torch.zeros(1, 8, 4, 32, device=cuda),
+                        torch.zeros(1, 8, 2, 32), torch.zeros(1, 8, 2, 32))
+    qd = torch.zeros(2, 1, 4, 32, device=cuda)
+    kc = torch.zeros(2, 16, 2, 32, device=cuda)
+    with pytest.raises(TypeError):                  # int64 lengths on the card
+        decode_attention(qd, kc, kc, torch.ones(2, dtype=torch.int64,
+                                                device=cuda))
+    with pytest.raises(TypeError):                  # f32 q over a bf16 cache
+        decode_attention(qd, kc.bfloat16(), kc.bfloat16(),
+                         torch.ones(2, dtype=torch.int32, device=cuda))
