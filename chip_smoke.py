@@ -15,7 +15,10 @@ non-zero at the end, before any result line is printed):
    ``fused_sgd`` bit for bit over the sweep of the JAX package's kernel
    tests; ``flash_attention`` and ``decode_attention`` within 1e-5
    (float32) / 2e-2 (bfloat16) over that sweep plus ragged S, MQA, mixed
-   bf16-q/f32-cache decode, lengths 1 and T, and the paths' own shapes.
+   bf16-q/f32-cache decode, lengths 1 and T, and the paths' own shapes;
+   ``ssd_scan`` within 1e-5 (float32) / 1e-2 (bfloat16) of the output
+   scale over that sweep plus ragged L, strided views (the model's
+   layout) and the mamba2 path's shape.
 3. The FedSR path: ``repro_torch`` ``run_experiment`` runs FedSR on the
    paper MLP at full width (199,210 parameters, ``mnist_like`` at its
    default 2,000/400 images, K=20, M=5, R=5, E=1, batch 32,
@@ -42,11 +45,27 @@ non-zero at the end, before any result line is printed):
    ``prefill_step`` at B=1, S=4096 and ``prefill_and_decode`` at the CLI
    defaults (B=4, 16 + 32), timed, with their launch counts — the counts
    the result line reports; the prefill logits against the plain versions'
-   on the card; and a profiler pass over one decode step.
-6. Attention kernel times with the L2 cache flushed, against the bound,
-   the plain version and one library call
-   (``scaled_dot_product_attention``) at the path's shapes and at one
-   layer of decode_32k.
+   on the card; each launch against its plain version on its own inputs;
+   a profiler pass over one prefill and one decode step.
+6. The mamba2-2.7b serving path at full width and 2 layers, GPU against
+   CPU from the same CPU-drawn weights, in float32 and bfloat16, as in
+   phase 4; also ``prefill_step`` (the chunked scan) against
+   ``decode_step`` fed the same tokens (the recurrence), and the plain scan
+   in place of the kernel. ``ssd_scan`` launches ``num_layers`` times per
+   ``prefill_step`` and never in ``prefill_and_decode``: the reference
+   serves a prompt through ``decode_step``, whose Mamba2 branch is the
+   O(1) recurrence.
+7. The mamba2-2.7b path at full width and depth (64 layers, 11.3 GB of
+   float32 weights drawn on the card): ``prefill_step`` at B=1, S=4096 and
+   ``prefill_and_decode`` at the CLI defaults, timed, with launch counts
+   and peak memory; each launch against the plain scan on its own inputs;
+   the 64-layer logits against the plain scan's, bounded in float32 and
+   logged in bfloat16; a profiler pass over one prefill and one decode
+   step.
+8. Kernel times with the L2 cache flushed, against the bound, the plain
+   version and one library call where PyTorch has one
+   (``scaled_dot_product_attention``; none computes the SSD scan) at the
+   paths' shapes and at one layer of decode_32k.
 
 The last lines of standard output are one JSON line describing every
 kernel, the card's ``nvidia-smi`` name and power limit, and the result
@@ -93,6 +112,23 @@ def nvidia_smi() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def build_report(name: str, log_text) -> str:
+    """One line on a kernel library: the registers and spills ptxas
+    reported when this process compiled it, or, when ``kernels.build``
+    found it already built in ``build/`` (no log in this process), that it
+    was reused."""
+    if log_text is None:
+        return f"[build] {name}: reused from build/ (no ptxas log)"
+    lines = log_text.splitlines()
+    regs = [int(line.split("Used ")[1].split()[0]) for line in lines
+            if "registers" in line]
+    spills = [line.strip() for line in lines
+              if "spill" in line and " 0 bytes spill" not in line]
+    return (f"[build] {name}: {len(regs)} entry points, registers "
+            f"{min(regs, default=0)}-{max(regs, default=0)}"
+            + (f"; spills: {spills[:3]}" if spills else ", no spills"))
 
 
 def kernel_sweep(fused_sgd_lanes, sgd_lanes_reference) -> float:
@@ -430,7 +466,7 @@ def compare_logits(got, want, bounds, what: str) -> None:
     err = ((got - want).abs().max(-1).values / scale).numpy()
     median, every, least_top1 = bounds
     top1 = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
-    log(f"[lm] {what}: relative |diff| median {np.median(err):.3e}, "
+    log(f"[serve] {what}: relative |diff| median {np.median(err):.3e}, "
         f"p99 {np.quantile(err, 0.99):.3e}, max {err.max():.3e} over "
         f"{err.size} positions; top-1 agreement {top1:.4f}")
     check(np.median(err) <= median and err.max() <= every
@@ -440,49 +476,190 @@ def compare_logits(got, want, bounds, what: str) -> None:
           f"{least_top1})")
 
 
-class swap_attention:
-    """Within the block, the model's two attention call sites run ``fns``
-    (a comparison harness: the port itself never falls back)."""
+# ---------------------------------------------------------------------------
+# the SSD scan and the mamba2-2.7b serving path
 
-    def __init__(self, fns):
-        self.fns = fns
+SSD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# (b, l, h, g, p, n, chunk): tests/test_kernels.py's sweep (a ragged L and
+# groups == heads included), a ragged L with G=2, and mamba2-2.7b's head
+# shape (G=1, P=64, N=Q=128) up to the path's prefill length
+SSD_SWEEP = [
+    (2, 64, 4, 1, 16, 8, 16), (1, 96, 8, 2, 32, 16, 32),
+    (2, 50, 4, 1, 16, 8, 16), (1, 128, 4, 4, 64, 32, 64),
+    (1, 100, 4, 2, 16, 8, 32), (1, 32, 2, 1, 8, 4, 16),
+    (2, 300, 8, 8, 64, 128, 128), (1, 4000, 80, 1, 64, 128, 128),
+]
+SSD_STRIDED = [(2, 1000, 80, 1, 64, 128, 128)]
+SSD_PATH = (1, 4096, 80, 1, 64, 128, 128)     # mamba2-2.7b prefill_step
+
+
+def ssd_inputs(gen, shape, dtype, strided, dt_kind):
+    """x, dt, a, B, C for one scan. ``strided``: x, B and C are column
+    slices of one (b, l, h*p + 2*g*n) buffer, as the model's conv output
+    hands them to the kernel. ``dt_kind``: "small" as in the JAX package's
+    tests (|N(0, 0.5)| + 0.01), or "path" as the model draws it with its
+    zero ``dt_bias`` (softplus of a small projection, about 0.69)."""
+    b, l, h, g, p, n, _ = shape
+    if strided:
+        xbc = _randn(gen, (b, l, h * p + 2 * g * n), dtype)
+        xbc[..., h * p:] *= 0.3
+        x = xbc[..., :h * p].reshape(b, l, h, p)
+        bm = xbc[..., h * p:h * p + g * n].reshape(b, l, g, n)
+        cm = xbc[..., h * p + g * n:].reshape(b, l, g, n)
+    else:
+        x = _randn(gen, (b, l, h, p), dtype)
+        bm, cm = (_randn(gen, (b, l, g, n), dtype) * 0.3 for _ in range(2))
+    raw = torch.randn((b, l, h), device="cuda", generator=gen)
+    dt = (raw.abs() * 0.5 + 0.01 if dt_kind == "small"
+          else torch.nn.functional.softplus(raw * 0.05))
+    a = -torch.rand(h, device="cuda", generator=gen) - 0.1
+    return x, dt, a, bm, cm
+
+
+def ssd_sweep(ssd, ssd_plain) -> float:
+    """Phase 2 for the SSD scan: the kernel against its plain version.
+    Returns the largest |diff|."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    cases = [(c, False) for c in SSD_SWEEP + [SSD_PATH]]
+    cases += [(c, True) for c in SSD_STRIDED + [SSD_PATH]]
+    worst = worst_rel = 0.0
+    for shape, strided in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            for dt_kind in ("small", "path"):
+                args = ssd_inputs(gen, shape, dtype, strided, dt_kind)
+                out = ssd(*args, chunk=shape[-1])
+                want = ssd_plain(*args, chunk=shape[-1]).float()
+                torch.cuda.synchronize()
+                err = (out.float() - want).abs().max().item()
+                scale = max(want.abs().max().item(), 1e-6)
+                worst, worst_rel = max(worst, err), max(worst_rel, err / scale)
+                log(f"[sweep] ssd b,l,h,g,p,n,chunk={shape} {str(dtype)[6:]} "
+                    f"dt={dt_kind}{' strided' if strided else ''}: "
+                    f"max_abs_err {err:.3e} (scale {scale:.3e}, relative "
+                    f"{err / scale:.3e})")
+                check(err <= SSD_TOL[dtype] * scale and out.dtype == dtype
+                      and out.shape == want.shape,
+                      f"ssd_scan != plain version at {shape} {dtype} "
+                      f"dt={dt_kind} strided={strided}: {err / scale:.3e} "
+                      "of the output scale")
+                del args, out, want
+    log(f"[sweep] {len(cases) * 4} ssd cases; worst |diff| {worst:.3e}, "
+        f"worst relative to the output scale {worst_rel:.3e}")
+    return worst
+
+
+# How closely the mamba2 path must agree, and why. It has no attention:
+# nothing near one-hot passes a rounding difference on whole, so the
+# bounds are those of plain float32 and bfloat16 arithmetic.
+# SSD_TOL also bounds each launch against its plain version on that
+#   launch's inputs, relative to max(1, max |plain|).
+# SSM_GPU_VS_CPU: the 2560-, 5120- and 10576-wide projections sum in
+#   another order (float32) or round to another bfloat16 (bfloat16).
+# SSM_KERNEL_VS_PLAIN: the same GPU path with the plain scan shares every
+#   projection bit for bit; what differs is the scan's summation order,
+#   and in bfloat16 the one-ulp flips of y that it causes.
+# SSM_CHUNKED_VS_RECURRENT: prefill_step (the chunked scan, the kernel)
+#   against decode_step fed the same tokens (the O(1) recurrence): the
+#   same function, summed in another order, with one more bfloat16
+#   rounding of the conv output on each side.
+# SSM_DEEP_F32: 64 layers, kernel vs plain, float32: a difference of
+#   ~1e-7 of the scale at each launch, carried through 64 residual blocks.
+#   The bfloat16 twin of this comparison is logged and not bounded: there
+#   each one-ulp flip of a layer's bfloat16 output is a 2**-8 relative
+#   step that the next 63 layers carry on, so the two runs drift apart by
+#   rounding alone (a few % of the logit scale), not by a fault.
+SSM_GPU_VS_CPU = {"float32": (1e-4, 1e-3, 0.99),
+                  "bfloat16": (3e-2, 1e-1, 0.90)}
+SSM_KERNEL_VS_PLAIN = {"float32": (1e-5, 1e-4, 0.99),
+                       "bfloat16": (1e-2, 5e-2, 0.95)}
+SSM_CHUNKED_VS_RECURRENT = SSM_KERNEL_VS_PLAIN
+SSM_DEEP_F32 = (1e-4, 1e-3, 0.99)
+
+
+# ---------------------------------------------------------------------------
+# the serving paths: yi-9b (phases 4-5) and mamba2-2.7b (phases 6-7)
+
+@dataclasses.dataclass
+class ServePath:
+    """One serving path as phases 4-7 drive it: its full-width config, the
+    model module whose kernel call sites a comparison swaps, its kernels
+    and their plain versions, the launch counts it must show and the
+    bounds it is held to."""
+    name: str
+    cfg: object
+    module: object
+    kernels: dict
+    plain: dict
+    prefill_launches: object      # cfg -> {kernel: launches per prefill_step}
+    serve_launches: object        # (cfg, positions) -> per prefill_and_decode
+    launch_tol: dict              # torch dtype -> bound of each launch
+    gpu_vs_cpu: dict              # dtype name -> compare_logits bounds
+    kernel_vs_plain: dict
+    deep_note: str                # why the full-depth bfloat16 logits are
+                                  # logged against the plain versions' only
+    prefill_vs_decode: dict = None  # prefill_step vs decode_step, same tokens
+    deep_f32: tuple = None        # full-depth float32 kernels-vs-plain bound
+    serve_note: str = ""          # logged beside the full-depth counts
+
+
+class swap_calls:
+    """Within the block, the named kernel call sites of the model module
+    ``module`` run ``fns`` (a comparison harness: the port itself never
+    falls back)."""
+
+    def __init__(self, fns, module):
+        self.fns, self.mod = fns, module
 
     def __enter__(self):
-        from repro_torch.models import layers
-        self.saved = {k: getattr(layers, k) for k in self.fns}
+        self.saved = {k: getattr(self.mod, k) for k in self.fns}
         for k, fn in self.fns.items():
-            setattr(layers, k, fn)
+            setattr(self.mod, k, fn)
 
     def __exit__(self, *exc):
-        from repro_torch.models import layers
         for k, fn in self.saved.items():
-            setattr(layers, k, fn)
+            setattr(self.mod, k, fn)
 
 
-def checked_attention(kernels, plain, errs):
-    """Every kernel launch also runs its plain version on the same inputs
-    and records max |diff| / max(1, max |plain|) in ``errs[name]``; the
-    kernel's output goes on."""
+def checked_calls(path: ServePath, errs):
+    """Every kernel launch of ``path`` also runs its plain version on the
+    same inputs and records max |diff| / max(1, max |plain|) in
+    ``errs[name]``; the kernel's output goes on."""
     def wrap(name):
         def fn(*args, **kw):
-            out = kernels[name](*args, **kw)
-            want = plain[name](*args, **kw).float()
+            out = path.kernels[name](*args, **kw)
+            want = path.plain[name](*args, **kw).float()
             errs[name].append(((out.float() - want).abs().max()
                                / want.abs().max().clamp(min=1.0)).item())
             return out
         return fn
-    return swap_attention({k: wrap(k) for k in kernels})
+    return swap_calls({k: wrap(k) for k in path.kernels}, path.module)
 
 
-def check_launch_errs(errs, dtype, what):
-    tol = LAUNCH_TOL[dtype]
+def check_launch_errs(errs, tol, what):
     for name, e in errs.items():
-        log(f"[lm] {what}: {name} against its plain version on each "
+        log(f"[serve] {what}: {name} against its plain version on each "
             f"launch's inputs, {len(e)} launches: relative max |diff| "
             f"{max(e, default=0.0):.3e} (bound {tol:g})")
         check(len(e) > 0 and max(e) <= tol,
               f"{what}: {name} launch differs from its plain version by "
               f"{max(e, default=float('nan')):.3e} of the output scale")
+
+
+def reset_launches(path: ServePath) -> None:
+    for k in path.kernels.values():
+        k.launches = 0
+
+
+def read_launches(path: ServePath) -> dict:
+    return {name: k.launches for name, k in path.kernels.items()}
+
+
+def check_launches(path, cfg, positions, n_prefill, n_serve, what):
+    want_prefill = path.prefill_launches(cfg)
+    want_serve = path.serve_launches(cfg, positions)
+    check(n_prefill == want_prefill and n_serve == want_serve,
+          f"{what}: launches {n_prefill} per prefill_step and {n_serve} per "
+          f"prefill_and_decode, expected {want_prefill} and {want_serve}")
 
 
 def teacher_forced_logits(cfg, params, toks, device):
@@ -500,22 +677,21 @@ def teacher_forced_logits(cfg, params, toks, device):
     return torch.cat(out, dim=1)
 
 
-def lm_two_layers(kernels, plain):
-    """Phase 4: the yi-9b path at full width and 2 layers on the GPU and
+
+def serve_two_layers(path: ServePath) -> None:
+    """Phases 4 and 6: ``path`` at full width and 2 layers on the GPU and
     on the CPU from the same CPU-drawn weights, in float32 and bfloat16;
     and on the GPU with the plain versions in place of the kernels."""
-    from repro_torch.configs.yi_9b import CONFIG as YI
     from repro_torch.launch.serve import prefill_and_decode
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models.transformer import init_model
 
-    flash, decode = kernels["flash_attention"], kernels["decode_attention"]
-    base = dataclasses.replace(YI, num_layers=2)
+    base = dataclasses.replace(path.cfg, num_layers=2)
     t0 = time.perf_counter()
     cpu_params = init_model(torch.Generator().manual_seed(0), base,
                             torch.device("cpu"))
     gpu_params = _tree(cpu_params, lambda x: x.cuda())
-    log(f"[lm] 2-layer yi-9b weights drawn on the CPU in "
+    log(f"[serve] 2-layer {path.name} weights drawn on the CPU in "
         f"{time.perf_counter() - t0:.1f}s")
     rng = np.random.default_rng(0)
     tokens = torch.from_numpy(rng.integers(0, base.vocab_size, (1, 256))
@@ -525,67 +701,87 @@ def lm_two_layers(kernels, plain):
     s0, n = prompts.shape[1], 8
     for dtype in ("float32", "bfloat16"):
         cfg = dataclasses.replace(base, dtype=dtype)
+        prefill = make_prefill_step(cfg)
+        what = f"{path.name} 2 layers {dtype}"
         runs = {}
         for device, params in (("cuda", gpu_params), ("cpu", cpu_params)):
             t0 = time.perf_counter()
-            flash.launches = decode.launches = 0
-            logits = make_prefill_step(cfg)(params, tokens.to(device))
-            n_flash = flash.launches
-            toks, stats = prefill_and_decode(cfg, params, prompts.to(device),
-                                             max_len=s0 + n, new_tokens=n)
-            n_decode = decode.launches
-            runs[device] = (logits.float().cpu(), toks.cpu(), n_flash,
-                            n_decode)
-            log(f"[lm] 2 layers {dtype} {device}: prefill_step {tuple(logits.shape)}"
-                f", generated {tuple(toks.shape)}; flash launches {n_flash}, "
-                f"decode launches {n_decode}; {time.perf_counter() - t0:.1f}s")
-        (gl, gt, gf, gd), (cl, ct, cf, cd) = runs["cuda"], runs["cpu"]
-        check(gf == cfg.num_layers,
-              f"{dtype}: {gf} flash launches per prefill_step, expected "
-              f"{cfg.num_layers}")
-        check(gd == cfg.num_layers * (s0 + n),
-              f"{dtype}: {gd} decode launches per prefill_and_decode, "
-              f"expected {cfg.num_layers * (s0 + n)}")
-        check(cf == cd == 0, f"{dtype}: the CPU run launched a kernel")
-        compare_logits(gl, cl, GPU_VS_CPU[dtype],
-                       f"{dtype} prefill_step B=1 S=256, GPU vs CPU")
+            reset_launches(path)
+            logits = prefill(params, tokens.to(device))
+            n_prefill = read_launches(path)
+            reset_launches(path)
+            toks, _ = prefill_and_decode(cfg, params, prompts.to(device),
+                                         max_len=s0 + n, new_tokens=n)
+            n_serve = read_launches(path)
+            runs[device] = (logits.float().cpu(), toks.cpu())
+            log(f"[serve] {what} {device}: prefill_step "
+                f"{tuple(logits.shape)}, generated {tuple(toks.shape)}; "
+                f"launches {n_prefill} per prefill_step, {n_serve} per "
+                f"prefill_and_decode; {time.perf_counter() - t0:.1f}s")
+            if device == "cuda":
+                check_launches(path, cfg, s0 + n, n_prefill, n_serve, what)
+            else:
+                check(not any(n_prefill.values()) and not any(
+                    n_serve.values()), f"{what}: the CPU run launched a kernel")
+        (gl, gt), (cl, ct) = runs["cuda"], runs["cpu"]
+        compare_logits(gl, cl, path.gpu_vs_cpu[dtype],
+                       f"{what} prefill_step B=1 S=256, GPU vs CPU")
         # every GPU token, given the same prefix, is a near-maximum of the
         # CPU's logits; decode logits compared along that same path
         g_tf = teacher_forced_logits(cfg, gpu_params, gt, "cuda")
         c_tf = teacher_forced_logits(cfg, cpu_params, gt, "cpu")
-        compare_logits(g_tf, c_tf, GPU_VS_CPU[dtype],
-                       f"{dtype} decode_step B=4 (teacher forced), GPU vs CPU")
-        with swap_attention(plain):
-            pl = make_prefill_step(cfg)(gpu_params, tokens.cuda())
+        compare_logits(g_tf, c_tf, path.gpu_vs_cpu[dtype],
+                       f"{what} decode_step B=4 (teacher forced), GPU vs CPU")
+        if path.prefill_vs_decode is not None:
+            compare_logits(prefill(gpu_params, gt.cuda()), g_tf,
+                           path.prefill_vs_decode[dtype],
+                           f"{what} prefill_step vs decode_step fed the same "
+                           "tokens on the card")
+        with swap_calls(path.plain, path.module):
+            pl = prefill(gpu_params, tokens.cuda())
             p_tf = teacher_forced_logits(cfg, gpu_params, gt, "cuda")
-        compare_logits(gl, pl, KERNEL_VS_PLAIN[dtype],
-                       f"{dtype} prefill_step, kernels vs plain on the card")
-        compare_logits(g_tf, p_tf, KERNEL_VS_PLAIN[dtype],
-                       f"{dtype} decode_step, kernels vs plain on the card")
-        errs = {"flash_attention": [], "decode_attention": []}
-        with checked_attention(kernels, plain, errs):
-            make_prefill_step(cfg)(gpu_params, tokens.cuda())
+        compare_logits(gl, pl, path.kernel_vs_plain[dtype],
+                       f"{what} prefill_step, kernels vs plain on the card")
+        compare_logits(g_tf, p_tf, path.kernel_vs_plain[dtype],
+                       f"{what} decode_step, kernels vs plain on the card")
+        errs = {k: [] for k in path.kernels}
+        with checked_calls(path, errs):
+            prefill(gpu_params, tokens.cuda())
             teacher_forced_logits(cfg, gpu_params, gt, "cuda")
-        check_launch_errs(errs, getattr(torch, dtype), f"2 layers {dtype}")
+        check_launch_errs(errs, path.launch_tol[getattr(torch, dtype)], what)
         tol = GREEDY_TOL[dtype] * max(1.0, c_tf.abs().max().item())
         prev = c_tf[:, s0 - 1:s0 + n - 1]                  # (B, N, V)
         chosen = prev.gather(-1, gt[:, s0:].long().unsqueeze(-1))[..., 0]
         near = (chosen >= prev.max(-1).values - tol).float().mean().item()
         same = (gt[:, s0:] == ct[:, s0:]).float().mean().item()
-        log(f"[lm] greedy {dtype}: GPU tokens equal to the CPU's: {same:.4f};"
-            f" GPU tokens within {tol:.3e} of the CPU's max logit: {near:.4f}")
-        check(near == 1.0, f"greedy {dtype}: a GPU token is not a near-max "
-              f"of the CPU's logits")
+        log(f"[serve] {what} greedy: GPU tokens equal to the CPU's: "
+            f"{same:.4f}; GPU tokens within {tol:.3e} of the CPU's max "
+            f"logit: {near:.4f}")
+        check(near == 1.0, f"{what} greedy: a GPU token is not a near-max "
+              "of the CPU's logits")
     del gpu_params
     torch.cuda.empty_cache()
 
 
-def lm_full_depth(kernels, plain):
-    """Phase 5: the yi-9b path at full width and depth. Returns the
-    launch counts of the timed run."""
+def profiled(fn, what: str) -> None:
+    """``fn(1)`` under the profiler, after a warm-up call ``fn(0)``."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.configs.yi_9b import CONFIG as cfg
+    fn(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn(1)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    profile_report(prof, wall_us, what)
+
+
+def serve_full_depth(path: ServePath) -> dict:
+    """Phases 5 and 7: ``path`` at full width and depth, weights drawn on
+    the card from a CUDA generator. Returns the launch counts of the timed
+    ``prefill_step`` and ``prefill_and_decode`` together."""
     from repro_torch.launch.serve import prefill_and_decode
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models.transformer import (
@@ -593,91 +789,97 @@ def lm_full_depth(kernels, plain):
     )
     from repro_torch.nn.module import param_count
 
-    flash, decode = kernels["flash_attention"], kernels["decode_attention"]
-    cuda = torch.device("cuda")
+    cfg, cuda, seq = path.cfg, torch.device("cuda"), 4096
+    what = f"{path.name} {cfg.num_layers} layers"
     t0 = time.perf_counter()
     params = init_model(torch.Generator(device="cuda").manual_seed(0), cfg,
                         cuda)
     torch.cuda.synchronize()
     n_params = param_count(model_specs(cfg))
-    log(f"[lm] yi-9b 48 layers: {n_params:,} parameters "
-        f"({4 * n_params / 1e9:.2f} GB float32) drawn on the card in "
-        f"{time.perf_counter() - t0:.2f}s; {cfg.dtype} activations")
+    log(f"[serve] {what}: {n_params:,} parameters ({4 * n_params / 1e9:.2f}"
+        f" GB float32) drawn on the card in {time.perf_counter() - t0:.2f}s;"
+        f" {cfg.dtype} activations")
     rng = np.random.default_rng(1)
-    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 4096))
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, seq))
                               .astype(np.int32)).to(cuda)
     prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 16))
                                .astype(np.int32)).to(cuda)
     prefill = make_prefill_step(cfg)
     # warm-up at small shapes (library handles, first launches): not timed
-    prefill(params, tokens[:, :64])
+    prefill(params, tokens[:, :256])
     prefill_and_decode(cfg, params, prompts, max_len=18, new_tokens=2)
     torch.cuda.synchronize()
 
     torch.cuda.reset_peak_memory_stats()
-    flash.launches = decode.launches = 0
+    reset_launches(path)
     t0 = time.perf_counter()
     logits = prefill(params, tokens)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
+    n_prefill = read_launches(path)
+    reset_launches(path)
     toks, stats = prefill_and_decode(cfg, params, prompts, max_len=48,
                                      new_tokens=32)
-    counts = {"flash_attention": flash.launches,
-              "decode_attention": decode.launches}
+    n_serve = read_launches(path)
     peak = torch.cuda.max_memory_allocated() / 1e9
-    log(f"[lm] prefill_step B=1 S=4096: {prefill_s * 1e3:.3f} ms "
-        f"({4096 / prefill_s:.1f} tokens/s); prefill_and_decode B=4 16+32: "
+    log(f"[serve] {what}: prefill_step B=1 S={seq}: {prefill_s * 1e3:.3f} ms"
+        f" ({seq / prefill_s:.1f} tokens/s); prefill_and_decode B=4 16+32: "
         f"prefill {stats['prefill_s'] * 1e3:.3f} ms, decode "
         f"{stats['decode_s'] * 1e3:.3f} ms ({stats['decode_s'] * 1e3 / 32:.3f}"
-        f" ms/step, {stats['decode_tok_s']:.2f} tokens/s); launches {counts};"
-        f" peak device memory {peak:.2f} GB")
-    check(counts["flash_attention"] == cfg.num_layers,
-          f"full depth: {counts['flash_attention']} flash launches per "
-          f"prefill_step, expected {cfg.num_layers}")
-    check(counts["decode_attention"] == cfg.num_layers * 48,
-          f"full depth: {counts['decode_attention']} decode launches, "
-          f"expected {cfg.num_layers * 48}")
-    check(tuple(logits.shape) == (1, 4096, cfg.vocab_size)
+        f" ms/step, {stats['decode_tok_s']:.2f} tokens/s); launches "
+        f"{n_prefill} in prefill_step, {n_serve} in prefill_and_decode; peak "
+        f"device memory {peak:.2f} GB")
+    if path.serve_note:
+        log(f"[serve] {path.name}: {path.serve_note}")
+    check_launches(path, cfg, 48, n_prefill, n_serve, f"{what} full depth")
+    check(tuple(logits.shape) == (1, seq, cfg.vocab_size)
           and bool(torch.isfinite(logits).all()),
-          "full depth: prefill logits are not finite (1, 4096, V)")
+          f"{what}: prefill logits are not finite (1, S, V)")
     check(tuple(toks.shape) == (4, 48) and int(toks.min()) >= 0
           and int(toks.max()) < cfg.vocab_size,
-          "full depth: generated tokens out of shape or range")
-    # measured, not bounded: over 48 layers the near-one-hot attention
-    # rows decorrelate two runs that differ only in the attention's
-    # rounding, which is why the kernels are held on each launch's inputs
-    with swap_attention(plain):
+          f"{what}: generated tokens out of shape or range")
+    with swap_calls(path.plain, path.module):
         plain_logits = prefill(params, tokens)
     err = ((logits.float() - plain_logits.float()).abs().amax(-1)
            / max(1.0, plain_logits.float().abs().max().item())).flatten()
     top1 = (logits.argmax(-1) == plain_logits.argmax(-1)).float().mean()
-    log(f"[lm] 48 layers prefill_step S=4096, kernels vs plain on the card "
-        f"(not bounded): relative |diff| median {err.median().item():.3e}, "
-        f"max {err.max().item():.3e}; top-1 agreement {top1.item():.4f}")
+    log(f"[serve] {what} {cfg.dtype} prefill_step S={seq}, kernels vs plain "
+        f"on the card (not bounded: {path.deep_note}): relative |diff| "
+        f"median {err.median().item():.3e}, max {err.max().item():.3e}; "
+        f"top-1 agreement {top1.item():.4f}")
     del logits, plain_logits
     # every launch of a prefill and a decode step against the plain
     # version on that launch's inputs (outside the counted, timed run)
-    errs = {"flash_attention": [], "decode_attention": []}
-    with checked_attention(kernels, plain, errs):
+    errs = {k: [] for k in path.kernels}
+    with checked_calls(path, errs):
         prefill(params, tokens)
         prefill_and_decode(cfg, params, prompts, max_len=18, new_tokens=2)
-    check_launch_errs(errs, torch.bfloat16, "48 layers")
+    check_launch_errs(errs, path.launch_tol[getattr(torch, cfg.dtype)], what)
+    if path.deep_f32 is not None:
+        prefill32 = make_prefill_step(dataclasses.replace(cfg,
+                                                          dtype="float32"))
+        reset_launches(path)
+        k32 = prefill32(params, tokens)
+        check(read_launches(path) == path.prefill_launches(cfg),
+              f"{what} float32: launches {read_launches(path)} per "
+              f"prefill_step, expected {path.prefill_launches(cfg)}")
+        with swap_calls(path.plain, path.module):
+            p32 = prefill32(params, tokens)
+        compare_logits(k32, p32, path.deep_f32, f"{what} float32 "
+                       f"prefill_step S={seq}, kernels vs plain on the card")
+        del k32, p32
+        torch.cuda.empty_cache()
 
-    # one decode step under the profiler (a warm-up step first)
+    profiled(lambda i: prefill(params, tokens),
+             f"one {path.name} prefill_step, B=1, S={seq}, "
+             f"{cfg.num_layers} layers")
     step = make_serve_step(cfg)
     cache = init_cache(cfg, 4, 48, dtype=torch.float32, device=cuda)
-    step(params, cache, toks[:, 15:16], 15)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step(params, cache, toks[:, 16:17], 16)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    profile_report(prof, wall_us, "one yi-9b decode step, B=4, 48 layers")
+    profiled(lambda i: step(params, cache, toks[:, 15 + i:16 + i], 15 + i),
+             f"one {path.name} decode step, B=4, {cfg.num_layers} layers")
     del params, cache
     torch.cuda.empty_cache()
-    return counts
+    return {k: n_prefill[k] + n_serve[k] for k in path.kernels}
 
 
 def _bound(nbytes: float, flops: float, peak: float):
@@ -745,12 +947,44 @@ def time_decode(decode, decode_plain, shape, reps):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def time_ssd(ssd, ssd_plain, shape, dtype, reps):
+    """The scan's cold-L2 time at ``shape`` on strided views with path-like
+    dt, against its plain version and its bound. PyTorch has no call that
+    computes the SSD scan, so there is no library time."""
+    b, l, h, g, p, n, q = shape
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    args = ssd_inputs(gen, shape, dtype, True, "path")
+    before = ssd.launches
+    ms = time_launch(lambda: ssd(*args, chunk=q), reps)
+    ssd.launches = before            # timing launches are not the path's
+    plain_ms = time_launch(lambda: ssd_plain(*args, chunk=q), reps)
+    # what the function needs, per (b, h) and chunk of c steps: the causal
+    # triangle j <= i of C Bᵀ (N c(c+1)) and of the scores times x
+    # (P c(c+1)), as the kernel skips the tiles above the diagonal; C S and
+    # Bᵀ x (4 c N P)
+    flops = b * h * sum((n + p) * c * (c + 1) + 4 * c * n * p
+                        for c in (min(q, l - s) for s in range(0, l, q)))
+    esize = torch.finfo(dtype).bits // 8
+    nbytes = (esize * (2 * b * l * h * p + 2 * b * l * g * n)   # x, y; B, C
+              + 4 * b * l * h + 4 * h)                          # dt, a
+    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
+    bound_ms, bound_by = _bound(nbytes, flops, peak)
+    log(f"[time] ssd_scan {shape} {str(dtype)[6:]} (strided views, path "
+        f"dt): kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, no library "
+        f"call; bound {bound_ms:.5f} ms ({bound_by}: {flops / 1e9:.2f} "
+        f"GFLOP, {nbytes / 1e6:.1f} MB)")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     from repro_torch.configs.base import FLConfig
     from repro_torch.configs.fedsr_mlp import CONFIG
+    from repro_torch.configs.mamba2_2_7b import CONFIG as MAMBA
+    from repro_torch.configs.yi_9b import CONFIG as YI
     from repro_torch.core.executor import run_experiment
     from repro_torch.kernels import build
     from repro_torch.kernels.decode_attention.ops import (
@@ -761,6 +995,8 @@ def main() -> int:
     )
     from repro_torch.kernels.fused_sgd.ops import fused_sgd_lanes
     from repro_torch.kernels.fused_sgd.ref import sgd_lanes_reference
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_plain
+    from repro_torch.models import layers, mamba2
     from repro_torch.models.small import init_small_model, params_to_numpy
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -772,20 +1008,12 @@ def main() -> int:
         f"{torch.cuda.device_count()}")
 
     # phase 1: build every kernel, one nvcc per source, all at once
-    names = ["fused_sgd", "flash_attention", "decode_attention"]
+    names = ["fused_sgd", "flash_attention", "decode_attention", "ssd_scan"]
     t0 = time.perf_counter()
     build.build(names)
     log(f"[build] {', '.join(names)} in {time.perf_counter() - t0:.1f}s")
     for name in names:
-        regs = [int(w) for line in build.BUILD_LOGS.get(name, "").splitlines()
-                if "registers" in line
-                for w in [line.split("Used ")[1].split()[0]]]
-        spills = [line.strip() for line in
-                  build.BUILD_LOGS.get(name, "").splitlines()
-                  if "spill" in line and " 0 bytes spill" not in line]
-        log(f"[build] {name}: {len(regs)} entry points, registers "
-            f"{min(regs, default=0)}-{max(regs, default=0)}"
-            + (f"; spills: {spills[:3]}" if spills else ", no spills"))
+        log(build_report(name, build.BUILD_LOGS.get(name)))
 
     # phase 2: every kernel against its plain version
     max_abs_err = {"fused_sgd": kernel_sweep(fused_sgd_lanes,
@@ -793,6 +1021,7 @@ def main() -> int:
     max_abs_err.update(attention_sweep(flash_attention, flash_attention_plain,
                                        decode_attention,
                                        decode_attention_plain))
+    max_abs_err["ssd_scan"] = ssd_sweep(ssd_scan, ssd_scan_plain)
 
     # phase 3: the FedSR path
     fl = FLConfig(algorithm="fedsr", partition="pathological",
@@ -822,15 +1051,43 @@ def main() -> int:
         f"({t['bound_by']})")
     profile_round(CONFIG, fl, init)
 
-    # phases 4-5: the yi-9b serving path
-    kernels = {"flash_attention": flash_attention,
-               "decode_attention": decode_attention}
-    plain = {"flash_attention": flash_attention_plain,
-             "decode_attention": decode_attention_plain}
-    lm_two_layers(kernels, plain)
-    launches.update(lm_full_depth(kernels, plain))
+    # phases 4-7: the yi-9b and the mamba2-2.7b serving paths
+    yi = ServePath(
+        name="yi-9b", cfg=YI, module=layers,
+        kernels={"flash_attention": flash_attention,
+                 "decode_attention": decode_attention},
+        plain={"flash_attention": flash_attention_plain,
+               "decode_attention": decode_attention_plain},
+        prefill_launches=lambda cfg: {"flash_attention": cfg.num_layers,
+                                      "decode_attention": 0},
+        serve_launches=lambda cfg, positions: {
+            "flash_attention": 0,
+            "decode_attention": cfg.num_layers * positions},
+        launch_tol=LAUNCH_TOL, gpu_vs_cpu=GPU_VS_CPU,
+        kernel_vs_plain=KERNEL_VS_PLAIN,
+        deep_note="over 48 layers the near-one-hot attention rows "
+        "decorrelate two runs that differ only in the attention's rounding, "
+        "which is why each launch is held on its own inputs")
+    mamba = ServePath(
+        name="mamba2-2.7b", cfg=MAMBA, module=mamba2,
+        kernels={"ssd_scan": ssd_scan}, plain={"ssd_scan": ssd_scan_plain},
+        prefill_launches=lambda cfg: {"ssd_scan": cfg.num_layers},
+        serve_launches=lambda cfg, positions: {"ssd_scan": 0},
+        launch_tol=SSD_TOL, gpu_vs_cpu=SSM_GPU_VS_CPU,
+        kernel_vs_plain=SSM_KERNEL_VS_PLAIN,
+        prefill_vs_decode=SSM_CHUNKED_VS_RECURRENT, deep_f32=SSM_DEEP_F32,
+        deep_note="one-ulp bfloat16 flips carried through 64 layers; "
+        "bounded in float32 below",
+        serve_note="prefill_and_decode launches no ssd_scan, as in the "
+        "reference: its _prefill feeds the prompt through decode_step one "
+        "position at a time, and a Mamba2 decode_step runs the O(1) "
+        "recurrence (ssd_decode_step); the chunked scan runs only in "
+        "forward, i.e. make_prefill_step")
+    for path in (yi, mamba):
+        serve_two_layers(path)
+        launches.update(serve_full_depth(path))
 
-    # phase 6: attention kernel times
+    # phase 8: kernel times
     time_flash(flash_attention, flash_attention_plain, (1, 256, 32, 4, 128),
                torch.bfloat16, 50)
     times["flash_attention"] = time_flash(
@@ -838,6 +1095,9 @@ def main() -> int:
     times["decode_attention"] = time_decode(
         decode_attention, decode_attention_plain, DECODE_PATH, 50)
     time_decode(decode_attention, decode_attention_plain, DECODE_32K, 10)
+    times["ssd_scan"] = time_ssd(ssd_scan, ssd_scan_plain, SSD_PATH,
+                                 torch.bfloat16, 20)
+    time_ssd(ssd_scan, ssd_scan_plain, SSD_PATH, torch.float32, 10)
     log(f"[done] all phases in {time.perf_counter() - t_start:.1f}s")
 
     if FAILURES:
@@ -848,7 +1108,8 @@ def main() -> int:
     sources = {"fused_sgd": "src/repro/kernels/fused_sgd/kernel.py:33",
                "flash_attention": "src/repro/kernels/flash_attention/kernel.py:96",
                "decode_attention":
-                   "src/repro/kernels/decode_attention/kernel.py:80"}
+                   "src/repro/kernels/decode_attention/kernel.py:80",
+               "ssd_scan": "src/repro/kernels/ssd_scan/kernel.py:77"}
     rows = [{
         "name": name, "route": "cuda",
         "source": f"src/repro_torch/csrc/{name}.cu", "replaces": replaces,
@@ -864,3 +1125,4 @@ def main() -> int:
 
 if __name__ == "__main__":
     sys.exit(main())
+

@@ -6,3 +6,4 @@
 #   fused_sgd/         lane-stacked fused momentum-SGD update (the FL inner update)
 #   flash_attention/   blockwise causal GQA attention (prefill)
 #   decode_attention/  one-query GQA attention over a KV cache (decode)
+#   ssd_scan/          Mamba2 SSD chunked scan (SSM prefill)

@@ -2,10 +2,14 @@
 with cache (the twin of the JAX package's ``launch/serve.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b
 
 serves the full-width model on the GPU from random weights drawn from a
 seed on the card; ``--smoke`` serves the reduced config the reference's
-CLI serves, and ``--device cpu`` runs on the CPU. The reference's
+CLI serves, and ``--device cpu`` runs on the CPU. As in the reference, the
+prompt is fed through ``decode_step`` one position at a time, so a Mamba2
+model serves through its O(1) recurrence and never runs the chunked SSD
+scan; that scan is ``launch/steps.py::make_prefill_step``'s. The reference's
 ``--fleet`` mode (``FleetDecoder``) is not ported yet (ROADMAP A8).
 """
 from __future__ import annotations

@@ -1,0 +1,232 @@
+"""The port's SSD scan on the CPU (its plain version) against the JAX
+package's oracle and its Pallas kernel in interpret mode.
+
+``repro_torch.kernels.ssd_scan.ops.ssd_scan`` runs the plain PyTorch
+version for CPU tensors; here it is held against the reference's
+``ssd_reference`` and its Pallas ``ssd_scan`` (interpret mode on the
+CPU), over the sweep of ``tests/test_kernels.py`` plus a second ragged
+length and a path-shaped case (G=1, P=64, N=Q=128), in float32 and
+bfloat16. Tolerances: 1e-5 of the output scale in float32 (the chunked
+sums run in another order), 1e-2 in bfloat16 (one rounding of y to
+bfloat16, 2**-8 of an element). Also: the literal recurrence, the
+one-token ``ssd_decode_step`` against the reference's and against the
+chunked form, the ``intra_dtype`` rule of ROADMAP C4, and the wrapper's
+input checks. The CUDA kernel is held against the same plain version on
+the card (``tests/test_torch_ssd_scan_gpu.py``).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp
+
+from repro.kernels.ssd_scan.ops import ssd_scan as jax_ssd_scan
+from repro.kernels.ssd_scan.ref import ssd_decode_step as jax_decode_step
+from repro.kernels.ssd_scan.ref import ssd_reference as jax_reference
+from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_plain
+from repro_torch.kernels.ssd_scan.ref import ssd_decode_step, ssd_reference
+
+TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+DT = {"float32": (jnp.float32, torch.float32),
+      "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+# (b, l, h, g, p, n, chunk): tests/test_kernels.py's sweep, a ragged length
+# with groups, and mamba2-2.7b's head shape (G=1, P=64, N=Q=128) at 8 heads
+SWEEP = [
+    (2, 64, 4, 1, 16, 8, 16),
+    (1, 96, 8, 2, 32, 16, 32),
+    (2, 50, 4, 1, 16, 8, 16),      # L not a multiple of the chunk
+    (1, 128, 4, 4, 64, 32, 64),    # groups == heads
+    (1, 100, 4, 2, 16, 8, 32),     # L not a multiple of the chunk, G=2
+    (1, 200, 8, 1, 64, 128, 128),  # path-shaped: G=1, H=8, ragged
+]
+
+
+def _inputs(b, l, h, g, p, n, dtype="float32", seed=0):
+    """Seeded (x, dt, a, b_mat, c_mat) as (jax tuple, torch tuple) with
+    identical values; x, b_mat and c_mat in ``dtype``."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, l, h, p)).astype(np.float32)
+    dt = (np.abs(rng.standard_normal((b, l, h)) * 0.5) + 0.01).astype(
+        np.float32)
+    a = (-np.abs(rng.standard_normal(h)) - 0.1).astype(np.float32)
+    bm = (rng.standard_normal((b, l, g, n)) * 0.3).astype(np.float32)
+    cm = (rng.standard_normal((b, l, g, n)) * 0.3).astype(np.float32)
+    jd, td = DT[dtype]
+    jx, jb, jc = (jnp.asarray(v, jd) for v in (x, bm, cm))
+    tx, tb, tc = (torch.from_numpy(np.array(v.astype(jnp.float32))).to(td)
+                  for v in (jx, jb, jc))
+    return ((jx, jnp.asarray(dt), jnp.asarray(a), jb, jc),
+            (tx, torch.from_numpy(dt), torch.from_numpy(a), tb, tc))
+
+
+def _assert_close(got, want, tol):
+    want = np.asarray(jnp.asarray(want, jnp.float32))
+    got = got.float().numpy()
+    assert got.shape == want.shape
+    scale = max(float(np.abs(want).max()), 1e-6)
+    err = float(np.abs(got - want).max()) / scale
+    assert err <= tol, (err, tol)
+
+
+@pytest.mark.parametrize("oracle", ["reference", "pallas"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,l,h,g,p,n,chunk", SWEEP)
+def test_plain_ssd_scan_matches_the_reference(b, l, h, g, p, n, chunk, dtype,
+                                              oracle):
+    jargs, targs = _inputs(b, l, h, g, p, n, dtype)
+    if oracle == "reference":
+        want = jax_reference(*jargs, chunk=chunk)
+    else:
+        want = jax_ssd_scan(*jargs, chunk=chunk)     # interpret mode on the CPU
+    before = ssd_scan.launches
+    got = ssd_scan(*targs, chunk=chunk)
+    assert ssd_scan.launches == before == 0
+    assert got.dtype == DT[dtype][1] and got.shape == (b, l, h, p)
+    _assert_close(got, want, TOL[dtype])
+
+
+@pytest.mark.parametrize("l,chunk", [(32, 16), (45, 16)])
+def test_plain_ssd_scan_equals_naive_recurrence(l, chunk):
+    """The chunked dual form equals the literal SSM recurrence (the check
+    of ``tests/test_kernels.py``, and a ragged length)."""
+    b, h, p, n = 1, 2, 8, 4
+    _, (x, dt, a, bm, cm) = _inputs(b, l, h, 1, p, n)
+    out = ssd_scan(x, dt, a, bm, cm, chunk=chunk).numpy()
+    x, dt, a, bm, cm = (v.numpy().astype(np.float64)
+                        for v in (x, dt, a, bm, cm))
+    state = np.zeros((b, h, n, p))
+    ys = []
+    for t in range(l):
+        decay = np.exp(dt[:, t] * a)
+        bt = np.repeat(bm[:, t], h, axis=1)
+        ct = np.repeat(cm[:, t], h, axis=1)
+        state = decay[..., None, None] * state + np.einsum(
+            "bh,bhn,bhp->bhnp", dt[:, t], bt, x[:, t])
+        ys.append(np.einsum("bhn,bhnp->bhp", ct, state))
+    np.testing.assert_allclose(out, np.stack(ys, axis=1), atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("h,g", [(4, 1), (8, 2), (80, 1)])
+def test_decode_step_matches_the_reference(h, g, dtype):
+    rng = np.random.default_rng(h + g)
+    b, p, n = 3, 16, 8
+    (jx, jdt, ja, jb, jc), (tx, tdt, ta, tb, tc) = _inputs(
+        b, 1, h, g, p, n, dtype, seed=h)
+    state = rng.standard_normal((b, h, n, p)).astype(np.float32)
+    jy, js = jax_decode_step(jnp.asarray(state), jx[:, 0], jdt[:, 0], ja,
+                             jb[:, 0], jc[:, 0])
+    ty, ts = ssd_decode_step(torch.from_numpy(state), tx[:, 0], tdt[:, 0],
+                             ta, tb[:, 0], tc[:, 0])
+    assert ty.dtype == DT[dtype][1] and ts.dtype == torch.float32
+    _assert_close(ty, jy, TOL[dtype])
+    _assert_close(ts, js, 1e-6)
+
+
+@pytest.mark.parametrize("l,chunk", [(64, 16), (50, 16), (40, 64)])
+def test_chunked_form_equals_steps_of_the_recurrence(l, chunk):
+    """The port's chunked scan against L steps of its own
+    ``ssd_decode_step`` from a zero state (float32; 1e-5 of the scale)."""
+    b, h, g, p, n = 2, 4, 2, 16, 8
+    _, (x, dt, a, bm, cm) = _inputs(b, l, h, g, p, n, seed=3)
+    want = ssd_scan(x, dt, a, bm, cm, chunk=chunk)
+    state = torch.zeros((b, h, n, p))
+    ys = []
+    for t in range(l):
+        y_t, state = ssd_decode_step(state, x[:, t], dt[:, t], a, bm[:, t],
+                                     cm[:, t])
+        ys.append(y_t)
+    _assert_close(torch.stack(ys, dim=1), want.numpy(), 1e-5)
+
+
+@pytest.mark.parametrize("b,l,h,g,p,n,chunk", [SWEEP[0], SWEEP[-1]])
+def test_intra_dtype_bfloat16_follows_the_kernel_contract(b, l, h, g, p, n,
+                                                          chunk):
+    """ROADMAP C4: the reference's ``ssd_reference(intra_dtype=bfloat16)``
+    rounds the decay, the scores, dt and x before the intra-chunk product;
+    its Pallas kernel keeps them in float32. The port's scan (and its
+    kernel) follows the Pallas kernel, whatever ``ssd_intra_dtype`` says;
+    its twin of the oracle still reproduces the rounded path."""
+    jargs, targs = _inputs(b, l, h, g, p, n)
+    kernel = jax_ssd_scan(*jargs, chunk=chunk)
+    rounded = jax_reference(*jargs, chunk=chunk, intra_dtype=jnp.bfloat16)
+    port = ssd_scan(*targs, chunk=chunk)
+    _assert_close(port, kernel, TOL["float32"])
+    # the rounded path is measurably another function (0.6-0.9% of the
+    # output scale on these inputs) ...
+    k = np.asarray(kernel)
+    assert np.abs(np.asarray(rounded) - k).max() / np.abs(k).max() > 1e-3
+    # ... which the port's twin of the oracle reproduces, up to bfloat16
+    # rounding of the einsums' outputs in the two frameworks
+    twin = ssd_reference(*targs, chunk=chunk, intra_dtype=torch.bfloat16)
+    _assert_close(twin, rounded, 1e-3)
+
+
+def test_ssd_scan_reads_strided_views():
+    """In the model x, B and C are column slices of the conv output; the
+    wrapper takes the views as they are and gives the contiguous result."""
+    b, l, h, g, p, n = 2, 40, 4, 1, 16, 8
+    rng = np.random.default_rng(5)
+    xbc = torch.from_numpy(rng.standard_normal(
+        (b, l, h * p + 2 * g * n)).astype(np.float32))
+    x = xbc[..., :h * p].reshape(b, l, h, p)
+    bm = xbc[..., h * p:h * p + g * n].reshape(b, l, g, n)
+    cm = xbc[..., h * p + g * n:].reshape(b, l, g, n)
+    assert not x.is_contiguous() and x.data_ptr() == xbc.data_ptr()
+    _, (_, dt, a, _, _) = _inputs(b, l, h, g, p, n)
+    got = ssd_scan(x, dt, a, bm, cm, chunk=16)
+    want = ssd_scan_plain(x.contiguous(), dt, a, bm.contiguous(),
+                          cm.contiguous(), chunk=16)
+    assert torch.equal(got, want)
+
+
+def _bad_inputs():
+    _, (x, dt, a, bm, cm) = _inputs(1, 16, 4, 2, 8, 4)
+    return [
+        ("dtype", (x.double(), dt, a, bm, cm), TypeError),
+        ("b dtype", (x, dt, a, bm.bfloat16(), cm), TypeError),
+        ("dt dtype", (x, dt.bfloat16(), a, bm, cm), TypeError),
+        ("a shape", (x, dt, a[:3], bm, cm), ValueError),
+        ("dt shape", (x, dt[:, :8], a, bm, cm), ValueError),
+        ("groups", (x, dt, a, bm[:, :, :1].expand(1, 16, 3, 4),
+                    cm[:, :, :1].expand(1, 16, 3, 4)), ValueError),
+        ("c shape", (x, dt, a, bm, cm[:, :8]), ValueError),
+        ("x rank", (x[0], dt, a, bm, cm), ValueError),
+        ("meta device", tuple(t.to("meta") for t in (x, dt, a, bm, cm)),
+         ValueError),
+    ]
+
+
+@pytest.mark.parametrize("case", range(len(_bad_inputs())))
+def test_ssd_scan_rejects_what_it_does_not_take(case):
+    name, args, err = _bad_inputs()[case]
+    before = ssd_scan.launches
+    with pytest.raises(err):
+        ssd_scan(*args, chunk=8)
+    assert ssd_scan.launches == before, name
+
+
+def test_build_report_tells_a_reused_library_from_a_built_one():
+    """``chip_smoke.py`` reports a library that ``kernels.build`` reused
+    from ``build/`` as such, not as one with no entry points."""
+    import importlib.util
+    import sys
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = smoke         # its dataclass looks itself up
+    try:
+        spec.loader.exec_module(smoke)
+    finally:
+        del sys.modules[spec.name]
+    assert smoke.build_report("ssd_scan", None) == (
+        "[build] ssd_scan: reused from build/ (no ptxas log)")
+    log = ("ptxas info    : Used 128 registers, used 1 barriers\n"
+           "ptxas info    : Used 96 registers, used 1 barriers\n"
+           "ptxas info    :     0 bytes spill stores, 0 bytes spill loads\n")
+    assert smoke.build_report("ssd_scan", log) == (
+        "[build] ssd_scan: 2 entry points, registers 96-128, no spills")
