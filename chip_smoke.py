@@ -10,12 +10,17 @@ non-zero at the end, before any result line is printed):
 
 1. Device and build: the card's name and power limit, then the CUDA
    kernels built from ``src/repro_torch/csrc`` (nvcc, ``sm_90a``, all
-   sources at once).
+   sources at once); ``cuobjdump -sass`` of the flash library must show
+   tensor-core (``HGMMA``) and TMA (``UTMALDG``) instructions in each of
+   its bfloat16 kernels.
 2. Every kernel against its plain PyTorch version on the card:
    ``fused_sgd`` bit for bit over the sweep of the JAX package's kernel
    tests; ``flash_attention`` and ``decode_attention`` within 1e-5
-   (float32) / 2e-2 (bfloat16) over that sweep plus ragged S, MQA, mixed
-   bf16-q/f32-cache decode, lengths 1 and T, and the paths' own shapes;
+   (float32) / 2e-2 (bfloat16) over that sweep plus ragged S and T, G = 8
+   over two batch rows, non-causal T > S, MQA, mixed bf16-q/f32-cache
+   decode, lengths 1 and T, and the paths' own shapes; each bfloat16
+   flash row also within 2^-7 of its own largest value, and a probe of
+   ROADMAP C3 (P kept in float32 for the PV product) at hd 32, 64 and 128;
    ``ssd_scan`` within 1e-5 (float32) / 1e-2 (bfloat16) of the output
    scale over that sweep plus ragged L, strided views (the model's
    layout) and the mamba2 path's shape.
@@ -65,7 +70,8 @@ non-zero at the end, before any result line is printed):
 8. Kernel times with the L2 cache flushed, against the bound, the plain
    version and one library call where PyTorch has one
    (``scaled_dot_product_attention``; none computes the SSD scan) at the
-   paths' shapes and at one layer of decode_32k.
+   paths' shapes and at one layer of decode_32k; flash attention's rate
+   in TFLOP/s of the causal products the function needs.
 
 The last lines of standard output are one JSON line describing every
 kernel, the card's ``nvidia-smi`` name and power limit, and the result
@@ -129,6 +135,28 @@ def build_report(name: str, log_text) -> str:
     return (f"[build] {name}: {len(regs)} entry points, registers "
             f"{min(regs, default=0)}-{max(regs, default=0)}"
             + (f"; spills: {spills[:3]}" if spills else ", no spills"))
+
+
+def check_tensor_core_sass(build) -> None:
+    """Phase 1: each bfloat16 kernel of the flash library (``tc::``)
+    multiplies on the tensor cores (wgmma, SASS ``HGMMA``) and loads
+    through TMA (``UTMALDG``), as ``cuobjdump -sass`` of the library
+    shows."""
+    sass = subprocess.run(
+        [build.cuda_tool("cuobjdump"), "-sass",
+         str(build.library_path("flash_attention"))],
+        capture_output=True, text=True, timeout=300, check=True).stdout
+    counts = {}     # hd -> instruction counts of tc::flash_attention_kernel<hd>
+    for section in sass.split("Function : ")[1:]:
+        name, _, body = section.partition("\n")
+        if "tc22flash_attention_kernel" in name:
+            hd = int(name.split("kernelILi")[1].split("E")[0])
+            counts[hd] = {op: body.count(op) for op in ("HGMMA", "UTMALDG")}
+    log(f"[build] flash_attention bfloat16 kernels' SASS by hd: {counts}")
+    check(sorted(counts) == [32, 64, 128]
+          and all(n > 0 for c in counts.values() for n in c.values()),
+          f"flash_attention's bfloat16 kernels lack HGMMA or UTMALDG: "
+          f"{counts}")
 
 
 def kernel_sweep(fused_sgd_lanes, sgd_lanes_reference) -> float:
@@ -339,15 +367,38 @@ def profile_round(cfg, fl, init) -> None:
 # attention kernels
 
 ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
-# (b, s, h, kv, hd, window, causal): tests/test_kernels.py's shapes and
-# windows, ragged S, non-causal, and the yi-9b prefill shapes of phases 4-5
+# ATTN_TOL's 2e-2 in bfloat16 is as large as a typical output at S = 4096
+# (|out| ~ 0.03), so beside it each bfloat16 flash row (b, s, h) is held
+# relative to its own largest |plain| value: kernel and plain version
+# round float32 rows that differ only in summation order once each, so
+# they differ by at most one bfloat16 ulp of an element, at most 2^-7 of
+# the row's largest value.
+FLASH_ROW_TOL = 2.0 ** -7
+# ROADMAP C3: P reaches the PV product in float32 (bfloat16 hi + lo), never
+# rounded to bfloat16 alone. c3_probe's p values lie 0.4 and 0.6 of a
+# bfloat16 ulp above 0.75, so they round in opposite directions; v is +1
+# on one and -1 on the other, and the exact output (about -5.0e-4) is a
+# fifth of what bfloat16 P makes of it. Held relative to the exact output:
+# the hi/lo split leaves at most 0.4% (the rounding of its lo part, the
+# same on every key) and the output's one rounding 0.2%; bfloat16 P is
+# 400% off, float16 or TF32 P 25%.
+C3_P = (0.75 + 0.4 * 2.0 ** -8, 0.75 + 0.6 * 2.0 ** -8)
+C3_TOL = 2e-2
+# (b, s, t, h, kv, hd, window, causal): tests/test_kernels.py's shapes and
+# windows, ragged S, non-causal, the yi-9b prefill shapes of phases 4-5;
+# then what the bfloat16 kernel's 128-row, TMA-fed tiles meet: ragged S at
+# hd 128, G = 8 over two batch rows (kept apart by the 4-D tensor maps), a
+# window edge inside a tile, non-causal T > S with a ragged T tile
 FLASH_SWEEP = [
-    (2, 64, 4, 2, 32, 0, True), (1, 128, 8, 8, 64, 0, True),
-    (2, 64, 4, 1, 32, 0, True), (1, 256, 4, 2, 128, 0, True),
-    (1, 128, 4, 2, 32, 16, True), (1, 128, 4, 2, 32, 48, True),
-    (1, 128, 4, 2, 32, 100, True), (1, 1000, 8, 2, 64, 0, True),
-    (1, 1000, 8, 2, 64, 300, True), (2, 64, 4, 2, 32, 0, False),
-    (1, 256, 32, 4, 128, 0, True), (1, 4096, 32, 4, 128, 0, True),
+    (2, 64, 64, 4, 2, 32, 0, True), (1, 128, 128, 8, 8, 64, 0, True),
+    (2, 64, 64, 4, 1, 32, 0, True), (1, 256, 256, 4, 2, 128, 0, True),
+    (1, 128, 128, 4, 2, 32, 16, True), (1, 128, 128, 4, 2, 32, 48, True),
+    (1, 128, 128, 4, 2, 32, 100, True), (1, 1000, 1000, 8, 2, 64, 0, True),
+    (1, 1000, 1000, 8, 2, 64, 300, True), (2, 64, 64, 4, 2, 32, 0, False),
+    (1, 256, 256, 32, 4, 128, 0, True), (1, 4096, 4096, 32, 4, 128, 0, True),
+    (1, 200, 200, 8, 2, 128, 0, True), (1, 1000, 1000, 8, 2, 128, 0, True),
+    (2, 384, 384, 32, 4, 128, 0, True), (1, 1000, 1000, 8, 2, 128, 200, True),
+    (2, 64, 320, 4, 2, 128, 0, False),
 ]
 # (b, h, kv, t, hd, window): tests/test_kernels.py's shapes and windows
 # (MQA included), G = 16, and the yi-9b decode shapes of phases 4-5
@@ -368,26 +419,101 @@ def _randn(gen, shape, dtype):
     return torch.randn(shape, device="cuda", generator=gen).to(dtype)
 
 
+def row_err(out, want) -> float:
+    """Largest max |out - want| over a row (the last axis) relative to the
+    row's max |want|."""
+    want = want.float()
+    diff = (out.float() - want).abs().amax(-1)
+    return (diff / want.abs().amax(-1).clamp(min=1e-30)).max().item()
+
+
+def c3_probe(hd, device, b=1, s=128, t=1024, h=4, kv=2):
+    """Non-causal bfloat16 flash-attention inputs (q, k, v) on ``device``
+    on which P rounded to bfloat16 before the PV product moves the output
+    by four times its size, with the exact output (float64; every element
+    is the same) and the output bfloat16 P gives.
+
+    Keys 64 j and 64 j + 1 score 0, the max of every key tile, and have
+    v = 0. Every other even key scores ln C3_P[0] with v = +1, every
+    other odd key ln C3_P[1] with v = -1. A score is the sum of three
+    bfloat16 parts of k against q = 1, so q . k carries it to float32
+    precision."""
+    key = torch.arange(t)
+    anchor, odd = key % 64 < 2, key % 2 == 1
+    p = torch.tensor(C3_P, dtype=torch.float64)[odd.long()]
+    score = torch.where(anchor, 0.0, p.log()) * hd ** 0.5
+    parts = []
+    for _ in range(3):
+        parts.append(score.to(torch.bfloat16))
+        score = score - parts[-1].double()
+    k = torch.zeros(b, t, kv, hd, dtype=torch.bfloat16)
+    k[..., :3] = torch.stack(parts, -1)[None, :, None]
+    q = torch.zeros(b, s, h, hd, dtype=torch.bfloat16)
+    q[..., :3] = 1
+    sign = torch.where(anchor, 0.0, 1.0 - 2.0 * odd.double())
+    v = sign[None, :, None, None].expand(b, t, kv, hd).to(torch.bfloat16)
+    e = (k[0, :, 0, :3].double().sum(-1) / hd ** 0.5).exp()
+    exact = (e @ sign / e.sum()).item()
+    rounded = (e.float().bfloat16().double() @ sign / e.sum()).item()
+    return (q.to(device), k.to(device), v.contiguous().to(device),
+            exact, rounded)
+
+
+def c3_err(out, exact) -> float:
+    """max |out - exact| relative to |exact|."""
+    return ((out.double() - exact).abs().max() / abs(exact)).item()
+
+
+def c3_probe_check(flash, flash_plain) -> None:
+    """Phase 2: the bfloat16 flash kernel, through its wrapper, keeps P in
+    float32 for the PV product (ROADMAP C3) at each head dim."""
+    for hd in (32, 64, 128):
+        q, k, v, exact, rounded = c3_probe(hd, "cuda")
+        errs = {"kernel": c3_err(flash(q, k, v, causal=False), exact),
+                "plain": c3_err(flash_plain(q, k, v, causal=False), exact),
+                "bfloat16 P": abs(rounded - exact) / abs(exact)}
+        log(f"[sweep] flash C3 probe hd={hd}: exact output {exact:.6e}, "
+            f"error relative to it: " + ", ".join(
+                f"{name} {e:.3e}" for name, e in errs.items())
+            + f" (bound {C3_TOL:g})")
+        check(errs["kernel"] <= C3_TOL and errs["plain"] <= C3_TOL,
+              f"flash_attention at hd={hd} does not keep P in float32 for "
+              f"PV (ROADMAP C3): {errs}")
+        check(errs["bfloat16 P"] > C3_TOL,
+              f"the C3 probe at hd={hd} cannot tell bfloat16 P: {errs}")
+
+
 def attention_sweep(flash, flash_plain, decode, decode_plain):
     """Phase 2 for the attention kernels: each against its plain version.
     Returns the largest |diff| of each kernel over its sweep."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     worst = {"flash_attention": 0.0, "decode_attention": 0.0}
-    for b, s, h, kv, hd, window, causal in FLASH_SWEEP:
+    worst_row = 0.0
+    for b, s, t, h, kv, hd, window, causal in FLASH_SWEEP:
         for dtype in (torch.float32, torch.bfloat16):
             q = _randn(gen, (b, s, h, hd), dtype)
-            k, v = (_randn(gen, (b, s, kv, hd), dtype) for _ in range(2))
+            k, v = (_randn(gen, (b, t, kv, hd), dtype) for _ in range(2))
             out = flash(q, k, v, causal=causal, window=window)
             want = flash_plain(q, k, v, causal=causal, window=window)
             torch.cuda.synchronize()
             err = (out.float() - want.float()).abs().max().item()
             worst["flash_attention"] = max(worst["flash_attention"], err)
-            log(f"[sweep] flash  b={b} s={s} h={h} kv={kv} hd={hd} "
+            row = row_err(out, want)
+            log(f"[sweep] flash  b={b} s={s} t={t} h={h} kv={kv} hd={hd} "
                 f"window={window} causal={causal} {str(dtype)[6:]}: "
-                f"max_abs_err {err:.3e}")
+                f"max_abs_err {err:.3e}, per row {row:.3e}")
             check(err <= ATTN_TOL[dtype] and out.dtype == dtype,
-                  f"flash_attention != plain version at {(b, s, h, kv, hd)} "
+                  f"flash_attention != plain version at {(b, s, t, h, kv, hd)} "
                   f"window={window} {dtype}: {err}")
+            if dtype == torch.bfloat16:
+                worst_row = max(worst_row, row)
+                check(row <= FLASH_ROW_TOL,
+                      f"flash_attention != plain version at "
+                      f"{(b, s, t, h, kv, hd)} window={window} {dtype}: a "
+                      f"row differs by {row:.3e} of its largest value")
+    log(f"[sweep] flash bfloat16 rows: worst max |diff| relative to the "
+        f"row's max |plain| {worst_row:.3e} (bound {FLASH_ROW_TOL:g})")
+    c3_probe_check(flash, flash_plain)
     cases = [(c, d, e) for c in DECODE_SWEEP for d in DECODE_DTYPES
              for e in ("random", "one", "full")]
     cases.append((DECODE_32K + (0,), DECODE_DTYPES[2], "full"))
@@ -909,8 +1035,9 @@ def time_flash(flash, flash_plain, shape, dtype, reps):
     peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
     bound_ms, bound_by = _bound(nbytes, flops, peak)
     log(f"[time] flash_attention {shape} {str(dtype)[6:]}: kernel {ms:.5f} "
-        f"ms, plain {plain_ms:.5f} ms, SDPA {library_ms:.5f} ms, bound "
-        f"{bound_ms:.5f} ms ({bound_by}: {flops / 1e9:.1f} GFLOP, "
+        f"ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.5f} ms, SDPA "
+        f"{library_ms:.5f} ms ({flops / library_ms / 1e9:.1f} TFLOP/s), "
+        f"bound {bound_ms:.5f} ms ({bound_by}: {flops / 1e9:.1f} GFLOP, "
         f"{nbytes / 1e6:.1f} MB)")
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
@@ -1014,6 +1141,7 @@ def main() -> int:
     log(f"[build] {', '.join(names)} in {time.perf_counter() - t0:.1f}s")
     for name in names:
         log(build_report(name, build.BUILD_LOGS.get(name)))
+    check_tensor_core_sass(build)
 
     # phase 2: every kernel against its plain version
     max_abs_err = {"fused_sgd": kernel_sweep(fused_sgd_lanes,

@@ -39,6 +39,11 @@ def _nvcc() -> str:
         "machine with the CUDA toolkit")
 
 
+def cuda_tool(name: str) -> str:
+    """A program of the CUDA toolkit that holds nvcc, e.g. ``cuobjdump``."""
+    return str(Path(_nvcc()).with_name(name))
+
+
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())

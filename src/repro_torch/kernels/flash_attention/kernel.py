@@ -31,6 +31,9 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 DTYPE_CODE[q.dtype], B, S, T, H, KV, hd, int(causal),
                 int(window), torch.cuda.current_stream(q.device).cuda_stream)
+    if err == -2:
+        raise RuntimeError("flash_attention: CUDA could not encode the TMA "
+                           "tensor maps of the bfloat16 kernel")
     if err != 0:
         raise RuntimeError(
             f"flash_attention kernel launch failed: error {err}")

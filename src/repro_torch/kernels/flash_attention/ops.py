@@ -72,6 +72,9 @@ class FlashAttention:
         for name, t in (("q", q), ("k", k), ("v", v)):
             if not t.is_contiguous():
                 raise ValueError(f"{name} must be contiguous")
+            if q.dtype == torch.bfloat16 and t.data_ptr() % 16:
+                raise ValueError(f"{name} must be 16-byte aligned: the "
+                                 "bfloat16 kernel loads it with TMA")
         if q.shape[0] > 65535:
             raise ValueError(f"at most 65535 sequences per launch, got "
                              f"{q.shape[0]}")

@@ -6,11 +6,18 @@ GPU machine without the JAX package's dependencies:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_attention_gpu.py
 
-Without a card every case skips. Online softmax sums in another order than
-the plain version, so the two agree within 1e-5 in float32 and 2e-2 in
-bfloat16 (one rounding of the output), the bounds of
-``tests/test_kernels.py``.
+Without a card every case skips, except the check that the C3 probe of
+``chip_smoke.py`` tells float32 P from bfloat16 P, which needs no kernel.
+Online softmax sums in another order than the plain version, so the two
+agree within 1e-5 in float32 and 2e-2 in bfloat16 (one rounding of the
+output), the bounds of ``tests/test_kernels.py``; each bfloat16 flash row
+also within ``chip_smoke.FLASH_ROW_TOL`` of its largest value.
 """
+import functools
+import importlib.util
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -40,27 +47,49 @@ def _randn(rng, shape, dtype, device):
         device=device, dtype=dtype)
 
 
+@functools.cache
+def _smoke():
+    """``chip_smoke.py``, for its C3 probe and row bound."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = smoke         # its dataclass looks itself up
+    try:
+        spec.loader.exec_module(smoke)
+    finally:
+        del sys.modules[spec.name]
+    return smoke
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,s,h,kv,hd,window,causal", [
-    (2, 64, 4, 2, 32, 0, True),
-    (1, 128, 8, 8, 64, 0, True),
-    (2, 64, 4, 1, 32, 0, True),           # MQA
-    (1, 256, 4, 2, 128, 0, True),
-    (1, 128, 4, 2, 32, 16, True),
-    (1, 128, 4, 2, 32, 48, True),
-    (1, 128, 4, 2, 32, 100, True),
-    (1, 1000, 8, 2, 64, 0, True),         # ragged S
-    (1, 1000, 8, 2, 64, 300, True),
-    (2, 64, 4, 2, 32, 0, False),
-    (1, 256, 32, 4, 128, 0, True),        # yi-9b heads
+@pytest.mark.parametrize("b,s,t,h,kv,hd,window,causal", [
+    (2, 64, 64, 4, 2, 32, 0, True),
+    (1, 128, 128, 8, 8, 64, 0, True),
+    (2, 64, 64, 4, 1, 32, 0, True),       # MQA
+    (1, 256, 256, 4, 2, 128, 0, True),
+    (1, 128, 128, 4, 2, 32, 16, True),
+    (1, 128, 128, 4, 2, 32, 48, True),
+    (1, 128, 128, 4, 2, 32, 100, True),
+    (1, 1000, 1000, 8, 2, 64, 0, True),   # ragged S
+    (1, 1000, 1000, 8, 2, 64, 300, True),
+    (2, 64, 64, 4, 2, 32, 0, False),
+    (1, 256, 256, 32, 4, 128, 0, True),   # yi-9b heads
+    # the 128-row, TMA-fed bfloat16 tiling: ragged S at the path's head
+    # dim, G = 8 over two batch rows (the 4-D tensor maps keep them
+    # apart), a window edge inside a 128-row tile, non-causal T > S
+    (1, 200, 200, 8, 2, 128, 0, True),
+    (1, 1000, 1000, 8, 2, 128, 0, True),
+    (2, 384, 384, 32, 4, 128, 0, True),
+    (1, 1000, 1000, 8, 2, 128, 200, True),
+    (2, 64, 320, 4, 2, 128, 0, False),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_kernel_matches_plain_version(cuda, b, s, h, kv, hd, window,
+def test_flash_kernel_matches_plain_version(cuda, b, s, t, h, kv, hd, window,
                                             causal, dtype):
     rng = np.random.default_rng(s + h + window)
     q = _randn(rng, (b, s, h, hd), dtype, cuda)
-    k = _randn(rng, (b, s, kv, hd), dtype, cuda)
-    v = _randn(rng, (b, s, kv, hd), dtype, cuda)
+    k = _randn(rng, (b, t, kv, hd), dtype, cuda)
+    v = _randn(rng, (b, t, kv, hd), dtype, cuda)
     before = flash_attention.launches
     out = flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
@@ -69,6 +98,36 @@ def test_flash_kernel_matches_plain_version(cuda, b, s, h, kv, hd, window,
     assert out.dtype == dtype and out.shape == q.shape
     err = (out.float() - want.float()).abs().max().item()
     assert err <= TOL[dtype], err
+    if dtype == torch.bfloat16:
+        row = _smoke().row_err(out, want)
+        assert row <= _smoke().FLASH_ROW_TOL, row
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_flash_kernel_keeps_probabilities_in_float32(cuda, hd):
+    """ROADMAP C3: the bfloat16 kernel feeds P to the PV product as
+    bfloat16 hi + lo, never rounded alone; on the probe, bfloat16 P would
+    be off by 400% of the exact output."""
+    smoke = _smoke()
+    q, k, v, exact, _ = smoke.c3_probe(hd, cuda)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert smoke.c3_err(out, exact) <= smoke.C3_TOL
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_c3_probe_tells_float32_p_from_bfloat16_p(hd):
+    """On the CPU the wrapper runs the plain version, whose P is float32:
+    it meets the probe's bound, and the output bfloat16 P gives does not."""
+    smoke = _smoke()
+    q, k, v, exact, rounded = smoke.c3_probe(hd, torch.device("cpu"))
+    out = flash_attention(q, k, v, causal=False)
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert smoke.c3_err(out, exact) <= smoke.C3_TOL
+    assert abs(rounded - exact) / abs(exact) > 10 * smoke.C3_TOL
 
 
 @pytest.mark.gpu
@@ -113,6 +172,10 @@ def test_cuda_tensors_never_fall_back_to_the_plain_version(cuda):
     with pytest.raises(ValueError):                 # mixed devices
         flash_attention(torch.zeros(1, 8, 4, 32, device=cuda),
                         torch.zeros(1, 8, 2, 32), torch.zeros(1, 8, 2, 32))
+    kb = torch.zeros(1, 8, 2, 32, dtype=torch.bfloat16, device=cuda)
+    qb = torch.zeros(8 * 4 * 32 + 1, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):                 # not 16-byte aligned: TMA
+        flash_attention(qb[1:].view(1, 8, 4, 32), kb, kb)
     qd = torch.zeros(2, 1, 4, 32, device=cuda)
     kc = torch.zeros(2, 16, 2, 32, device=cuda)
     with pytest.raises(TypeError):                  # int64 lengths on the card
