@@ -10,9 +10,11 @@ non-zero at the end, before any result line is printed):
 
 1. Device and build: the card's name and power limit, then the CUDA
    kernels built from ``src/repro_torch/csrc`` (nvcc, ``sm_90a``, all
-   sources at once); ``cuobjdump -sass`` of the flash library must show
+   sources at once), with ptxas's registers and spills for each kernel of
+   the SSD scan; ``cuobjdump -sass`` of the flash library must show
    tensor-core (``HGMMA``) and TMA (``UTMALDG``) instructions in each of
-   its bfloat16 kernels.
+   its bfloat16 kernels, and that of the SSD-scan library ``HGMMA`` in
+   each of its tensor-core passes.
 2. Every kernel against its plain PyTorch version on the card:
    ``fused_sgd`` bit for bit over the sweep of the JAX package's kernel
    tests; ``flash_attention`` and ``decode_attention`` within 1e-5
@@ -22,8 +24,13 @@ non-zero at the end, before any result line is printed):
    flash row also within 2^-7 of its own largest value, and a probe of
    ROADMAP C3 (P kept in float32 for the PV product) at hd 32, 64 and 128;
    ``ssd_scan`` within 1e-5 (float32) / 1e-2 (bfloat16) of the output
-   scale over that sweep plus ragged L, strided views (the model's
-   layout) and the mamba2 path's shape.
+   scale over that sweep plus ragged L (L < Q, L = k Q + 1), two batch
+   rows of two groups across 34 chunks, chunks of 16 to 128 on both
+   routes, strided views (the model's layout) and the mamba2 path's
+   shape; each of its three passes against its plain pass at the path's
+   shape; and a probe of each float32 operand that the bfloat16 route
+   splits into bfloat16 hi + lo (the decayed scores, the chunk state's
+   w x, and S_{c-1}) at chunks 64 and 128.
 3. The FedSR path: ``repro_torch`` ``run_experiment`` runs FedSR on the
    paper MLP at full width (199,210 parameters, ``mnist_like`` at its
    default 2,000/400 images, K=20, M=5, R=5, E=1, batch 32,
@@ -66,12 +73,14 @@ non-zero at the end, before any result line is printed):
    and peak memory; each launch against the plain scan on its own inputs;
    the 64-layer logits against the plain scan's, bounded in float32 and
    logged in bfloat16; a profiler pass over one prefill and one decode
-   step.
+   step. The bfloat16 path's shape must take the tensor-core route, and
+   the scan's launches of phases 6-7 are logged by route.
 8. Kernel times with the L2 cache flushed, against the bound, the plain
    version and one library call where PyTorch has one
    (``scaled_dot_product_attention``; none computes the SSD scan) at the
    paths' shapes and at one layer of decode_32k; flash attention's rate
-   in TFLOP/s of the causal products the function needs.
+   in TFLOP/s of the causal products the function needs; the SSD scan's
+   three passes each from a profiler run.
 
 The last lines of standard output are one JSON line describing every
 kernel, the card's ``nvidia-smi`` name and power limit, and the result
@@ -81,7 +90,9 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
+from collections import Counter
 import sys
 import time
 from pathlib import Path
@@ -129,7 +140,7 @@ def build_report(name: str, log_text) -> str:
         return f"[build] {name}: reused from build/ (no ptxas log)"
     lines = log_text.splitlines()
     regs = [int(line.split("Used ")[1].split()[0]) for line in lines
-            if "registers" in line]
+            if "Used " in line and " registers" in line]
     spills = [line.strip() for line in lines
               if "spill" in line and " 0 bytes spill" not in line]
     return (f"[build] {name}: {len(regs)} entry points, registers "
@@ -137,18 +148,66 @@ def build_report(name: str, log_text) -> str:
             + (f"; spills: {spills[:3]}" if spills else ", no spills"))
 
 
+SSD_KERNELS = ("chunk_states", "state_passing", "chunk_outputs")
+
+
+def kernel_label(mangled: str) -> str:
+    """A short name for a mangled kernel of the SSD-scan library, e.g.
+    ``tc::chunk_outputs<128,2>`` or ``simt::chunk_states<bf16>``."""
+    base = next((k for k in SSD_KERNELS if k in mangled), mangled)
+    ns = ("tc::" if "2tc" in mangled else
+          "simt::" if "4simt" in mangled else "")
+    tail = mangled.split(base, 1)[-1].split("EEv")[0]
+    targs = re.findall(r"Li(\d+)E", tail + "E")
+    if tail.startswith("If"):
+        targs.append("f32")
+    if "nv_bfloat16" in tail:
+        targs.append("bf16")
+    return f"{ns}{base}<{','.join(targs)}>"
+
+
+def ptxas_by_kernel(log_text: str) -> dict:
+    """{kernel label: "N registers, spill stores/loads, wgmma waits and
+    fences that ptxas injected"} from ptxas -v."""
+    out, name, spill, injected = {}, None, "", {}
+    for line in log_text.splitlines():
+        if "Compiling entry function" in line:
+            name = kernel_label(line.split("'")[1])
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "Used " in line and " registers" in line and name:
+            regs = line.split("Used ")[1].split(",")[0]
+            out[name] = f"{regs}, {spill.split('frame, ')[-1]}"
+        elif "is injected" in line and "in function '" in line:
+            what = "waits" if "warpgroup.wait" in line else "fences"
+            fn = kernel_label(line.split("in function '")[1].split("'")[0])
+            injected.setdefault(fn, Counter())[what] += 1
+    return {k: v + "; injected wgmma " + (", ".join(
+        f"{n} {w}" for w, n in sorted(injected[k].items()))
+        if k in injected else "none") for k, v in out.items()}
+
+
+def sass_sections(build, name: str) -> dict:
+    """{mangled kernel name: SASS body} of one library (cuobjdump)."""
+    sass = subprocess.run(
+        [build.cuda_tool("cuobjdump"), "-sass",
+         str(build.library_path(name))],
+        capture_output=True, text=True, timeout=300, check=True).stdout
+    sections = {}
+    for section in sass.split("Function : ")[1:]:
+        fn, _, body = section.partition("\n")
+        sections[fn.strip()] = body
+    return sections
+
+
 def check_tensor_core_sass(build) -> None:
     """Phase 1: each bfloat16 kernel of the flash library (``tc::``)
     multiplies on the tensor cores (wgmma, SASS ``HGMMA``) and loads
-    through TMA (``UTMALDG``), as ``cuobjdump -sass`` of the library
-    shows."""
-    sass = subprocess.run(
-        [build.cuda_tool("cuobjdump"), "-sass",
-         str(build.library_path("flash_attention"))],
-        capture_output=True, text=True, timeout=300, check=True).stdout
+    through TMA (``UTMALDG``), and each tensor-core pass of the SSD scan
+    (``tc::``, its bfloat16 route) shows ``HGMMA``, as ``cuobjdump -sass``
+    of the libraries shows."""
     counts = {}     # hd -> instruction counts of tc::flash_attention_kernel<hd>
-    for section in sass.split("Function : ")[1:]:
-        name, _, body = section.partition("\n")
+    for name, body in sass_sections(build, "flash_attention").items():
         if "tc22flash_attention_kernel" in name:
             hd = int(name.split("kernelILi")[1].split("E")[0])
             counts[hd] = {op: body.count(op) for op in ("HGMMA", "UTMALDG")}
@@ -157,6 +216,12 @@ def check_tensor_core_sass(build) -> None:
           and all(n > 0 for c in counts.values() for n in c.values()),
           f"flash_attention's bfloat16 kernels lack HGMMA or UTMALDG: "
           f"{counts}")
+    ssd = {kernel_label(name): body.count("HGMMA")
+           for name, body in sass_sections(build, "ssd_scan").items()}
+    log(f"[build] ssd_scan kernels' HGMMA counts: {ssd}")
+    tc = {k: n for k, n in ssd.items() if k.startswith("tc::")}
+    check(len(tc) == 6 and all(n > 0 for n in tc.values()),
+          f"ssd_scan's tensor-core passes lack HGMMA: {ssd}")
 
 
 def kernel_sweep(fused_sgd_lanes, sgd_lanes_reference) -> float:
@@ -311,9 +376,10 @@ def time_kernels(fused_sgd_lanes, sgd_lanes_reference):
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
-def profile_report(prof, wall_us: float, what: str) -> float:
+def profile_report(prof, wall_us: float, what: str, focus=()) -> float:
     """Prints the wall, the device-busy share and the kernels by device
-    time of one profiled window; returns the busy share."""
+    time of one profiled window, and the time and busy share of the
+    kernels whose names hold one of ``focus``; returns the busy share."""
     from torch.autograd import DeviceType
 
     # device-side events only: an aten op's row repeats the time of the
@@ -330,6 +396,12 @@ def profile_report(prof, wall_us: float, what: str) -> float:
         f"({100 * busy / wall_us:.1f}%), idle {100 * (1 - busy / wall_us):.1f}%")
     for dev, count, key in rows[:10]:
         log(f"[profile]   {dev / 1e3:9.3f} ms  {count:6d}x  {key[:90]}")
+    if focus:
+        mine = [r for r in rows if any(f in r[2] for f in focus)]
+        dev = sum(r[0] for r in mine)
+        log(f"[profile]   {' + '.join(focus)}: {dev / 1e3:.3f} ms in "
+            f"{sum(r[1] for r in mine)} launches, {100 * dev / busy:.1f}% "
+            f"of the busy time")
     return busy / wall_us
 
 
@@ -606,14 +678,25 @@ def compare_logits(got, want, bounds, what: str) -> None:
 # the SSD scan and the mamba2-2.7b serving path
 
 SSD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# The chunk states and the states before each chunk are float32 in both
+# routes (in bfloat16 the state's w x reaches the product as hi + lo, a
+# residual near 2^-17): each pass's states within this share of their
+# scale of its plain pass's.
+SSD_STATE_TOL = 1e-5
 # (b, l, h, g, p, n, chunk): tests/test_kernels.py's sweep (a ragged L and
 # groups == heads included), a ragged L with G=2, and mamba2-2.7b's head
-# shape (G=1, P=64, N=Q=128) up to the path's prefill length
+# shape (G=1, P=64, N=Q=128) up to the path's prefill length; then what
+# the three passes and the tensor-core tiles meet: L < Q, two batch rows
+# of two groups across 34 chunks with L = 33 Q + 1 (the state passing
+# across many chunks, a one-step last chunk), chunk 64 with N = 64 (one
+# 64-column box; the tensor-core route at Q = 64)
 SSD_SWEEP = [
     (2, 64, 4, 1, 16, 8, 16), (1, 96, 8, 2, 32, 16, 32),
     (2, 50, 4, 1, 16, 8, 16), (1, 128, 4, 4, 64, 32, 64),
     (1, 100, 4, 2, 16, 8, 32), (1, 32, 2, 1, 8, 4, 16),
     (2, 300, 8, 8, 64, 128, 128), (1, 4000, 80, 1, 64, 128, 128),
+    (1, 100, 8, 1, 64, 128, 128), (2, 4225, 8, 2, 64, 128, 128),
+    (2, 1000, 8, 2, 64, 64, 64),
 ]
 SSD_STRIDED = [(2, 1000, 80, 1, 64, 128, 128)]
 SSD_PATH = (1, 4096, 80, 1, 64, 128, 128)     # mamba2-2.7b prefill_step
@@ -642,7 +725,7 @@ def ssd_inputs(gen, shape, dtype, strided, dt_kind):
     return x, dt, a, bm, cm
 
 
-def ssd_sweep(ssd, ssd_plain) -> float:
+def ssd_sweep(ssd, ssd_plain, kernel_route) -> float:
     """Phase 2 for the SSD scan: the kernel against its plain version.
     Returns the largest |diff|."""
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -659,8 +742,9 @@ def ssd_sweep(ssd, ssd_plain) -> float:
                 err = (out.float() - want).abs().max().item()
                 scale = max(want.abs().max().item(), 1e-6)
                 worst, worst_rel = max(worst, err), max(worst_rel, err / scale)
+                route = kernel_route(dtype, shape[6], shape[5], shape[4])
                 log(f"[sweep] ssd b,l,h,g,p,n,chunk={shape} {str(dtype)[6:]} "
-                    f"dt={dt_kind}{' strided' if strided else ''}: "
+                    f"dt={dt_kind}{' strided' if strided else ''} {route}: "
                     f"max_abs_err {err:.3e} (scale {scale:.3e}, relative "
                     f"{err / scale:.3e})")
                 check(err <= SSD_TOL[dtype] * scale and out.dtype == dtype
@@ -672,6 +756,145 @@ def ssd_sweep(ssd, ssd_plain) -> float:
     log(f"[sweep] {len(cases) * 4} ssd cases; worst |diff| {worst:.3e}, "
         f"worst relative to the output scale {worst_rel:.3e}")
     return worst
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| relative to max |want|."""
+    want = want.float()
+    return ((got.float() - want).abs().max()
+            / want.abs().max().clamp(min=1e-30)).item()
+
+
+def ssd_pass_check(kernel_passes, plain_passes) -> None:
+    """Phase 2: each of the scan kernel's three passes against its plain
+    pass at the path's shape, fed the plain previous pass's output, so
+    that a wrong pass names itself: chunk states and decays, the states
+    before each chunk, and the outputs."""
+    (k_states, k_passing, k_outputs) = kernel_passes
+    (p_states, p_passing, p_outputs) = plain_passes
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q = SSD_PATH[-1]
+    for dtype in (torch.float32, torch.bfloat16):
+        x, dt, a, bm, cm = ssd_inputs(gen, SSD_PATH, dtype, True, "path")
+        states, decay = p_states(x, dt, a, bm, q)
+        got_states, got_decay = k_states(x, dt, a, bm, chunk=q)
+        before = p_passing(states, decay)
+        errs = {"chunk states": rel_err(got_states, states),
+                "chunk decays": rel_err(got_decay, decay),
+                "state passing": rel_err(k_passing(states, decay), before)}
+        y = k_outputs(x, dt, a, bm, cm, before, chunk=q)
+        errs["chunk outputs"] = rel_err(y, p_outputs(x, dt, a, bm, cm,
+                                                     before, q))
+        torch.cuda.synchronize()
+        log(f"[sweep] ssd passes at {SSD_PATH} {str(dtype)[6:]}, each fed "
+            f"the plain previous pass, relative to the plain pass's scale: "
+            + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+            + f" (bounds {SSD_STATE_TOL:g}, outputs {SSD_TOL[dtype]:g})")
+        for what, e in errs.items():
+            bound = SSD_TOL[dtype] if what == "chunk outputs" else SSD_STATE_TOL
+            check(e <= bound, f"ssd_scan's {what} pass at {SSD_PATH} {dtype} "
+                  f"differs from its plain pass by {e:.3e} of the scale")
+        del x, dt, a, bm, cm, states, decay, got_states, before, y
+
+
+# The bfloat16 route's float32 operands (ROADMAP C4's contract on the
+# tensor cores): pass C's decayed scores, pass A's w-scaled x of the chunk
+# state and pass C's S_{c-1} each reach wgmma as bfloat16 hi + lo, never
+# rounded alone. SSD_TOL cannot see that (one rounding of such an operand
+# moves y by about one bfloat16 rounding). ssd_probe makes one operand take
+# the values C3_P, 0.4 and 0.6 of a bfloat16 ulp above 0.75, against
+# x = +1 / -1, with a = 0 (no decay): the exact output is a fifth of what
+# that operand rounded to bfloat16 makes of it. Held relative to the exact
+# output: each hi/lo split leaves at most 0.4% (its lo part's rounding),
+# the output's one rounding 0.2%; the operand rounded alone is 400% off.
+SSD_SPLIT_PROBES = ("scores", "states", "s_before")
+SSD_SPLIT_TOL = 2e-2
+
+
+def ssd_probe(kind, chunk, device, h=2, p=64, n=128):
+    """bfloat16 scan inputs (x, dt, a, b_mat, c_mat) of two chunks on
+    ``device`` for the split probe of ``kind``, with the rows (L,) whose
+    outputs it checks, their exact values (L,) float64 (every head and
+    column alike) and the values the operand rounded to bfloat16 gives.
+
+    scores: chunk 0, dt_j alternating C3_P, x_j = +1 / -1, C_i . B_j = 1
+      for odd i (0 for even i): y_i = sum_{j <= i} dt_j x_j.
+    states: chunk 0 as above writes dS[0] = sum_j dt_j x_j (w_j = dt_j);
+      chunk 1 reads it with no input of its own (B = 0) and C_i = e_0.
+    s_before: chunk 0's keys 0 and 1 write S[0] = C3_P[0], S[1] = C3_P[1]
+      (x = 1); chunk 1 reads y_i = S[0] - S[1] (C_i = e_0 - e_1, B = 0)."""
+    length = 2 * chunk
+    p0, p1 = torch.tensor(C3_P, dtype=torch.float32)
+    odd = torch.arange(chunk) % 2 == 1
+    dtv = torch.where(odd, p1, p0)
+    sign = 1.0 - 2.0 * odd.float()
+    x, bm, cm = (torch.zeros(1, length, *s) for s in ((h, p), (1, n), (1, n)))
+    dt = torch.zeros(1, length, h)
+    rows = torch.zeros(length, dtype=torch.bool)
+    exact, rounded = (torch.zeros(length, dtype=torch.float64)
+                      for _ in range(2))
+    terms = dtv.double() * sign.double()
+    terms_bf16 = dtv.bfloat16().double() * sign.double()
+    if kind in ("scores", "states"):
+        dt[0, :chunk] = dtv[:, None]
+        x[0, :chunk] = sign[:, None, None]
+        bm[0, :chunk, 0, 0] = 1
+    if kind == "scores":
+        cm[0, 1:chunk:2, 0, 0] = 1
+        rows[1:chunk:2] = True
+        exact[:chunk], rounded[:chunk] = terms.cumsum(0), terms_bf16.cumsum(0)
+    elif kind == "states":
+        cm[0, chunk:, 0, 0] = 1
+        rows[chunk:] = True
+        exact[chunk:], rounded[chunk:] = terms.sum(), terms_bf16.sum()
+    elif kind == "s_before":
+        dt[0, 0], dt[0, 1] = p0, p1
+        x[0, :2] = 1
+        bm[0, 0, 0, 0] = bm[0, 1, 0, 1] = 1
+        cm[0, chunk:, 0, 0], cm[0, chunk:, 0, 1] = 1, -1
+        rows[chunk:] = True
+        exact[chunk:] = p0.double() - p1.double()
+        rounded[chunk:] = p0.bfloat16().double() - p1.bfloat16().double()
+    else:
+        raise ValueError(f"no split probe {kind!r}")
+    args = (x.bfloat16(), dt, torch.zeros(h), bm.bfloat16(), cm.bfloat16())
+    return tuple(t.to(device) for t in args), rows, exact, rounded
+
+
+def ssd_split_err(y, rows, exact) -> float:
+    """max |y - exact| relative to |exact| over the probe's rows (every
+    head and column)."""
+    got = y.double().cpu()[0, rows]                     # (rows, H, P)
+    want = exact[rows][:, None, None]
+    return ((got - want).abs() / want.abs()).max().item()
+
+
+def ssd_split_check(ssd, ssd_plain, kernel_route) -> None:
+    """Phase 2: the bfloat16 SSD kernel, through its wrapper, splits each
+    float32 operand into bfloat16 hi + lo (ROADMAP C4) at both
+    tensor-core chunk sizes."""
+    for kind in SSD_SPLIT_PROBES:
+        for chunk in (64, 128):
+            args, rows, exact, rounded = ssd_probe(kind, chunk, "cuda")
+            route = kernel_route(torch.bfloat16, chunk, 128, 64)
+            errs = {"kernel": ssd_split_err(ssd(*args, chunk=chunk), rows,
+                                            exact),
+                    "plain": ssd_split_err(ssd_plain(*args, chunk=chunk),
+                                           rows, exact),
+                    "bfloat16 operand": ((rounded - exact)[rows].abs()
+                                         / exact[rows].abs()).max().item()}
+            log(f"[sweep] ssd split probe {kind} chunk={chunk} ({route}): "
+                f"exact outputs {exact[rows].min():.4e} .. "
+                f"{exact[rows].max():.4e}, error relative to them: "
+                + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+                + f" (bound {SSD_SPLIT_TOL:g})")
+            check(route == "tensor_cores" and errs["kernel"] <= SSD_SPLIT_TOL
+                  and errs["plain"] <= SSD_SPLIT_TOL,
+                  f"ssd_scan does not keep the {kind} operand in float32 "
+                  f"(hi + lo) at chunk {chunk}: {errs}, route {route}")
+            check(errs["bfloat16 operand"] > SSD_SPLIT_TOL,
+                  f"the {kind} split probe cannot tell a bfloat16 operand: "
+                  f"{errs}")
 
 
 # How closely the mamba2 path must agree, and why. It has no attention:
@@ -726,6 +949,8 @@ class ServePath:
     prefill_vs_decode: dict = None  # prefill_step vs decode_step, same tokens
     deep_f32: tuple = None        # full-depth float32 kernels-vs-plain bound
     serve_note: str = ""          # logged beside the full-depth counts
+    device_kernels: tuple = ()    # its kernels' names on the card, whose
+                                  # share of a profiled prefill is logged
 
 
 class swap_calls:
@@ -889,7 +1114,7 @@ def serve_two_layers(path: ServePath) -> None:
     torch.cuda.empty_cache()
 
 
-def profiled(fn, what: str) -> None:
+def profiled(fn, what: str, focus=()) -> None:
     """``fn(1)`` under the profiler, after a warm-up call ``fn(0)``."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -901,7 +1126,7 @@ def profiled(fn, what: str) -> None:
         fn(1)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    profile_report(prof, wall_us, what)
+    profile_report(prof, wall_us, what, focus)
 
 
 def serve_full_depth(path: ServePath) -> dict:
@@ -998,7 +1223,7 @@ def serve_full_depth(path: ServePath) -> dict:
 
     profiled(lambda i: prefill(params, tokens),
              f"one {path.name} prefill_step, B=1, S={seq}, "
-             f"{cfg.num_layers} layers")
+             f"{cfg.num_layers} layers", path.device_kernels)
     step = make_serve_step(cfg)
     cache = init_cache(cfg, 4, 48, dtype=torch.float32, device=cuda)
     profiled(lambda i: step(params, cache, toks[:, 15 + i:16 + i], 15 + i),
@@ -1074,15 +1299,44 @@ def time_decode(decode, decode_plain, shape, reps):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def ssd_pass_times(ssd, args, chunk, reps=10) -> dict:
+    """Each pass's median device time (ms) over ``reps`` scans with the L2
+    flushed before each, from a profiler run, and how many of the scans
+    the profiler saw it in."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device="cuda")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(reps):
+            flush.fill_(float(i))
+            ssd(*args, chunk=chunk)
+        torch.cuda.synchronize()
+    times = {}
+    for e in prof.events():
+        name = next((k for k in SSD_KERNELS if k in e.name), None)
+        if name and e.device_type == DeviceType.CUDA:
+            times.setdefault(name, []).append(e.self_device_time_total / 1e3)
+    # the profiler may miss the first kernels of a window (it missed one
+    # to three of 30 on the H100), so each pass must be seen, not seen in
+    # every scan; the log says in how many
+    check(sorted(times) == sorted(SSD_KERNELS),
+          f"the profiler did not see each ssd_scan pass: "
+          f"{ {k: len(t) for k, t in times.items()} } of {reps} scans")
+    return {k: (float(np.median(t)), len(t)) for k, t in times.items()}
+
+
 def time_ssd(ssd, ssd_plain, shape, dtype, reps):
     """The scan's cold-L2 time at ``shape`` on strided views with path-like
-    dt, against its plain version and its bound. PyTorch has no call that
-    computes the SSD scan, so there is no library time."""
+    dt, against its plain version and its bound, and its three passes'
+    times. PyTorch has no call that computes the SSD scan, so there is no
+    library time."""
     b, l, h, g, p, n, q = shape
     gen = torch.Generator(device="cuda").manual_seed(6)
     args = ssd_inputs(gen, shape, dtype, True, "path")
     before = ssd.launches
     ms = time_launch(lambda: ssd(*args, chunk=q), reps)
+    passes = ssd_pass_times(ssd, args, q)
     ssd.launches = before            # timing launches are not the path's
     plain_ms = time_launch(lambda: ssd_plain(*args, chunk=q), reps)
     # what the function needs, per (b, h) and chunk of c steps: the causal
@@ -1099,7 +1353,9 @@ def time_ssd(ssd, ssd_plain, shape, dtype, reps):
     log(f"[time] ssd_scan {shape} {str(dtype)[6:]} (strided views, path "
         f"dt): kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, no library "
         f"call; bound {bound_ms:.5f} ms ({bound_by}: {flops / 1e9:.2f} "
-        f"GFLOP, {nbytes / 1e6:.1f} MB)")
+        f"GFLOP, {nbytes / 1e6:.1f} MB); passes (profiler): "
+        + ", ".join(f"{k} {t:.5f} ms ({n} of 10 scans seen)"
+                    for k, (t, n) in passes.items()))
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
             "bound_ms": bound_ms, "bound_by": bound_by}
 
@@ -1122,7 +1378,11 @@ def main() -> int:
     )
     from repro_torch.kernels.fused_sgd.ops import fused_sgd_lanes
     from repro_torch.kernels.fused_sgd.ref import sgd_lanes_reference
-    from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_plain
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    from repro_torch.kernels.ssd_scan.ops import (
+        kernel_route, ssd_scan, ssd_scan_plain,
+    )
     from repro_torch.models import layers, mamba2
     from repro_torch.models.small import init_small_model, params_to_numpy
 
@@ -1141,6 +1401,9 @@ def main() -> int:
     log(f"[build] {', '.join(names)} in {time.perf_counter() - t0:.1f}s")
     for name in names:
         log(build_report(name, build.BUILD_LOGS.get(name)))
+    for kernel, report in ptxas_by_kernel(
+            build.BUILD_LOGS.get("ssd_scan") or "").items():
+        log(f"[build] ssd_scan {kernel}: {report}")
     check_tensor_core_sass(build)
 
     # phase 2: every kernel against its plain version
@@ -1149,7 +1412,13 @@ def main() -> int:
     max_abs_err.update(attention_sweep(flash_attention, flash_attention_plain,
                                        decode_attention,
                                        decode_attention_plain))
-    max_abs_err["ssd_scan"] = ssd_sweep(ssd_scan, ssd_scan_plain)
+    max_abs_err["ssd_scan"] = ssd_sweep(ssd_scan, ssd_scan_plain,
+                                        kernel_route)
+    ssd_pass_check(
+        (ssd_ops.chunk_states, ssd_ops.state_passing, ssd_ops.chunk_outputs),
+        (ssd_ref.ssd_chunk_states, ssd_ref.ssd_state_passing,
+         ssd_ref.ssd_chunk_outputs))
+    ssd_split_check(ssd_scan, ssd_scan_plain, kernel_route)
 
     # phase 3: the FedSR path
     fl = FLConfig(algorithm="fedsr", partition="pathological",
@@ -1193,6 +1462,7 @@ def main() -> int:
             "decode_attention": cfg.num_layers * positions},
         launch_tol=LAUNCH_TOL, gpu_vs_cpu=GPU_VS_CPU,
         kernel_vs_plain=KERNEL_VS_PLAIN,
+        device_kernels=("flash_attention_kernel",),
         deep_note="over 48 layers the near-one-hot attention rows "
         "decorrelate two runs that differ only in the attention's rounding, "
         "which is why each launch is held on its own inputs")
@@ -1204,6 +1474,7 @@ def main() -> int:
         launch_tol=SSD_TOL, gpu_vs_cpu=SSM_GPU_VS_CPU,
         kernel_vs_plain=SSM_KERNEL_VS_PLAIN,
         prefill_vs_decode=SSM_CHUNKED_VS_RECURRENT, deep_f32=SSM_DEEP_F32,
+        device_kernels=SSD_KERNELS,
         deep_note="one-ulp bfloat16 flips carried through 64 layers; "
         "bounded in float32 below",
         serve_note="prefill_and_decode launches no ssd_scan, as in the "
@@ -1211,9 +1482,18 @@ def main() -> int:
         "position at a time, and a Mamba2 decode_step runs the O(1) "
         "recurrence (ssd_decode_step); the chunked scan runs only in "
         "forward, i.e. make_prefill_step")
+    ssd_scan.routes.clear()
     for path in (yi, mamba):
         serve_two_layers(path)
         launches.update(serve_full_depth(path))
+    path_route = kernel_route(torch.bfloat16, MAMBA.ssm_chunk,
+                              MAMBA.ssm_state, MAMBA.ssm_headdim)
+    log(f"[serve] mamba2-2.7b: ssd_scan launches of phases 6-7 by route "
+        f"{dict(ssd_scan.routes)}; the bfloat16 path's shape takes "
+        f"{path_route}")
+    check(path_route == "tensor_cores" and ssd_scan.routes["tensor_cores"] > 0,
+          f"the mamba2 path's bfloat16 scan does not run on the tensor "
+          f"cores: {path_route}, {dict(ssd_scan.routes)}")
 
     # phase 8: kernel times
     time_flash(flash_attention, flash_attention_plain, (1, 256, 32, 4, 128),
