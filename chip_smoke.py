@@ -20,9 +20,13 @@ non-zero at the end, before any result line is printed):
    tests; ``flash_attention`` and ``decode_attention`` within 1e-5
    (float32) / 2e-2 (bfloat16) over that sweep plus ragged S and T, G = 8
    over two batch rows, non-causal T > S, MQA, mixed bf16-q/f32-cache
-   decode, lengths 1 and T, and the paths' own shapes; each bfloat16
+   decode, lengths 1 and T, the paths' own shapes, and decode shapes that
+   the split rule cuts into 7 to 66 splits (windows crossing splits,
+   empty splits, B=1 over a 32k cache); each bfloat16
    flash row also within 2^-7 of its own largest value, and a probe of
    ROADMAP C3 (P kept in float32 for the PV product) at hd 32, 64 and 128;
+   float32 decode attention at yi-9b's score scale, kernel and plain
+   version each against float64 (the kernel within 1e-4);
    ``ssd_scan`` within 1e-5 (float32) / 1e-2 (bfloat16) of the output
    scale over that sweep plus ragged L (L < Q, L = k Q + 1), two batch
    rows of two groups across 34 chunks, chunks of 16 to 128 on both
@@ -58,7 +62,8 @@ non-zero at the end, before any result line is printed):
    defaults (B=4, 16 + 32), timed, with their launch counts — the counts
    the result line reports; the prefill logits against the plain versions'
    on the card; each launch against its plain version on its own inputs;
-   a profiler pass over one prefill and one decode step.
+   a profiler pass over one prefill and one decode step (with the decode
+   kernels' share of the step).
 6. The mamba2-2.7b serving path at full width and 2 layers, GPU against
    CPU from the same CPU-drawn weights, in float32 and bfloat16, as in
    phase 4; also ``prefill_step`` (the chunked scan) against
@@ -78,9 +83,12 @@ non-zero at the end, before any result line is printed):
 8. Kernel times with the L2 cache flushed, against the bound, the plain
    version and one library call where PyTorch has one
    (``scaled_dot_product_attention``; none computes the SSD scan) at the
-   paths' shapes and at one layer of decode_32k; flash attention's rate
-   in TFLOP/s of the causal products the function needs; the SSD scan's
-   three passes each from a profiler run.
+   paths' shapes and at one layer of decode_32k, at its batch of 128 and
+   at batch 1; flash attention's rate in TFLOP/s of the causal products
+   the function needs; decode attention's split count, its split and
+   combine kernels each from a profiler run, and its time at split counts
+   the rule does not pick; the SSD scan's three passes each from a
+   profiler run.
 
 The last lines of standard output are one JSON line describing every
 kernel, the card's ``nvidia-smi`` name and power limit, and the result
@@ -149,6 +157,7 @@ def build_report(name: str, log_text) -> str:
 
 
 SSD_KERNELS = ("chunk_states", "state_passing", "chunk_outputs")
+DECODE_KERNELS = ("decode_split_kernel", "decode_combine_kernel")
 
 
 def kernel_label(mangled: str) -> str:
@@ -473,11 +482,16 @@ FLASH_SWEEP = [
     (2, 64, 320, 4, 2, 128, 0, False),
 ]
 # (b, h, kv, t, hd, window): tests/test_kernels.py's shapes and windows
-# (MQA included), G = 16, and the yi-9b decode shapes of phases 4-5
+# (MQA included), G = 16, and the yi-9b decode shapes of phases 4-5; then
+# shapes the split rule cuts into several splits (ops.num_splits), with
+# windows whose start falls inside a split and, with random lengths,
+# splits left empty: 7, 16, 66 and (G = 16 over one kv head) 6 splits
 DECODE_SWEEP = [
     (2, 8, 2, 256, 32, 0), (2, 8, 2, 256, 32, 100), (1, 4, 4, 512, 64, 0),
     (1, 4, 4, 512, 64, 100), (3, 8, 1, 128, 128, 0), (3, 8, 1, 128, 128, 100),
     (2, 32, 2, 300, 128, 0), (4, 32, 4, 24, 128, 0), (4, 32, 4, 48, 128, 0),
+    (2, 8, 2, 1000, 64, 300), (2, 32, 4, 2048, 128, 700),
+    (1, 32, 4, 8448, 128, 0), (2, 16, 1, 777, 32, 0),
 ]
 DECODE_DTYPES = [(torch.float32, torch.float32),
                  (torch.bfloat16, torch.bfloat16),
@@ -485,6 +499,7 @@ DECODE_DTYPES = [(torch.float32, torch.float32),
 FLASH_PATH = (1, 4096, 32, 4, 128)          # yi-9b prefill_step, phase 5
 DECODE_PATH = (4, 32, 4, 48, 128)           # yi-9b CLI defaults, phase 5
 DECODE_32K = (128, 32, 4, 32768, 128)       # one layer of decode_32k
+DECODE_32K_B1 = (1, 32, 4, 32768, 128)      # its cache at batch 1
 
 
 def _randn(gen, shape, dtype):
@@ -555,6 +570,47 @@ def c3_probe_check(flash, flash_plain) -> None:
               f"the C3 probe at hd={hd} cannot tell bfloat16 P: {errs}")
 
 
+def decode_score_scale_check(decode, decode_plain, trials=20) -> None:
+    """Phase 2: float32 decode attention at the path's shape with scores
+    of yi-9b's scale (std 350, see LAUNCH_TOL), kernel and plain version
+    each against a float64 computation of the same inputs. A score of
+    several hundred keeps ~2e-5 of rounding, so two float32 versions that
+    sum q . k in other orders differ by up to ~1e-4 of the output; this
+    says how much of that is the kernel's. Held to LAUNCH_TOL's float32
+    bound, relative to max(1, max |exact|)."""
+    b, h, kv, t, hd = DECODE_PATH
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    arange = torch.arange(t, device="cuda")
+    errs = {"kernel": [], "plain": []}
+    for _ in range(trials):
+        q = torch.randn((b, 1, h, hd), device="cuda", generator=gen) * 350 ** 0.5
+        k = torch.randn((b, t, kv, hd), device="cuda", generator=gen) * 350 ** 0.5
+        v = torch.randn((b, t, kv, hd), device="cuda", generator=gen)
+        lengths = torch.randint(1, t + 1, (b,), device="cuda",
+                                generator=gen).to(torch.int32)
+        s = torch.einsum("bkgd,bktd->bkgt",
+                         q.double()[:, 0].reshape(b, kv, h // kv, hd),
+                         k.double().transpose(1, 2)) / hd ** 0.5
+        s = torch.where((arange < lengths[:, None])[:, None, None], s,
+                        -torch.inf)
+        exact = torch.einsum("bkgt,bktd->bkgd", torch.softmax(s, -1),
+                             v.double().transpose(1, 2)).reshape(q.shape)
+        scale = exact.abs().max().clamp(min=1.0)
+        for name, fn in (("kernel", decode), ("plain", decode_plain)):
+            errs[name].append(((fn(q, k, v, lengths).double() - exact)
+                               .abs().max() / scale).item())
+    worst = {name: max(e) for name, e in errs.items()}
+    log(f"[sweep] decode {DECODE_PATH} float32 at yi-9b's score scale "
+        f"(std 350), against float64 over {trials} draws: max relative "
+        f"|diff| kernel {worst['kernel']:.3e} (median "
+        f"{np.median(errs['kernel']):.3e}), plain version {worst['plain']:.3e}"
+        f" (median {np.median(errs['plain']):.3e}); bound "
+        f"{LAUNCH_TOL[torch.float32]:g}")
+    check(worst["kernel"] <= LAUNCH_TOL[torch.float32],
+          f"decode_attention at yi-9b's score scale is {worst['kernel']:.3e}"
+          f" from float64")
+
+
 def attention_sweep(flash, flash_plain, decode, decode_plain):
     """Phase 2 for the attention kernels: each against its plain version.
     Returns the largest |diff| of each kernel over its sweep."""
@@ -589,6 +645,8 @@ def attention_sweep(flash, flash_plain, decode, decode_plain):
     cases = [(c, d, e) for c in DECODE_SWEEP for d in DECODE_DTYPES
              for e in ("random", "one", "full")]
     cases.append((DECODE_32K + (0,), DECODE_DTYPES[2], "full"))
+    cases += [(DECODE_32K_B1 + (w,), DECODE_DTYPES[2], e)
+              for w, e in ((0, "full"), (0, "random"), (5000, "full"))]
     for (b, h, kv, t, hd, window), (qd, cd), edge in cases:
         q = _randn(gen, (b, 1, h, hd), qd)
         k, v = (_randn(gen, (b, t, kv, hd), cd) for _ in range(2))
@@ -609,6 +667,7 @@ def attention_sweep(flash, flash_plain, decode, decode_plain):
               f"decode_attention != plain version at {(b, h, kv, t, hd)} "
               f"window={window} {qd}/{cd} lengths={edge}: {err}")
         del q, k, v
+    decode_score_scale_check(decode, decode_plain)
     log(f"[sweep] {len(FLASH_SWEEP) * 2} flash and {len(cases)} decode "
         f"cases; worst |diff| {worst}")
     return worst
@@ -951,6 +1010,7 @@ class ServePath:
     serve_note: str = ""          # logged beside the full-depth counts
     device_kernels: tuple = ()    # its kernels' names on the card, whose
                                   # share of a profiled prefill is logged
+    decode_kernels: tuple = ()    # the same for a profiled decode step
 
 
 class swap_calls:
@@ -1227,7 +1287,8 @@ def serve_full_depth(path: ServePath) -> dict:
     step = make_serve_step(cfg)
     cache = init_cache(cfg, 4, 48, dtype=torch.float32, device=cuda)
     profiled(lambda i: step(params, cache, toks[:, 15 + i:16 + i], 15 + i),
-             f"one {path.name} decode step, B=4, {cfg.num_layers} layers")
+             f"one {path.name} decode step, B=4, {cfg.num_layers} layers",
+             path.decode_kernels)
     del params, cache
     torch.cuda.empty_cache()
     return {k: n_prefill[k] + n_serve[k] for k in path.kernels}
@@ -1268,17 +1329,33 @@ def time_flash(flash, flash_plain, shape, dtype, reps):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def time_decode(decode, decode_plain, shape, reps):
+def time_decode(decode, decode_plain, shape, reps, forced=()):
+    """The kernels' cold-L2 time at ``shape`` (full lengths) with the
+    wrapper's split count, against the bound, the plain version and SDPA;
+    the split and combine kernels' times from a profiler run; and the
+    kernels' time with each split count of ``forced`` (through
+    ``kernel.launch``), which the wrapper does not pick here."""
     import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import kernel, ops
 
     b, h, kv, t, hd = shape
     gen = torch.Generator(device="cuda").manual_seed(4)
     q = _randn(gen, (b, 1, h, hd), torch.bfloat16)
     k, v = (_randn(gen, (b, t, kv, hd), torch.float32) for _ in range(2))
     lengths = torch.full((b,), t, dtype=torch.int32, device="cuda")
+    splits = ops.num_splits(b, kv, t, torch.cuda.get_device_properties(0)
+                            .multi_processor_count)
     before = decode.launches
     ms = time_launch(lambda: decode(q, k, v, lengths), reps)
+    parts = kernel_times(lambda: decode(q, k, v, lengths),
+                         DECODE_KERNELS[:1 + (splits > 1)])
     decode.launches = before
+    others = {}
+    for s in forced:
+        out, scratch = torch.empty_like(q), ops.split_scratch(q, k, s)
+        others[s] = time_launch(
+            lambda s=s, out=out, scratch=scratch: kernel.launch(
+                q, k, v, lengths, out, scratch, window=0, splits=s), reps)
     plain_ms = time_launch(lambda: decode_plain(q, k, v, lengths), reps)
     # SDPA over the (B, KV, G, hd) layout: a kv head's G query heads are
     # SDPA's query rows, so no K/V copy per query head (enable_gqa makes
@@ -1292,17 +1369,23 @@ def time_decode(decode, decode_plain, shape, reps):
     nbytes = 2 * keys * kv * hd * 4 + 2 * b * h * hd * 2 + 4 * b
     flops = 4 * keys * h * hd
     bound_ms, bound_by = _bound(nbytes, flops, H100_F32_FLOPS)
-    log(f"[time] decode_attention {shape} bf16 q / f32 cache, lengths T: "
-        f"kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, SDPA {library_ms:.5f}"
-        f" ms, bound {bound_ms:.5f} ms ({bound_by}: {nbytes / 1e9:.4f} GB)")
+    log(f"[time] decode_attention {shape} bf16 q / f32 cache, lengths T, "
+        f"{splits} split(s): kernel {ms:.5f} ms ({100 * bound_ms / ms:.1f}% "
+        f"of the bound), plain {plain_ms:.5f} ms, SDPA {library_ms:.5f} ms, "
+        f"bound {bound_ms:.5f} ms ({bound_by}: {nbytes / 1e9:.4f} GB); "
+        f"kernels (profiler): " + ", ".join(
+            f"{k} {t_:.5f} ms ({n} of 10 calls seen)"
+            for k, (t_, n) in parts.items())
+        + "".join(f"; forced to {s} split(s): {t_:.5f} ms"
+                  for s, t_ in others.items()))
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def ssd_pass_times(ssd, args, chunk, reps=10) -> dict:
-    """Each pass's median device time (ms) over ``reps`` scans with the L2
-    flushed before each, from a profiler run, and how many of the scans
-    the profiler saw it in."""
+def kernel_times(fn, names, reps=10) -> dict:
+    """Each named kernel's median device time (ms) over ``reps`` calls of
+    ``fn`` with the L2 flushed before each, from a profiler run, and how
+    many of the calls the profiler saw it in."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1310,19 +1393,19 @@ def ssd_pass_times(ssd, args, chunk, reps=10) -> dict:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for i in range(reps):
             flush.fill_(float(i))
-            ssd(*args, chunk=chunk)
+            fn()
         torch.cuda.synchronize()
     times = {}
     for e in prof.events():
-        name = next((k for k in SSD_KERNELS if k in e.name), None)
+        name = next((k for k in names if k in e.name), None)
         if name and e.device_type == DeviceType.CUDA:
             times.setdefault(name, []).append(e.self_device_time_total / 1e3)
     # the profiler may miss the first kernels of a window (it missed one
-    # to three of 30 on the H100), so each pass must be seen, not seen in
-    # every scan; the log says in how many
-    check(sorted(times) == sorted(SSD_KERNELS),
-          f"the profiler did not see each ssd_scan pass: "
-          f"{ {k: len(t) for k, t in times.items()} } of {reps} scans")
+    # to three of 30 on the H100), so each kernel must be seen, not seen in
+    # every call; the log says in how many
+    check(sorted(times) == sorted(names),
+          f"the profiler did not see each of {names}: "
+          f"{ {k: len(t) for k, t in times.items()} } of {reps} calls")
     return {k: (float(np.median(t)), len(t)) for k, t in times.items()}
 
 
@@ -1336,7 +1419,7 @@ def time_ssd(ssd, ssd_plain, shape, dtype, reps):
     args = ssd_inputs(gen, shape, dtype, True, "path")
     before = ssd.launches
     ms = time_launch(lambda: ssd(*args, chunk=q), reps)
-    passes = ssd_pass_times(ssd, args, q)
+    passes = kernel_times(lambda: ssd(*args, chunk=q), SSD_KERNELS)
     ssd.launches = before            # timing launches are not the path's
     plain_ms = time_launch(lambda: ssd_plain(*args, chunk=q), reps)
     # what the function needs, per (b, h) and chunk of c steps: the causal
@@ -1463,6 +1546,7 @@ def main() -> int:
         launch_tol=LAUNCH_TOL, gpu_vs_cpu=GPU_VS_CPU,
         kernel_vs_plain=KERNEL_VS_PLAIN,
         device_kernels=("flash_attention_kernel",),
+        decode_kernels=DECODE_KERNELS,
         deep_note="over 48 layers the near-one-hot attention rows "
         "decorrelate two runs that differ only in the attention's rounding, "
         "which is why each launch is held on its own inputs")
@@ -1501,8 +1585,10 @@ def main() -> int:
     times["flash_attention"] = time_flash(
         flash_attention, flash_attention_plain, FLASH_PATH, torch.bfloat16, 20)
     times["decode_attention"] = time_decode(
-        decode_attention, decode_attention_plain, DECODE_PATH, 50)
-    time_decode(decode_attention, decode_attention_plain, DECODE_32K, 10)
+        decode_attention, decode_attention_plain, DECODE_PATH, 50, (3,))
+    time_decode(decode_attention, decode_attention_plain, DECODE_32K_B1, 20,
+                (16, 132))
+    time_decode(decode_attention, decode_attention_plain, DECODE_32K, 10, (2,))
     times["ssd_scan"] = time_ssd(ssd_scan, ssd_scan_plain, SSD_PATH,
                                  torch.bfloat16, 20)
     time_ssd(ssd_scan, ssd_scan_plain, SSD_PATH, torch.float32, 10)

@@ -2,11 +2,15 @@
 layout: q (B, 1, H, hd), caches (B, T, KV, hd), lengths (B,) (the
 reference's ``ops.py::decode_attention``).
 
-On a CUDA tensor it launches the hand-written Hopper kernel
-(``csrc/decode_attention.cu``) or raises; on a CPU tensor it runs the plain
-version (``ref.py``). There is no fallback from the one to the other.
+On a CUDA tensor it launches the hand-written Hopper kernels
+(``csrc/decode_attention.cu``: a split kernel over ``num_splits`` blocks
+per (sequence, kv head) and, with more than one split, a combine kernel)
+or raises; on a CPU tensor it runs the plain version (``ref.py``). There
+is no fallback from the one to the other.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -21,6 +25,47 @@ KERNEL_MAX_GROUP = 16
 KERNEL_DTYPES = ((torch.float32, torch.float32),
                  (torch.bfloat16, torch.bfloat16),
                  (torch.bfloat16, torch.float32))
+# The split rule. The split kernel takes shared memory for exactly
+# BLOCKS_PER_SM blocks an SM (kBlockSmem), so its grid runs in waves of
+# BLOCKS_PER_SM * SMs blocks, and a wave's unfilled tail idles the card.
+# No split holds fewer than MIN_SPLIT_KEYS cache positions: more than one
+# split costs a combine launch and a round trip of the partials.
+BLOCKS_PER_SM = 2
+MIN_SPLIT_KEYS = 128
+
+
+@functools.cache
+def num_splits(batch: int, kv_heads: int, cache_len: int, sms: int) -> int:
+    """How many blocks share the keys of one (sequence, kv head): the S
+    whose grid of ``batch * kv_heads * S`` blocks fills its waves best
+    (the least such S, to a hundredth), for S up to two waves' worth and
+    at most one split per ``MIN_SPLIT_KEYS`` positions. A function of the
+    shapes only: the lengths stay on the card."""
+    slots, pairs = BLOCKS_PER_SM * sms, batch * kv_heads
+    most = max(1, min(cache_len // MIN_SPLIT_KEYS, -(-2 * slots // pairs)))
+
+    def fill(s):
+        blocks = pairs * s
+        return round(blocks / (-(-blocks // slots) * slots), 2)
+
+    return max(range(1, most + 1), key=lambda s: (fill(s), -s))
+
+
+def split_scratch(q: torch.Tensor, k_cache: torch.Tensor,
+                  splits: int) -> torch.Tensor | None:
+    """The float32 partials (B, KV, S, G, hd + 2) the split kernel writes
+    and the combine kernel reads, or None for one split (no combine)."""
+    if splits == 1:
+        return None
+    B, _, H, hd = q.shape
+    KV = k_cache.shape[2]
+    return torch.empty((B, KV, splits, H // KV, hd + 2), dtype=torch.float32,
+                       device=q.device)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(q, k_cache, v_cache, lengths, window) -> None:
@@ -72,7 +117,9 @@ class DecodeAttention:
     q (B, 1, H, hd), caches (B, T, KV, hd), lengths (B,) in [1, T] ->
     (B, 1, H, hd) in q's dtype (see ``ref.decode_attention_reference``).
     On the card ``lengths`` is int32 and is never read by the host.
-    ``launches`` counts kernel launches — the CPU path never adds to it."""
+    ``launches`` counts calls that launched the kernels (the split kernel
+    and, with more than one split, the combine) — the CPU path never adds
+    to it."""
 
     def __init__(self):
         self.launches = 0
@@ -102,7 +149,7 @@ class DecodeAttention:
         if H // KV > KERNEL_MAX_GROUP:
             raise ValueError(f"the kernel takes at most {KERNEL_MAX_GROUP} "
                              f"query heads per kv head, got {H // KV}")
-        if B > 65535:
+        if B > 65535:      # B is the grid's z
             raise ValueError(f"at most 65535 sequences per launch, got {B}")
         for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
                         ("lengths", lengths)):
@@ -112,9 +159,13 @@ class DecodeAttention:
                 raise ValueError(f"{name} must be 16-byte aligned")
         if k_cache.shape[1] == 0:
             raise ValueError("the cache holds no position")
+        splits = num_splits(B, KV, k_cache.shape[1],
+                            _sm_count(q.device.index))
         out = torch.empty_like(q)
         from repro_torch.kernels.decode_attention.kernel import launch
-        launch(q, k_cache, v_cache, lengths, out, window=window)
+        launch(q, k_cache, v_cache, lengths, out,
+               split_scratch(q, k_cache, splits), window=window,
+               splits=splits)
         self.launches += 1
         return out
 

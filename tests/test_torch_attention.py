@@ -11,7 +11,15 @@ and T. Tolerances are those of ``tests/test_kernels.py``: 1e-5 in float32
 (online softmax and einsum sum in other orders) and 2e-2 in bfloat16 (one
 rounding of the output to bfloat16). The CUDA kernels are held against the
 same plain versions on the card (``tests/test_torch_attention_gpu.py``).
+
+Decode attention's card decomposition (per-split partials, then their
+combine; ``ref.py``) is held against the same oracles, and in float32
+within 1e-6 of ``decode_attention_reference`` over split counts that
+leave splits empty and windows that start inside a split; the split rule
+``ops.num_splits`` is pinned to the shapes alone.
 """
+import inspect
+
 import numpy as np
 import pytest
 
@@ -23,7 +31,10 @@ from repro.kernels.decode_attention.ops import decode_attention as jax_decode
 from repro.kernels.decode_attention.ref import decode_attention_reference
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 from repro.kernels.flash_attention.ref import attention_reference
-from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.kernels.decode_attention import ref as decode_ref
+from repro_torch.kernels.decode_attention.ops import (
+    BLOCKS_PER_SM, MIN_SPLIT_KEYS, decode_attention, num_splits,
+)
 from repro_torch.kernels.flash_attention.ops import flash_attention
 
 TOL = {np.float32: 1e-5, "bfloat16": 2e-2}
@@ -151,6 +162,16 @@ def test_decode_attention_plain_matches_reference_and_pallas(
                         interpret=True)
     _close(out, pallas, tol)
     assert decode_attention.launches == 0
+    # the card's decomposition, split then combined, in the same layout
+    q4 = qt[:, 0].reshape(b, kv, g, hd)
+    k4, v4 = kt.transpose(1, 2), vt.transpose(1, 2)
+    for splits in (1, 3):
+        parts = decode_ref.decode_attention_split_partials(
+            q4, k4, v4, lt, splits=splits, window=window)
+        split = decode_ref.decode_attention_combine(parts, qt.dtype)
+        assert split.dtype == qt.dtype
+        _close(split.reshape(b, 1, h, hd), ref, tol)
+        _close(split.reshape(b, 1, h, hd), pallas, tol)
 
 
 @pytest.mark.parametrize("bad", ["lengths_dtype", "lengths_shape", "cache_dtype",
@@ -170,3 +191,85 @@ def test_decode_attention_rejects_bad_inputs(bad):
         q = torch.zeros(2, 1, 3, 32)
     with pytest.raises((ValueError, TypeError)):
         decode_attention(q, k, v, lengths)
+
+
+# the split-KV decomposition of the card, on the CPU
+
+
+SPLIT_CASES = [
+    # (b, h, kv, t, hd, window, lengths)
+    (3, 4, 4, 200, 32, 0, [1, 200, 77]),      # G = 1: lengths 1, T, between
+    (2, 32, 2, 300, 64, 100, [300, 150]),     # G = 16, window inside a split
+    (2, 16, 1, 64, 32, 0, [64, 5]),           # G = 16 (MQA), empty splits
+    (1, 8, 8, 40, 128, 24, [33]),             # G = 1, window
+]
+
+
+@pytest.mark.parametrize("b,h,kv,t,hd,window,lengths", SPLIT_CASES)
+@pytest.mark.parametrize("splits", [1, 2, 3, 7, 64])
+def test_decode_split_then_combine_matches_reference(b, h, kv, t, hd, window,
+                                                     lengths, splits):
+    rng = np.random.default_rng(t + hd + window)
+    g = h // kv
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+               for shape in ((b, kv, g, hd), (b, kv, t, hd), (b, kv, t, hd)))
+    lens = torch.tensor(lengths, dtype=torch.int32)
+    parts = decode_ref.decode_attention_split_partials(
+        q, k, v, lens, splits=splits, window=window)
+    assert parts.shape == (b, kv, splits, g, hd + 2)
+    assert parts.dtype == torch.float32
+    out = decode_ref.decode_attention_combine(parts, torch.float32)
+    want = decode_ref.decode_attention_reference(q, k, v, lens, window=window)
+    assert (out - want).abs().max().item() <= 1e-6
+    # an empty split holds the empty state; splits past the live keys'
+    # whole tiles are empty
+    empty = torch.isneginf(parts[..., hd])
+    assert (parts[..., hd + 1][empty] == 0).all()
+    assert (parts[..., :hd][empty] == 0).all()
+    tile = decode_ref.SPLIT_TILE
+    for i, n in enumerate(lengths):
+        n -= max(n - window, 0) if window > 0 else 0
+        share = -(-(-(-n // splits)) // tile) * tile
+        full = -(-n // share)
+        assert not empty[i, :, :full].any() and empty[i, :, full:].all()
+
+
+@pytest.mark.parametrize("t,window,lengths", [
+    (200, 0, [1, 200, 77, 16, 17]), (300, 100, [300, 150, 99, 101]),
+    (40, 24, [33, 1, 40])])
+@pytest.mark.parametrize("splits", [1, 2, 3, 7, 64])
+def test_decode_split_spans_tile_the_live_range(t, window, lengths, splits):
+    """The splits of a sequence cover [lo, len) once, in order, each a
+    whole number of tiles but the last non-empty one."""
+    tile = decode_ref.SPLIT_TILE
+    start, end = decode_ref.split_spans(torch.tensor(lengths), t, splits,
+                                        window=window)
+    for b, n in enumerate(lengths):
+        lo = max(n - window, 0) if window > 0 else 0
+        keys = [list(range(s, e)) for s, e in zip(start[b].tolist(),
+                                                  end[b].tolist())]
+        assert sum(keys, []) == list(range(lo, n))
+        sizes = [len(x) for x in keys if x]
+        assert all(size % tile == 0 for size in sizes[:-1])
+        assert len(sizes) <= splits
+
+
+def test_num_splits_depends_on_shapes_only():
+    assert list(inspect.signature(num_splits).parameters) == [
+        "batch", "kv_heads", "cache_len", "sms"]
+    assert num_splits(128, 4, 32768, 132) == 1        # decode_32k's batch
+    assert num_splits(1, 4, 32768, 132) > 1            # one long sequence
+    assert 1 <= num_splits(4, 4, 48, 132) <= 3         # yi-9b's CLI path
+    slots = BLOCKS_PER_SM * 132
+
+    def fill(blocks):
+        return blocks / (-(-blocks // slots) * slots)
+
+    for b in (1, 2, 4, 32, 64, 96, 128, 1000):
+        for kv in (1, 4, 8):
+            for t in (1, 16, 48, 1000, 32768):
+                s = num_splits(b, kv, t, 132)
+                assert s >= 1 and s == num_splits(b, kv, t, 132)
+                assert s == 1 or s <= t // MIN_SPLIT_KEYS
+                assert b * kv * s < 2 * slots + b * kv   # two waves at most
+                assert fill(b * kv * s) >= fill(b * kv) - 0.01

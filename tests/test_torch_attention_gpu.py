@@ -8,6 +8,9 @@ GPU machine without the JAX package's dependencies:
 
 Without a card every case skips, except the check that the C3 probe of
 ``chip_smoke.py`` tells float32 P from bfloat16 P, which needs no kernel.
+Decode attention is also run with its split count forced through
+``kernel.launch`` (both the one-kernel route, S = 1, and split + combine),
+over split boundaries, empty splits and windows that cross splits.
 Online softmax sums in another order than the plain version, so the two
 agree within 1e-5 in float32 and 2e-2 in bfloat16 (one rounding of the
 output), the bounds of ``tests/test_kernels.py``; each bfloat16 flash row
@@ -23,14 +26,18 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels.decode_attention import kernel as decode_kernel
 from repro_torch.kernels.decode_attention.ops import (
-    decode_attention, decode_attention_plain,
+    decode_attention, decode_attention_plain, split_scratch,
 )
 from repro_torch.kernels.flash_attention.ops import (
     flash_attention, flash_attention_plain,
 )
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+DECODE_DTYPES = [(torch.float32, torch.float32),
+                 (torch.bfloat16, torch.bfloat16),
+                 (torch.bfloat16, torch.float32)]
 
 
 @pytest.fixture
@@ -141,9 +148,7 @@ def test_c3_probe_tells_float32_p_from_bfloat16_p(hd):
     (4, 32, 4, 48, 128, 0),               # yi-9b serving default
     (2, 32, 2, 300, 128, 0),              # G = 16
 ])
-@pytest.mark.parametrize("qd,cd", [
-    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
-    (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("qd,cd", DECODE_DTYPES)
 @pytest.mark.parametrize("edge", [None, "one", "full"])
 def test_decode_kernel_matches_plain_version(cuda, b, h, kv, t, hd, window,
                                              qd, cd, edge):
@@ -162,6 +167,85 @@ def test_decode_kernel_matches_plain_version(cuda, b, h, kv, t, hd, window,
     assert out.dtype == qd and out.shape == q.shape
     err = (out.float() - want.float()).abs().max().item()
     assert err <= TOL[qd], err
+
+
+def _decode_case(rng, b, h, kv, t, hd, qd, cd, lengths, device):
+    q = _randn(rng, (b, 1, h, hd), qd, device)
+    k = _randn(rng, (b, t, kv, hd), cd, device)
+    v = _randn(rng, (b, t, kv, hd), cd, device)
+    return q, k, v, torch.tensor(lengths, dtype=torch.int32, device=device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,kv,t,hd,window,lengths", [
+    # lengths 1, full and between; boundaries of the 16-key tiles
+    (3, 8, 2, 256, 32, 0, [1, 256, 77]),
+    (2, 8, 2, 300, 128, 0, [17, 300]),
+    # windows whose start falls inside a split
+    (2, 32, 4, 300, 128, 100, [300, 151]),
+    (2, 8, 8, 1000, 64, 300, [1000, 433]),
+    # G = 16 over one kv head (MQA); short lengths leave splits empty
+    (3, 16, 1, 100, 64, 0, [5, 100, 33]),
+    (2, 16, 2, 64, 32, 24, [64, 2]),
+])
+@pytest.mark.parametrize("splits", [1, 2, 3, 7, 64])
+@pytest.mark.parametrize("qd,cd", DECODE_DTYPES)
+def test_decode_kernel_forced_splits_match_plain_version(
+        cuda, b, h, kv, t, hd, window, lengths, splits, qd, cd):
+    rng = np.random.default_rng(t + hd + splits)
+    q, k, v, lens = _decode_case(rng, b, h, kv, t, hd, qd, cd, lengths, cuda)
+    out = torch.empty_like(q)
+    decode_kernel.launch(q, k, v, lens, out, split_scratch(q, k, splits),
+                         window=window, splits=splits)
+    torch.cuda.synchronize()
+    want = decode_attention_plain(q, k, v, lens, window=window)
+    err = (out.float() - want.float()).abs().max().item()
+    assert err <= TOL[qd], err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("splits", [None, 16])
+def test_decode_kernel_long_cache_at_batch_one(cuda, splits):
+    """B = 1 over a 32k cache (decode_32k's cache at small batch), with
+    the wrapper's split count and with 16 splits forced; one length ends
+    inside a tile."""
+    rng = np.random.default_rng(7)
+    for length in (32768, 20001):
+        q, k, v, lens = _decode_case(rng, 1, 32, 4, 32768, 128,
+                                     torch.bfloat16, torch.float32, [length],
+                                     cuda)
+        if splits is None:
+            out = decode_attention(q, k, v, lens)
+        else:
+            out = torch.empty_like(q)
+            decode_kernel.launch(q, k, v, lens, out,
+                                 split_scratch(q, k, splits), window=0,
+                                 splits=splits)
+        torch.cuda.synchronize()
+        want = decode_attention_plain(q, k, v, lens)
+        err = (out.float() - want.float()).abs().max().item()
+        assert err <= TOL[torch.bfloat16], (length, err)
+
+
+@pytest.mark.gpu
+def test_decode_wrapper_never_synchronises(cuda):
+    """A decode step reads lengths only on the card: no host sync, at a
+    shape with several splits (split kernel and combine)."""
+    rng = np.random.default_rng(8)
+    q, k, v, lens = _decode_case(rng, 2, 32, 4, 2048, 128, torch.bfloat16,
+                                 torch.float32, [2048, 999], cuda)
+    decode_attention(q, k, v, lens)            # build and load first
+    torch.cuda.synchronize()
+    before = decode_attention.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = decode_attention(q, k, v, lens, window=700)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert decode_attention.launches == before + 1
+    want = decode_attention_plain(q, k, v, lens, window=700)
+    err = (out.float() - want.float()).abs().max().item()
+    assert err <= TOL[torch.bfloat16], err
 
 
 @pytest.mark.gpu
