@@ -17,7 +17,10 @@ non-zero at the end, before any result line is printed):
    each of its tensor-core passes.
 2. Every kernel against its plain PyTorch version on the card:
    ``fused_sgd`` bit for bit over the sweep of the JAX package's kernel
-   tests; ``flash_attention`` and ``decode_attention`` within 1e-5
+   tests, with the gradient as one (C, P) tensor and as leaf lists in each
+   class of alignment against p (sharing 16, 8, 4 bytes; the paper MLP's
+   layout; odd sizes at odd offsets) at the kernel's span a block and at
+   forced spans; ``flash_attention`` and ``decode_attention`` within 1e-5
    (float32) / 2e-2 (bfloat16) over that sweep plus ragged S and T, G = 8
    over two batch rows, non-causal T > S, MQA, mixed bf16-q/f32-cache
    decode, lengths 1 and T, the paths' own shapes, and decode shapes that
@@ -44,8 +47,13 @@ non-zero at the end, before any result line is printed):
    launched once per SGD step the plans imply, one dispatch per block;
    plans, comm meters and H2D bytes identical between the two runs, every
    eval's accuracy within 0.02 of the CPU run's, and the final accuracy
-   well above chance. Then ``fused_sgd``'s times (kernel, plain,
-   ``torch._fused_sgd_``) and a profiler pass over one round.
+   well above chance. Then ``fused_sgd``'s times at the path's shape, with
+   one (C, P) gradient and with the paper MLP's six leaves (the path's
+   call): events with the L2 flushed, the profiler's kernel time with the
+   L2 flushed by a write and by a read and warm; the plain version and
+   ``torch._fused_sgd_``. Last a profiler pass over one round, with the
+   update's device time and the device kernels a SGD step; the round must
+   run no ``torch.cat`` (the kernel reads the gradient leaves in place).
 4. The yi-9b serving path at full width and 2 layers, GPU against CPU
    from the same CPU-drawn weights, in float32 and in bfloat16:
    ``prefill_step`` at B=1, S=256 and ``prefill_and_decode`` at B=4,
@@ -233,42 +241,84 @@ def check_tensor_core_sass(build) -> None:
           f"ssd_scan's tensor-core passes lack HGMMA: {ssd}")
 
 
+# gradient leaf layouts of the sweep, by how each leaf's rows sit against
+# p's 16-byte grid: sharing 16 bytes, 8 bytes, 4 bytes; the paper MLP's
+# sorted layout (its w0 alternates 16 and 8 bytes by lane); odd sizes at odd
+# offsets
+MLP_LEAVES = [(200,), (200,), (10,), (784, 200), (200, 200), (200, 10)]
+SGD_LAYOUTS = {"share16": [(64,), (16, 40), (8,)],
+               "share8": [(2,), (16, 40), (6,)],
+               "share4": [(1,), (16, 40), (3,)],
+               "mlp": MLP_LEAVES,
+               "odd": [(3,), (1,), (7, 5), (2,), (13,), (1,), (33,)]}
+SGD_SPANS = (4, 12, 4096)      # forced spans a block: one slot, three, 1,024
+
+
+def split_leaves(g, shapes):
+    """Contiguous leaves holding g's columns in order (fresh allocations,
+    as autograd's are)."""
+    out, off = [], 0
+    for shape in shapes:
+        n = int(np.prod(shape))
+        out.append(g[:, off:off + n].clone(
+            memory_format=torch.contiguous_format).view(g.shape[0], *shape))
+        off += n
+    return out
+
+
 def kernel_sweep(fused_sgd_lanes, sgd_lanes_reference) -> float:
-    """Phase 2: the kernel equals its plain version bit for bit. Returns
+    """Phase 2: the kernel equals its plain version bit for bit, with the
+    gradient as one (C, P) tensor and as leaf lists in every alignment
+    class, at the kernel's own span a block and at forced spans. Returns
     the largest absolute difference seen (0.0 when it passes)."""
+    from repro_torch.kernels.fused_sgd import kernel
+
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = []
     for n in SWEEP_N:
         for nesterov in (False, True):
-            cases.append(((5, n), 0.9, nesterov))
-    cases += [((5, 199_210), 0.0, False), ((1, 64), 0.0, False),
-              ((3, 300), 0.5, True), (MAIN_SHAPE, 0.5, False)]
+            cases.append(((5, n), None, 0.9, nesterov, 0))
+    cases += [((5, 199_210), None, 0.0, False, 0), ((1, 64), None, 0.0, False, 0),
+              ((3, 300), None, 0.5, True, 0), (MAIN_SHAPE, None, 0.5, False, 0)]
+    for name, shapes in SGD_LAYOUTS.items():
+        P = sum(int(np.prod(s)) for s in shapes)
+        for C in (1, 5):
+            for span in (0,) + SGD_SPANS:
+                cases.append(((C, P), name, 0.9, C == 5, span))
     masks = ([True] * 5, [True, False, True, True, False], [False] * 5)
     worst = 0.0
-    for shape, momentum, nesterov in cases:
+    for shape, layout, momentum, nesterov, span in cases:
         C = shape[0]
         p, g, m = (torch.randn(shape, device="cuda", generator=gen)
                    for _ in range(3))
+        grads = g if layout is None else split_leaves(g, SGD_LAYOUTS[layout])
         lr = torch.tensor([0.02], device="cuda")
         for mask in masks:
             ok = torch.tensor(mask[:C], device="cuda")
             for reset in (False, True):
                 want_p, want_m = sgd_lanes_reference(
-                    p, g, m, ok, lr, reset=reset, momentum=momentum,
+                    p, grads, m, ok, lr, reset=reset, momentum=momentum,
                     nesterov=nesterov)
                 got_p, got_m = p.clone(), m.clone()
-                fused_sgd_lanes(got_p, g, got_m, ok, lr, reset=reset,
-                                momentum=momentum, nesterov=nesterov)
+                if span:
+                    kernel.launch(got_p, grads, got_m, ok, lr, reset=reset,
+                                  momentum=momentum, nesterov=nesterov,
+                                  span=span)
+                else:
+                    fused_sgd_lanes(got_p, grads, got_m, ok, lr, reset=reset,
+                                    momentum=momentum, nesterov=nesterov)
                 torch.cuda.synchronize()
                 err = max((got_p - want_p).abs().max().item(),
                           (got_m - want_m).abs().max().item())
                 worst = max(worst, err)
                 check(torch.equal(got_p, want_p) and torch.equal(got_m, want_m),
                       f"fused_sgd != plain version at shape={shape} "
-                      f"momentum={momentum} nesterov={nesterov} "
-                      f"ok={mask[:C]} reset={reset} (max |diff| {err})")
+                      f"leaves={layout} span={span} momentum={momentum} "
+                      f"nesterov={nesterov} ok={mask[:C]} reset={reset} "
+                      f"(max |diff| {err})")
     log(f"[kernel] fused_sgd equals its plain version bit for bit over "
-        f"{len(cases) * len(masks) * 2} cases")
+        f"{len(cases) * len(masks) * 2} cases (one (C, P) gradient and leaf "
+        f"lists {sorted(SGD_LAYOUTS)}, spans default and {SGD_SPANS})")
     return worst
 
 
@@ -361,42 +411,70 @@ def time_launch(fn, reps: int = 50) -> float:
 
 
 def time_kernels(fused_sgd_lanes, sgd_lanes_reference):
+    """``fused_sgd`` at the path's shape, with the gradient as one (C, P)
+    tensor and as the paper MLP's six leaves (the path's own call): the
+    event time with the L2 flushed by a write (the table's convention),
+    the profiler's kernel time with the L2 flushed by a write, flushed by a
+    read (no dirty lines for the kernel to write back), and warm (launches
+    back to back, the operands in L2, as on the path); then the plain
+    version and ``torch._fused_sgd_``. Returns the path call's row."""
     C, P = MAIN_SHAPE
     gen = torch.Generator(device="cuda").manual_seed(1)
     p, g, m = (torch.randn(MAIN_SHAPE, device="cuda", generator=gen)
                for _ in range(3))
+    leaves = split_leaves(g, MLP_LEAVES)
     ok = torch.ones(C, dtype=torch.bool, device="cuda")
     lr = torch.tensor([1e-4], device="cuda")
     kw = {"reset": False, "momentum": 0.5}
+    kname = "fused_sgd_kernel"
     before = fused_sgd_lanes.launches
-    ms = time_launch(lambda: fused_sgd_lanes(p, g, m, ok, lr, **kw))
+    times = {}
+    for what, grads in (("one (C, P) gradient", g), ("MLP leaves", leaves)):
+        def call(grads=grads):
+            fused_sgd_lanes(p, grads, m, ok, lr, **kw)
+        times[what] = (time_launch(call),
+                       *(kernel_times(call, [kname], 30, flush)[kname][0]
+                         for flush in ("write", "read", None)))
     fused_sgd_lanes.launches = before       # timing launches are not the path's
-    plain_ms = time_launch(lambda: sgd_lanes_reference(p, g, m, ok, lr, **kw))
+    plain_ms = time_launch(lambda: sgd_lanes_reference(p, leaves, m, ok, lr,
+                                                       **kw))
     ps, gs, ms_ = [p.view(-1)], [g.view(-1)], [m.view(-1)]
     library_ms = time_launch(lambda: torch._fused_sgd_(
         ps, gs, ms_, weight_decay=0.0, momentum=0.5, lr=1e-4, dampening=0.0,
         nesterov=False, maximize=False, is_first_step=False))
     nbytes = 20 * C * P + C + 4          # read p, g, m, ok, lr; write p, m
-    flops = 4 * C * P
-    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
-    ops_ms = flops / H100_F32_FLOPS * 1e3
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    bound_ms, bound_by = _bound(nbytes, 4 * C * P, H100_F32_FLOPS)
+    for what, (ev, dirty, clean, warm) in times.items():
+        log(f"[time] fused_sgd at {MAIN_SHAPE}, {what}: events {ev:.5f} ms "
+            f"(L2 flushed by a write); profiler {dirty:.5f} ms (flushed by a "
+            f"write, {100 * bound_ms / dirty:.1f}% of the bound), "
+            f"{clean:.5f} ms (flushed by a read, "
+            f"{100 * bound_ms / clean:.1f}%), {warm:.5f} ms (warm L2)")
+    log(f"[time] fused_sgd: plain {plain_ms:.5f} ms, torch._fused_sgd_ "
+        f"{library_ms:.5f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+    return {"ms": times["MLP leaves"][0], "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def device_rows(prof):
+    """(device time us, count, name) of each kernel of a profiled window,
+    largest first. Device-side events only: an aten op's row repeats the
+    time of the kernels it launched, so summing every row would count it
+    twice."""
+    from torch.autograd import DeviceType
+
+    return sorted(((e.self_device_time_total, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0), reverse=True)
 
 
 def profile_report(prof, wall_us: float, what: str, focus=()) -> float:
     """Prints the wall, the device-busy share and the kernels by device
     time of one profiled window, and the time and busy share of the
     kernels whose names hold one of ``focus``; returns the busy share."""
-    from torch.autograd import DeviceType
-
-    # device-side events only: an aten op's row repeats the time of the
-    # kernels it launched, so summing every row would count it twice
-    rows = sorted(((e.self_device_time_total, e.count, e.key)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA
-                   and e.self_device_time_total > 0), reverse=True)
+    rows = device_rows(prof)
     busy = sum(r[0] for r in rows)
     launches = sum(r[1] for r in rows)
     check(busy > 0, f"the profiler saw no device time over {what}")
@@ -414,9 +492,12 @@ def profile_report(prof, wall_us: float, what: str, focus=()) -> float:
     return busy / wall_us
 
 
-def profile_round(cfg, fl, init) -> None:
+def profile_round(cfg, fl, init, fused_sgd_lanes) -> None:
     """Where one steady-state round of the FedSR path spends its time —
-    ``torch.profiler`` over one round after a warm-up round."""
+    ``torch.profiler`` over one round after a warm-up round — and what the
+    momentum update costs a SGD step: its device time and the kernels of a
+    step. The fused path concatenates no gradient, so the round must run
+    no ``torch.cat`` kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.algorithms import make_algorithm
@@ -435,13 +516,29 @@ def profile_round(cfg, fl, init) -> None:
     w = ravel_params(params_from_numpy(init, torch.device("cuda")))
     w, _ = algo.run_schedule(w, 0, np.asarray([0.01]), rng, None, {})
     torch.cuda.synchronize()
+    before = fused_sgd_lanes.launches
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         w, _ = algo.run_schedule(w, 1, np.asarray([0.01]), rng, None, {})
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    steps = fused_sgd_lanes.launches - before
+    fused_sgd_lanes.launches = before    # the path's count is phase 3's
     profile_report(prof, wall_us, "one FedSR round")
+    rows = device_rows(prof)
+    kernels = sum(r[1] for r in rows)
+    update = [r for r in rows if "fused_sgd" in r[2] or "Cat" in r[2]]
+    cats = sum(r[1] for r in rows if "Cat" in r[2])
+    log(f"[profile] one FedSR round: {steps} SGD steps, {kernels} device "
+        f"kernels, {kernels / max(steps, 1):.2f} a step; the update "
+        f"{sum(r[0] for r in update) / max(steps, 1):.3f} us of device time "
+        f"a step in {sum(r[1] for r in update)} kernels ("
+        + ", ".join(f"{r[2][:40]} {r[0] / max(r[1], 1):.3f} us x {r[1]}"
+                    for r in update) + ")")
+    check(steps > 0 and cats == 0,
+          f"the fused FedSR round ran {cats} torch.cat kernels over {steps} "
+          f"steps: the update must read the gradient leaves in place")
 
 
 # ---------------------------------------------------------------------------
@@ -1382,17 +1479,28 @@ def time_decode(decode, decode_plain, shape, reps, forced=()):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def kernel_times(fn, names, reps=10) -> dict:
+def kernel_times(fn, names, reps=10, flush="write") -> dict:
     """Each named kernel's median device time (ms) over ``reps`` calls of
-    ``fn`` with the L2 flushed before each, from a profiler run, and how
-    many of the calls the profiler saw it in."""
+    ``fn`` from a profiler run, and how many of the calls the profiler saw
+    it in. Before each call the L2 is flushed by writing a 256 MB buffer
+    (``flush="write"``: the kernel finds dirty lines to write back), by
+    reading one (``"read"``: clean lines), or not at all (``None``: warm,
+    after a few calls to warm up)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device="cuda")
+    buf = torch.ones(64 * 1024 * 1024, dtype=torch.float32, device="cuda")
+    sink = torch.empty((), device="cuda")
+    if flush is None:
+        for _ in range(3):
+            fn()
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for i in range(reps):
-            flush.fill_(float(i))
+            if flush == "write":
+                buf.fill_(float(i))
+            elif flush == "read":
+                torch.sum(buf, dim=0, out=sink)
             fn()
         torch.cuda.synchronize()
     times = {}
@@ -1524,12 +1632,7 @@ def main() -> int:
     log(f"[main] cpu: {sum(r.seconds for r in cpu_hist) * 1e3 / fl.rounds:.2f}"
         f" ms/round")
     times = {"fused_sgd": time_kernels(fused_sgd_lanes, sgd_lanes_reference)}
-    t = times["fused_sgd"]
-    log(f"[time] fused_sgd at {MAIN_SHAPE}: kernel {t['ms']:.5f} ms, "
-        f"plain {t['plain_ms']:.5f} ms, torch._fused_sgd_ "
-        f"{t['library_ms']:.5f} ms, bound {t['bound_ms']:.5f} ms "
-        f"({t['bound_by']})")
-    profile_round(CONFIG, fl, init)
+    profile_round(CONFIG, fl, init, fused_sgd_lanes)
 
     # phases 4-7: the yi-9b and the mamba2-2.7b serving paths
     yi = ServePath(

@@ -5,17 +5,18 @@ weighted-mean reduce).
 The JAX package compiles one eval-to-eval block of rounds into ONE
 ``lax.scan``; here the same block is one Python call
 (``train_schedule``) that loops over rounds and, inside a round, over the
-flat H*S steps of ``_run_hops``. Parameters, gradients and momentum of the
-C lanes each live in ONE contiguous ``(C, P)`` buffer, in the sorted-leaf
-layout of ``utils.tree``; the model reads per-leaf views of it, and one
-update launch covers the whole stack.
+flat H*S steps of ``_run_hops``. Parameters and momentum of the C lanes
+each live in ONE contiguous ``(C, P)`` buffer, in the sorted-leaf layout
+of ``utils.tree``; the model reads per-leaf views of it, and one update
+launch covers the whole stack.
 
 Per step: gather the lanes' batches from the device-resident data plane,
 take every lane's gradient with one autograd pass over the lane-summed
-loss (lanes are independent, so each gets its own gradient), concatenate
-the per-leaf gradients into the flat ``(C, P)`` buffer (one ``torch.cat``),
-then apply the masked momentum update. Momentum is zeroed wherever a new
-client visit starts.
+loss (lanes are independent, so each gets its own gradient), then apply
+the masked momentum update. Momentum is zeroed wherever a new client visit
+starts. The gradient stays as autograd's per-leaf tensors: the fused update
+reads them in place, and only the unfused path concatenates them into a
+flat ``(C, P)`` buffer (the reference's ``ravel_pytree``).
 
 The update has two paths, as in the reference, and they round differently
 (ROADMAP C2), so each is held against its own reference path:
@@ -39,6 +40,7 @@ import torch
 
 from repro_torch.configs.base import FLConfig, ModelConfig
 from repro_torch.kernels.fused_sgd.ops import fused_sgd_lanes
+from repro_torch.kernels.fused_sgd.ref import flat_grads
 from repro_torch.models.small import classifier_loss_lanes, mlp_specs
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.tree import unravel
@@ -87,25 +89,27 @@ class LocalTrainer:
 
     # ------------------------------------------------------------------
     def lane_grads(self, params: torch.Tensor, batch: Dict[str, torch.Tensor]):
-        """Per-lane losses (C,) and gradients as one contiguous (C, P)
-        buffer, for the (C, P) flat lane stack ``params``."""
+        """Per-lane losses (C,) and the gradient as autograd's leaves, one
+        (C, *shape) tensor per leaf in ``self.layout`` order, for the
+        (C, P) flat lane stack ``params``."""
         leaves = {k: v.detach().requires_grad_()
                   for k, v in unravel(params, self.layout).items()}
         with torch.enable_grad():
             losses = classifier_loss_lanes(leaves, batch, self.cfg)
             grads = torch.autograd.grad(
                 losses.sum(), [leaves[k] for k, _ in self.layout])
-        C = params.shape[0]
-        return losses.detach(), torch.cat([g.reshape(C, -1) for g in grads],
-                                          dim=1)
+        return losses.detach(), grads
 
-    def _update(self, p, g, m, ok, lr, reset: bool) -> None:
+    def _update(self, p, grads, m, ok, lr, reset: bool) -> None:
+        """The masked momentum step on the (C, P) stack ``p`` from the
+        gradient leaves ``grads``: the fused update reads them in place,
+        the unfused one concatenates them first."""
         if self.fl.use_fused_sgd:
-            fused_sgd_lanes(p, g, m, ok, lr, reset=reset,
+            fused_sgd_lanes(p, grads, m, ok, lr, reset=reset,
                             momentum=self.fl.momentum)
         else:
-            masked_momentum_update(p, g, m, ok, lr, reset=reset,
-                                   momentum=self.fl.momentum)
+            masked_momentum_update(p, flat_grads(grads, p.shape[0]), m, ok,
+                                   lr, reset=reset, momentum=self.fl.momentum)
 
     @torch.no_grad()
     def _run_hops(self, params: torch.Tensor, plane, rows: torch.Tensor,
@@ -132,8 +136,8 @@ class LocalTrainer:
                 "labels": torch.index_select(plane.labels, 0, gidx)
                 .reshape(C, -1),
             }
-            _, g = self.lane_grads(params, batch)
-            self._update(params, g, m, flat_ok[t], lr, reset=t % S == 0)
+            _, grads = self.lane_grads(params, batch)
+            self._update(params, grads, m, flat_ok[t], lr, reset=t % S == 0)
         return params
 
     @torch.no_grad()

@@ -1,10 +1,11 @@
-// Lane-stacked fused momentum-SGD update for Hopper (sm_90a).
+// Lane-stacked fused momentum-SGD update for Hopper (sm_90a), reading the
+// gradient from autograd's leaves in place.
 //
 // Replaces the JAX package's Pallas TPU kernel
 // kernels/fused_sgd/kernel.py::fused_sgd_flat (body _fused_sgd_kernel),
-// together with what surrounds it on the FL main path: the
-// (1 - reset) * m momentum reset of core/local.py::_run_hops, the
-// ravel_pytree -> padded flat kernel -> where(ok) select of
+// together with what surrounds it on the FL main path: the ravel_pytree of
+// the gradients, the (1 - reset) * m momentum reset of
+// core/local.py::_run_hops, the padded flat kernel -> where(ok) select of
 // masked_momentum_update, and the pad-to-tile wrapper of ops.py.
 //
 // One launch updates the whole (C, P) lane stack of one SGD step, in place:
@@ -13,16 +14,45 @@
 //   d    = nesterov ? g + mu * m' : m'
 //   p'   = p - lr * d
 // Lanes with ok[c] == 0 keep p and take m = m_in (so a visit start still
-// zeroes their momentum, as in the reference scan). lr is read from device
-// memory (a (1,) float tensor), so a scheduled lr needs no host round trip.
+// zeroes their momentum, as in the reference scan); their p, g and m are
+// never read. lr is read from device memory (a (1,) float tensor), so a
+// scheduled lr needs no host round trip.
+//
+// The gradient is a list of at most 16 leaves. Leaf k is a contiguous
+// (C, size_k) tensor that holds elements [off_k, off_k + size_k) of every
+// lane's row, in the sorted-leaf layout of utils/tree.py; the sizes sum to
+// P. A single (C, P) tensor is the one-leaf case. The kernel reads each leaf
+// where autograd wrote it, so no pass concatenates them first.
 //
 // Bound: memory. Per element the update reads p, g, m (12 B) and writes p, m
 // (8 B): 20 B for 4 flops, far below the H100's ~20 flop/B balance point, so
 // the least time is 20 * C * P bytes over the card's memory rate (C=5,
-// P=199,210: 19.9 MB -> about 6 us at 3.35 TB/s). The design does what a
-// memory-bound pass can: one read and one write of each buffer, 16-byte
-// vector accesses where the three rows share an alignment, no scratch, and
-// lanes that take no step (ok == 0) skip their rows entirely.
+// P=199,210: 19.9 MB -> about 6 us at 3.35 TB/s).
+//
+// Design. p and m are one flat range of C * P elements. It is cut into
+// (lane, leaf) segments, and each segment into spans of `span` elements
+// (kSpan by default); one block updates one span, on a 1-D grid of the
+// spans of every segment (no lane limit). A block decodes its lane, leaf
+// and span from its index and loads ok[lane] and lr first, so every block
+// has its loads in flight one round trip after it starts; at 32 registers
+// a thread the paper MLP's whole grid (5 x 202 blocks) is resident at once.
+// Spans are cut on p's 16-byte grid: only a segment's first span has a
+// head of 0-3 elements before that grid and only its last a tail of 0-3
+// after it, so the blocks between write whole 16-byte vectors of p and m.
+// Each thread takes one item (a head or tail element, or a 16-byte slot),
+// so no thread waits on a second round trip. The gradient's offset against
+// p is the same across a segment, so g is loaded 16 bytes at a time where
+// the two agree modulo 16, in two 8-byte halves where they agree modulo 8
+// (lanes 0, 2 and 4 of the paper MLP's w0), else element by element. g is
+// dead after the update, so its loads carry an L2 evict-first policy; p
+// and m keep the default, as the next forward pass and the next update
+// read them again. Under reset m is not read.
+//
+// Measured at the paper MLP's shape (PERF.md): persistent grids
+// that stream several slots a thread (a register ring of 2-8 slots, a
+// cp.async ring in shared memory, a shared segment table) lost to this
+// one-wave grid, and so did spans cut off p's grid, which gave every span
+// of a lane starting off the grid its own head and tail.
 //
 // Every multiply and add is an explicitly rounded intrinsic, so nvcc cannot
 // contract p - lr * d into an FMA: the kernel matches its plain PyTorch
@@ -35,6 +65,18 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kSpan = 1000;  // elements a block: at most 256 items
+constexpr int kMaxLeaves = 16;
+
+struct Leaves {
+  const float* ptr[kMaxLeaves];
+  long long size[kMaxLeaves];
+  long long off[kMaxLeaves];    // leaf k's first element within a row
+  long long first[kMaxLeaves];  // leaf k's first block within a lane
+  long long n;                  // P
+  long long span;               // elements a block
+  int count;
+};
 
 __device__ __forceinline__ void sgd_one(float& p, float g, float& m, float lr,
                                         float mu, bool nesterov, bool reset) {
@@ -45,82 +87,183 @@ __device__ __forceinline__ void sgd_one(float& p, float g, float& m, float lr,
   m = m_new;
 }
 
-// grid: (blocks per lane, C). Block (x, c) strides over lane c's row.
-__global__ void __launch_bounds__(kThreads)
-fused_sgd_lanes_kernel(float* __restrict__ p, const float* __restrict__ g,
-                       float* __restrict__ m, const uint8_t* __restrict__ ok,
-                       const float* __restrict__ lr_ptr, int64_t n, float mu,
-                       int nesterov, int reset) {
-  const int64_t lane = blockIdx.y;
-  float* pl = p + lane * n;
-  const float* gl = g + lane * n;
-  float* ml = m + lane * n;
-  const int64_t tid = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  const int64_t stride = int64_t(gridDim.x) * blockDim.x;
+__device__ __forceinline__ uint64_t evict_first_policy() {
+  uint64_t policy;
+  asm("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;"
+      : "=l"(policy));
+  return policy;
+}
 
-  if (ok[lane] == 0) {
-    if (reset) {
-      for (int64_t i = tid; i < n; i += stride) ml[i] = 0.0f;
-    }
-    return;
+// g, read once: through the non-coherent path with L2 evict-first.
+__device__ __forceinline__ float load_g1(const float* a, uint64_t policy) {
+  float v;
+  asm("ld.global.nc.L2::cache_hint.f32 %0, [%1], %2;"
+      : "=f"(v) : "l"(a), "l"(policy));
+  return v;
+}
+
+// Four g values at a: 16-byte aligned (a16 == 0), 8-byte aligned
+// (a16 == 8), or neither.
+__device__ __forceinline__ float4 load_g4(const float* a, unsigned a16,
+                                          uint64_t policy) {
+  float4 v;
+  if (a16 == 0) {
+    asm("ld.global.nc.L2::cache_hint.v4.f32 {%0, %1, %2, %3}, [%4], %5;"
+        : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "l"(a), "l"(policy));
+  } else if (a16 == 8) {
+    asm("ld.global.nc.L2::cache_hint.v2.f32 {%0, %1}, [%2], %3;"
+        : "=f"(v.x), "=f"(v.y) : "l"(a), "l"(policy));
+    asm("ld.global.nc.L2::cache_hint.v2.f32 {%0, %1}, [%2], %3;"
+        : "=f"(v.z), "=f"(v.w) : "l"(a + 2), "l"(policy));
+  } else {
+    v.x = load_g1(a, policy);
+    v.y = load_g1(a + 1, policy);
+    v.z = load_g1(a + 2, policy);
+    v.w = load_g1(a + 3, policy);
   }
-  const float lr = *lr_ptr;
+  return v;
+}
+
+// kVec: p and m share their alignment modulo 16, so a span's 16-byte slots
+// are vectors of both; otherwise every element goes alone.
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads)
+fused_sgd_kernel(const uint8_t* __restrict__ ok,
+                 const float* __restrict__ lr_ptr, unsigned per_lane,
+                 float* __restrict__ p, float* __restrict__ m, float mu,
+                 int nesterov, int reset,
+                 const __grid_constant__ Leaves leaves) {
+  // The block's lane, leaf and span [lo, hi) of the leaf's row. Spans are
+  // cut on p's 16-byte grid: only a segment's first span has a head of
+  // elements before that grid, and only its last span a tail after it.
+  // (ok, lr and per_lane lead the parameters, so the loads of ok[lane]
+  // and lr wait on nothing but one read of them: every block has both in
+  // flight before the first block's data loads crowd the memory system)
+  const unsigned lane = blockIdx.x / per_lane;
+  const long long b = blockIdx.x - lane * per_lane;
+  const bool step = __ldg(ok + lane) != 0;
+  const float lr = __ldg(lr_ptr);
+  // the leaf: a select over every entry of the table, each read at a
+  // fixed offset, so no read waits on another
+  const float* g0 = leaves.ptr[0];
+  long long size = leaves.size[0], off = 0, first = 0;
+#pragma unroll
+  for (int i = 1; i < kMaxLeaves; ++i) {
+    if (i < leaves.count && b >= leaves.first[i]) {
+      g0 = leaves.ptr[i];
+      size = leaves.size[i];
+      off = leaves.off[i];
+      first = leaves.first[i];
+    }
+  }
+  float* pk = p + lane * leaves.n + off;
+  float* mk = m + lane * leaves.n + off;
+  const float* gk = g0 + lane * size;
+  long long h =
+      ((16u - (reinterpret_cast<uintptr_t>(pk) & 15u)) & 15u) / 4;
+  if (h > size) h = size;
+  const long long i = b - first;
+  long long lo = i == 0 ? 0 : h + i * leaves.span;
+  long long hi = h + (i + 1) * leaves.span;
+  if (lo > size) lo = size;
+  if (hi > size) hi = size;
   const bool nest = nesterov != 0;
   const bool rs = reset != 0;
+  const uint64_t policy = evict_first_policy();
 
-  // 16-byte vector path only when p, g and m rows share their alignment
-  // modulo 16; a scalar head brings them to the boundary.
-  const uintptr_t ap = reinterpret_cast<uintptr_t>(pl);
-  const bool same = ((ap ^ reinterpret_cast<uintptr_t>(gl)) & 15u) == 0 &&
-                    ((ap ^ reinterpret_cast<uintptr_t>(ml)) & 15u) == 0;
-  int64_t head = same ? int64_t(((16u - (ap & 15u)) & 15u) / 4u) : n;
-  if (head > n) head = n;
-
-  for (int64_t i = tid; i < head; i += stride) {
-    float pv = pl[i], mv = ml[i];
-    sgd_one(pv, gl[i], mv, lr, mu, nest, rs);
-    pl[i] = pv;
-    ml[i] = mv;
-  }
-  const int64_t nvec = (n - head) / 4;
-  float4* p4 = reinterpret_cast<float4*>(pl + head);
-  const float4* g4 = reinterpret_cast<const float4*>(gl + head);
-  float4* m4 = reinterpret_cast<float4*>(ml + head);
-  for (int64_t i = tid; i < nvec; i += stride) {
-    float4 pv = p4[i];
-    const float4 gv = g4[i];
-    float4 mv = m4[i];
-    sgd_one(pv.x, gv.x, mv.x, lr, mu, nest, rs);
-    sgd_one(pv.y, gv.y, mv.y, lr, mu, nest, rs);
-    sgd_one(pv.z, gv.z, mv.z, lr, mu, nest, rs);
-    sgd_one(pv.w, gv.w, mv.w, lr, mu, nest, rs);
-    p4[i] = pv;
-    m4[i] = mv;
-  }
-  for (int64_t i = head + nvec * 4 + tid; i < n; i += stride) {
-    float pv = pl[i], mv = ml[i];
-    sgd_one(pv, gl[i], mv, lr, mu, nest, rs);
-    pl[i] = pv;
-    ml[i] = mv;
+  // items: elements before the first slot, 16-byte slots, a tail
+  long long a = kVec ? (i == 0 ? h : lo) : hi;   // the first slot
+  if (a > hi) a = hi;
+  const long long slots = (hi - a) / 4;
+  const long long tail = a + 4 * slots;
+  const long long head = a - lo;
+  const long long items = head + slots + (hi - tail);
+  for (long long it = threadIdx.x; it < items; it += kThreads) {
+    if (it >= head && it < head + slots) {
+      const long long e = a + 4 * (it - head);
+      float4* pq = reinterpret_cast<float4*>(pk + e);
+      float4* mq = reinterpret_cast<float4*>(mk + e);
+      if (step) {
+        float4 pv = *pq;
+        float4 mv = rs ? make_float4(0.0f, 0.0f, 0.0f, 0.0f) : *mq;
+        const unsigned a16 =
+            static_cast<unsigned>(reinterpret_cast<uintptr_t>(gk + e)) & 15u;
+        const float4 gv = load_g4(gk + e, a16, policy);
+        sgd_one(pv.x, gv.x, mv.x, lr, mu, nest, rs);
+        sgd_one(pv.y, gv.y, mv.y, lr, mu, nest, rs);
+        sgd_one(pv.z, gv.z, mv.z, lr, mu, nest, rs);
+        sgd_one(pv.w, gv.w, mv.w, lr, mu, nest, rs);
+        *pq = pv;
+        *mq = mv;
+      } else if (rs) {
+        *mq = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      }
+    } else {
+      const long long e = it < head ? lo + it : tail + (it - head - slots);
+      if (step) {
+        float pv = pk[e];
+        float mv = rs ? 0.0f : mk[e];
+        sgd_one(pv, load_g1(gk + e, policy), mv, lr, mu, nest, rs);
+        pk[e] = pv;
+        mk[e] = mv;
+      } else if (rs) {
+        mk[e] = 0.0f;
+      }
+    }
   }
 }
 
 }  // namespace
 
-// C interface, bound with ctypes (kernels/fused_sgd/kernel.py). p, g, m are
-// (lanes, n) contiguous float32; ok is (lanes,) uint8; lr points at one
-// float. Launches on `stream` and returns cudaGetLastError() (0 = launched).
-extern "C" int fused_sgd_lanes(float* p, const float* g, float* m,
+// C interface, bound with ctypes (kernels/fused_sgd/kernel.py). p and m are
+// (lanes, n) contiguous float32; leaf k is a contiguous (lanes,
+// leaf_sizes[k]) float32 tensor at leaf_ptrs[k], every size at least 1 and
+// the sizes summing to n; ok is (lanes,) uint8; lr points at one float.
+// span forces the elements a block updates, rounded up to a multiple of 4
+// (0: kSpan). Launches on `stream` and returns cudaGetLastError() (0 =
+// launched), or cudaErrorInvalidValue for a leaf table or span the kernel
+// does not take.
+extern "C" int fused_sgd_lanes(float* p, float* m,
+                               const float* const* leaf_ptrs,
+                               const long long* leaf_sizes, int num_leaves,
                                const uint8_t* ok, const float* lr,
                                long long lanes, long long n, float momentum,
-                               int nesterov, int reset, void* stream) {
-  if (lanes <= 0 || n <= 0) return 0;
-  const long long vec = (n + 3) / 4;
-  long long blocks = (vec + kThreads - 1) / kThreads;
-  if (blocks > 65535) blocks = 65535;
-  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(lanes));
-  fused_sgd_lanes_kernel<<<grid, kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      p, g, m, ok, lr, n, momentum, nesterov, reset);
+                               int nesterov, int reset, int span,
+                               void* stream) {
+  if (num_leaves < 1 || num_leaves > kMaxLeaves || span < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Leaves leaves{};
+  leaves.span = span > 0 ? (span + 3) / 4 * 4 : kSpan;   // on p's grid
+  long long off = 0, blocks = 0;
+  for (int k = 0; k < num_leaves; ++k) {
+    if (leaf_sizes[k] < 1) return static_cast<int>(cudaErrorInvalidValue);
+    leaves.ptr[k] = leaf_ptrs[k];
+    leaves.size[k] = leaf_sizes[k];
+    leaves.off[k] = off;
+    leaves.first[k] = blocks;
+    off += leaf_sizes[k];
+    blocks += (leaf_sizes[k] + leaves.span - 1) / leaves.span;
+  }
+  if (off != n) return static_cast<int>(cudaErrorInvalidValue);
+  leaves.n = n;
+  leaves.count = num_leaves;
+  if (lanes <= 0) return 0;
+  if (lanes > 0x7fffffffLL / blocks) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const unsigned per_lane = static_cast<unsigned>(blocks);
+  const unsigned grid = static_cast<unsigned>(lanes * blocks);
+  const bool vec =
+      ((reinterpret_cast<uintptr_t>(p) ^ reinterpret_cast<uintptr_t>(m)) &
+       15u) == 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec) {
+    fused_sgd_kernel<true><<<grid, kThreads, 0, s>>>(
+        ok, lr, per_lane, p, m, momentum, nesterov, reset, leaves);
+  } else {
+    fused_sgd_kernel<false><<<grid, kThreads, 0, s>>>(
+        ok, lr, per_lane, p, m, momentum, nesterov, reset, leaves);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,51 +6,77 @@ version (``ref.py``). There is no fallback from the one to the other.
 """
 from __future__ import annotations
 
+import math
+from typing import Tuple
+
 import torch
 
-from repro_torch.kernels.fused_sgd.ref import sgd_lanes_reference
+from repro_torch.kernels.fused_sgd.ref import Grads, sgd_lanes_reference
+
+MAX_LEAVES = 16     # the kernel's by-value leaf table
 
 
-def _check(p, g, m, ok, lr) -> None:
-    for name, t in (("g", g), ("m", m), ("ok", ok), ("lr", lr)):
+def _leaves(grads: Grads) -> Tuple[torch.Tensor, ...]:
+    return (grads,) if isinstance(grads, torch.Tensor) else tuple(grads)
+
+
+def _check(p, leaves, m, ok, lr) -> None:
+    for name, t in (("m", m), ("ok", ok), ("lr", lr)) + tuple(
+            (f"grads[{k}]", g) for k, g in enumerate(leaves)):
         if t.device != p.device:
             raise ValueError(f"{name} is on {t.device}, p on {p.device}")
-    for name, t in (("p", p), ("g", g), ("m", m), ("lr", lr)):
+    for name, t in (("p", p), ("m", m), ("lr", lr)) + tuple(
+            (f"grads[{k}]", g) for k, g in enumerate(leaves)):
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
     if ok.dtype != torch.bool:
         raise TypeError(f"ok must be bool, got {ok.dtype}")
-    if p.dim() != 2 or g.shape != p.shape or m.shape != p.shape:
-        raise ValueError(
-            f"p, g, m must share one (C, P) shape: {tuple(p.shape)}, "
-            f"{tuple(g.shape)}, {tuple(m.shape)}")
-    if ok.shape != p.shape[:1]:
-        raise ValueError(f"ok must be ({p.shape[0]},), got {tuple(ok.shape)}")
+    if p.dim() != 2 or m.shape != p.shape:
+        raise ValueError(f"p and m must share one (C, P) shape: "
+                         f"{tuple(p.shape)}, {tuple(m.shape)}")
+    C, P = p.shape
+    if not 1 <= len(leaves) <= MAX_LEAVES:
+        raise ValueError(f"grads must be 1 to {MAX_LEAVES} leaves, got "
+                         f"{len(leaves)}")
+    for k, g in enumerate(leaves):
+        if g.dim() < 1 or g.shape[0] != C:
+            raise ValueError(f"grads[{k}] must have {C} lanes on its first "
+                             f"axis, got {tuple(g.shape)}")
+    sizes = [math.prod(g.shape[1:]) for g in leaves]
+    if sum(sizes) != P:
+        raise ValueError(f"the leaves' sizes {sizes} sum to {sum(sizes)}, "
+                         f"not P = {P}")
+    if ok.shape != (C,):
+        raise ValueError(f"ok must be ({C},), got {tuple(ok.shape)}")
     if lr.numel() != 1:
         raise ValueError(f"lr must hold one value, got {tuple(lr.shape)}")
-    if p.shape[0] > 65535:
-        raise ValueError(f"at most 65535 lanes per launch, got {p.shape[0]}")
-    for name, t in (("p", p), ("g", g), ("m", m), ("ok", ok), ("lr", lr)):
+    for name, t in (("p", p), ("m", m), ("ok", ok), ("lr", lr)) + tuple(
+            (f"grads[{k}]", g) for k, g in enumerate(leaves)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
 
 
 class FusedSGDLanes:
-    """``fused_sgd_lanes(p, g, m, ok, lr, reset=, momentum=, nesterov=)``
-    updates the (C, P) float32 buffers ``p`` and ``m`` in place with one
-    masked momentum step (see ``ref.sgd_lanes_reference``). ``launches``
-    counts kernel launches — the CPU path never adds to it."""
+    """``fused_sgd_lanes(p, grads, m, ok, lr, reset=, momentum=,
+    nesterov=)`` updates the (C, P) float32 buffers ``p`` and ``m`` in
+    place with one masked momentum step (see ``ref.sgd_lanes_reference``).
+    ``grads`` is the (C, P) gradient or a sequence of at most 16 contiguous
+    leaves, leaf k a (C, *shape_k) tensor holding the next prod(shape_k)
+    elements of every lane's row (the sorted-leaf layout of ``utils.tree``);
+    the kernel reads each leaf in place. ``launches`` counts kernel
+    launches — the CPU path never adds to it."""
 
     def __init__(self):
         self.launches = 0
 
-    def __call__(self, p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
+    def __call__(self, p: torch.Tensor, grads: Grads, m: torch.Tensor,
                  ok: torch.Tensor, lr: torch.Tensor, *, reset: bool,
                  momentum: float, nesterov: bool = False) -> None:
-        _check(p, g, m, ok, lr)
+        leaves = _leaves(grads)
+        _check(p, leaves, m, ok, lr)
         if p.device.type == "cpu":
             p_new, m_new = sgd_lanes_reference(
-                p, g, m, ok, lr, reset=reset, momentum=momentum,
+                p, leaves, m, ok, lr, reset=reset, momentum=momentum,
                 nesterov=nesterov)
             p.copy_(p_new)
             m.copy_(m_new)
@@ -60,7 +86,7 @@ class FusedSGDLanes:
         if p.numel() == 0:
             return
         from repro_torch.kernels.fused_sgd.kernel import launch
-        launch(p, g, m, ok, lr, reset=reset, momentum=momentum,
+        launch(p, leaves, m, ok, lr, reset=reset, momentum=momentum,
                nesterov=nesterov)
         self.launches += 1
 

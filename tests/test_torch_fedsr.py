@@ -243,9 +243,14 @@ def test_full_width_mlp_step_loss_and_lane_gradients():
     losses, grads = trainer.lane_grads(
         flat, {"images": torch.from_numpy(images),
                "labels": torch.from_numpy(labels)})
-    assert grads.shape == flat.shape and grads.is_contiguous()
+    # autograd's leaves, in layout order, each a contiguous (C, *shape)
+    # tensor that the fused update reads in place
+    assert [tuple(g.shape) for g in grads] == [
+        (C, *shape) for _, shape in trainer.layout]
+    assert all(g.is_contiguous() for g in grads)
     np.testing.assert_allclose(losses.numpy(), np.asarray(ref_l), atol=1e-5)
-    assert_trees_close(unravel(grads, trainer.layout), ref_g, atol=1e-5)
+    assert_trees_close(dict(zip((k for k, _ in trainer.layout), grads)),
+                       ref_g, atol=1e-5)
     # the step itself, from zero momentum at a visit start: p - lr * g
     lr = 0.05
     trainer._update(flat, grads, torch.zeros_like(flat),

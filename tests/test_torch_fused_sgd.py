@@ -8,6 +8,12 @@ update of ``_run_hops`` for both update paths (fused and unfused round
 differently, ROADMAP C2, so each is held against its own). f32 with the
 same elementwise order on both sides: rtol=1e-6, atol=1e-7.
 
+The gradient may be a list of leaves, read in place by the kernel: the
+leaf-list wrapper is held against the Pallas kernel on each lane's raveled
+leaves (``ravel_pytree``), and a narrow fused FedSR run with autograd's
+leaves ends bit for bit where the same run with a one-leaf (C, P) gradient
+does.
+
 The CUDA kernel itself runs only on the card:
 ``tests/test_torch_fused_sgd_gpu.py``.
 """
@@ -131,3 +137,175 @@ def test_cpu_path_counts_no_launch():
             reset=True, momentum=0.5)
     assert wrapper.launches == 0
     torch.testing.assert_close(p, torch.full((3, 16), 0.5))
+
+
+# ---------------------------------------------------------------------------
+# the gradient as a list of leaves, read in place
+
+
+def _narrow_mlp_layout():
+    """The port's sorted-leaf layout of a narrow paper MLP (8x8 images,
+    hidden (12, 6), 10 classes): b0, b1, b2 (the 10-element leaf), w0, w1,
+    w2."""
+    import dataclasses
+
+    from repro_torch.configs.fedsr_mlp import CONFIG
+    from repro_torch.models.small import mlp_specs
+
+    cfg = dataclasses.replace(CONFIG, image_size=8, mlp_hidden=(12, 6))
+    specs = mlp_specs(cfg)
+    return [tuple(specs[k].shape) for k in sorted(specs)]
+
+
+LAYOUTS = {
+    "narrow_mlp": _narrow_mlp_layout(),
+    # odd sizes at odd offsets: every leaf but the first off p's 16-byte grid
+    "odd": [(3,), (1,), (7, 5), (2,), (13,), (1,), (33,)],
+}
+
+
+def _leaf_arrays(C, shapes, seed):
+    rng = np.random.default_rng(seed)
+    P = sum(int(np.prod(s)) for s in shapes)
+    p, m = (rng.standard_normal((C, P)).astype(np.float32) for _ in range(2))
+    leaves = [rng.standard_normal((C, *s)).astype(np.float32) for s in shapes]
+    return p, leaves, m
+
+
+def _ref_raveled_step(p, leaves, m, ok, lr, *, reset, momentum, nesterov):
+    """The JAX package's fused_sgd_update on each lane's raveled leaves
+    (``ravel_pytree`` of the lane's leaf dict, the reference's own flat
+    gradient), then the reference trainer's per-lane select: lanes that do
+    not step keep p and take the (reset) momentum."""
+    from jax.flatten_util import ravel_pytree
+
+    names = [f"leaf{k:02d}" for k in range(len(leaves))]   # sorted = list order
+    p_out, m_out = p.copy(), m.copy()
+    for c in range(p.shape[0]):
+        g_c, _ = ravel_pytree({n: jnp.asarray(x[c])
+                               for n, x in zip(names, leaves)})
+        m_in = np.zeros_like(m[c]) if reset else m[c]
+        if ok[c]:
+            pr, mr = fused_sgd_update(
+                jnp.asarray(p[c]), g_c, jnp.asarray(m_in),
+                lr=jnp.asarray(lr, jnp.float32), momentum=momentum,
+                nesterov=nesterov, block=256)
+            p_out[c], m_out[c] = np.asarray(pr), np.asarray(mr)
+        else:
+            m_out[c] = m_in
+    return p_out, m_out
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+@pytest.mark.parametrize("reset", [False, True])
+@pytest.mark.parametrize("ok_mask,nesterov", [
+    ((True, True, True), False),
+    ((True, False, True), False),
+    ((False, False, False), False),
+    ((True, False, True), True),
+])
+def test_leaf_list_matches_pallas_kernel_on_raveled_leaves(layout, reset,
+                                                           ok_mask, nesterov):
+    shapes = LAYOUTS[layout]
+    C = len(ok_mask)
+    p, leaves, m = _leaf_arrays(C, shapes, seed=len(shapes))
+    ok = np.asarray(ok_mask)
+    lr, momentum = 0.05, 0.9
+    pr, mr = _ref_raveled_step(p, leaves, m, ok, lr, reset=reset,
+                               momentum=momentum, nesterov=nesterov)
+    tp, tm = torch.from_numpy(p.copy()), torch.from_numpy(m.copy())
+    fused_sgd_lanes(tp, [torch.from_numpy(x) for x in leaves], tm,
+                    torch.from_numpy(ok), torch.tensor([lr]), reset=reset,
+                    momentum=momentum, nesterov=nesterov)
+    np.testing.assert_allclose(tp.numpy(), pr, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(tm.numpy(), mr, rtol=RTOL, atol=ATOL)
+    np.testing.assert_array_equal(tp.numpy()[~ok], p[~ok])
+
+
+def _rejected_leaf_lists():
+    C, P = 2, 12
+    return {
+        "non_contiguous_leaf": [torch.zeros(6, C).t(), torch.zeros(C, 6)],
+        "wrong_lane_count": [torch.zeros(C + 1, 6), torch.zeros(C, 6)],
+        "sizes_not_summing_to_P": [torch.zeros(C, 6), torch.zeros(C, 5)],
+        "more_than_16_leaves": [torch.zeros(C, 1) for _ in range(P)]
+        + [torch.zeros(C, 0) for _ in range(5)],
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_rejected_leaf_lists()))
+def test_wrapper_rejects_leaf_lists_the_kernel_does_not_take(case):
+    grads = _rejected_leaf_lists()[case]
+    p, m = torch.zeros(2, 12), torch.zeros(2, 12)
+    with pytest.raises(ValueError):
+        fused_sgd_lanes(p, grads, m, torch.ones(2, dtype=torch.bool),
+                        torch.tensor([0.1]), reset=False, momentum=0.5)
+    # the caller's buffers are untouched: nothing was concatenated or stepped
+    assert not p.any() and not m.any()
+
+
+def test_stack_of_more_than_65535_lanes_is_accepted():
+    C, P = 65_536, 4
+    p, g, m = _arrays(C, P, seed=7)
+    ok = np.arange(C) % 3 != 0
+    tp, tm = torch.from_numpy(p.copy()), torch.from_numpy(m.copy())
+    fused_sgd_lanes(tp, [torch.from_numpy(g[:, :1].copy()),
+                         torch.from_numpy(g[:, 1:].copy())], tm,
+                    torch.from_numpy(ok), torch.tensor([0.1]), reset=False,
+                    momentum=0.9)
+    keep = ok[:, None]
+    m_new = np.float32(0.9) * m + g
+    np.testing.assert_allclose(tm.numpy(), np.where(keep, m_new, m),
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(
+        tp.numpy(), np.where(keep, p - np.float32(0.1) * m_new, p),
+        rtol=RTOL, atol=ATOL)
+
+
+def test_fused_run_reads_leaves_as_the_one_leaf_run_reads_its_gradient(
+        monkeypatch):
+    """A narrow fused FedSR run with the gradient as autograd's leaves
+    ends on the same weights, bit for bit, as the same run whose gradient
+    is one (C, P) tensor taken with respect to the flat lane stack itself
+    (so independent of the leaf order)."""
+    import dataclasses
+
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.configs.fedsr_mlp import CONFIG
+    from repro_torch.core.executor import run_experiment
+    from repro_torch.core.local import LocalTrainer
+    from repro_torch.data.synthetic import make_task
+    from repro_torch.models.small import (
+        classifier_loss_lanes, init_small_model, params_to_numpy,
+    )
+    from repro_torch.utils.tree import unravel
+
+    cfg = dataclasses.replace(CONFIG, mlp_hidden=(16, 8))
+    fl = FLConfig(algorithm="fedsr", engine="fused", num_devices=4,
+                  num_edges=2, ring_rounds=2, rounds=2, batch_size=8,
+                  partition="pathological", use_fused_sgd=True)
+    init = params_to_numpy(init_small_model(torch.Generator().manual_seed(0),
+                                            cfg, torch.device("cpu")))
+
+    def run():
+        train, test = make_task("mnist_like", train_per_class=10,
+                                test_per_class=5)
+        return run_experiment(task="mnist_like", model_cfg=cfg, fl=fl,
+                              eval_every=2, train=train, test=test,
+                              init_params=init, device="cpu").final_model
+
+    leaves_run = run()
+
+    def flat_lane_grads(self, params, batch):
+        flat = params.detach().requires_grad_()
+        with torch.enable_grad():
+            losses = classifier_loss_lanes(unravel(flat, self.layout), batch,
+                                           self.cfg)
+            (g,) = torch.autograd.grad(losses.sum(), [flat])
+        return losses.detach(), g
+
+    monkeypatch.setattr(LocalTrainer, "lane_grads", flat_lane_grads)
+    one_leaf_run = run()
+    assert sorted(leaves_run) == sorted(one_leaf_run)
+    for k in leaves_run:
+        assert torch.equal(leaves_run[k], one_leaf_run[k]), k

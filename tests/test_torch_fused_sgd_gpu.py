@@ -7,15 +7,57 @@ GPU machine without the JAX package's dependencies:
 
 Without a card every case skips. The kernel rounds each multiply and add
 explicitly, in the plain version's order, so the two must be equal bit for
-bit.
+bit. The gradient is also given as a list of leaves, read in place, in
+each class of alignment between p and a leaf (sharing 16 bytes, 8 bytes,
+4 bytes), with the span a block updates forced through ``kernel.launch``
+(every block one 16-byte slot, a few slots, more than a segment) as well
+as the kernel's default.
 """
+import math
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels.fused_sgd import kernel
 from repro_torch.kernels.fused_sgd.ops import fused_sgd_lanes
 from repro_torch.kernels.fused_sgd.ref import sgd_lanes_reference
+
+# leaf layouts, by how each leaf's rows sit against p's 16-byte grid
+LAYOUTS = {
+    # every offset and size a multiple of 4: p and g share 16 bytes
+    "share16": [(64,), (16, 40), (8,)],
+    # the big leaf two floats off p's grid in every lane: 8 bytes
+    "share8": [(2,), (16, 40), (6,)],
+    # the big leaf one float off: 4 bytes
+    "share4": [(1,), (16, 40), (3,)],
+    # the paper MLP's sorted layout (lanes alternate 16 and 8 bytes in w0)
+    "mlp": [(200,), (200,), (10,), (784, 200), (200, 200), (200, 10)],
+    # odd sizes at odd offsets
+    "odd": [(3,), (1,), (7, 5), (2,), (13,), (1,), (33,)],
+}
+MASKS = ((True,) * 5, (True, False, True, True, False), (False,) * 5)
+STEPS = ((0.9, False), (0.9, True), (0.0, False))
+
+
+def _split(g, shapes):
+    """Contiguous leaves holding g's columns in order (fresh allocations,
+    as autograd's are)."""
+    out, off = [], 0
+    for s in shapes:
+        n = math.prod(s)
+        out.append(g[:, off:off + n].clone(memory_format=torch.contiguous_format)
+                   .view(g.shape[0], *s))
+        off += n
+    return out
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel runs only on the card")
+    return torch.device("cuda")
 
 
 @pytest.mark.gpu
@@ -43,12 +85,115 @@ def test_cuda_kernel_equals_plain_version(n, nesterov):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+@pytest.mark.parametrize("span", [0, 4, 12, 4096])
+@pytest.mark.parametrize("C", [1, 5])
+def test_leaf_list_equals_plain_version_bit_for_bit(cuda, layout, span, C):
+    shapes = LAYOUTS[layout]
+    P = sum(math.prod(s) for s in shapes)
+    gen = torch.Generator(device=cuda).manual_seed(P + C)
+    p, g, m = (torch.randn(C, P, device=cuda, generator=gen)
+               for _ in range(3))
+    leaves = _split(g, shapes)
+    lr = torch.tensor([0.02], device=cuda)
+    for mask in MASKS:
+        ok = torch.tensor(mask[:C], device=cuda)
+        for reset in (False, True):
+            for momentum, nesterov in STEPS:
+                want = sgd_lanes_reference(p, leaves, m, ok, lr, reset=reset,
+                                           momentum=momentum,
+                                           nesterov=nesterov)
+                pk, mk = p.clone(), m.clone()
+                if span == 0:
+                    before = fused_sgd_lanes.launches
+                    fused_sgd_lanes(pk, leaves, mk, ok, lr, reset=reset,
+                                    momentum=momentum, nesterov=nesterov)
+                    assert fused_sgd_lanes.launches == before + 1
+                else:
+                    kernel.launch(pk, leaves, mk, ok, lr, reset=reset,
+                                  momentum=momentum, nesterov=nesterov,
+                                  span=span)
+                torch.cuda.synchronize()
+                assert torch.equal(pk, want[0]) and torch.equal(mk, want[1]), (
+                    mask[:C], reset, momentum, nesterov)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("off_p,off_m", [(1, 1), (2, 2), (0, 1), (3, 0)])
+@pytest.mark.parametrize("span", [0, 4])
+def test_p_and_m_off_the_16_byte_grid(cuda, off_p, off_m, span):
+    """p starting off its 16-byte grid (heads in every segment), and p and
+    m on different grids (every element alone)."""
+    C, shapes = 3, LAYOUTS["mlp"][:4]
+    P = sum(math.prod(s) for s in shapes)
+    gen = torch.Generator(device=cuda).manual_seed(off_p * 4 + off_m)
+    bp, bm = (torch.randn(C * P + 4, device=cuda, generator=gen)
+              for _ in range(2))
+    p, m = (b[o:o + C * P].view(C, P) for b, o in ((bp, off_p), (bm, off_m)))
+    leaves = _split(torch.randn(C, P, device=cuda, generator=gen), shapes)
+    ok = torch.tensor([True, False, True], device=cuda)
+    lr = torch.tensor([0.02], device=cuda)
+    for reset in (False, True):
+        want = sgd_lanes_reference(p, leaves, m, ok, lr, reset=reset,
+                                   momentum=0.9)
+        pk = bp.clone()[off_p:off_p + C * P].view(C, P)
+        mk = bm.clone()[off_m:off_m + C * P].view(C, P)
+        kernel.launch(pk, leaves, mk, ok, lr, reset=reset, momentum=0.9,
+                      nesterov=False, span=span)
+        torch.cuda.synchronize()
+        assert torch.equal(pk, want[0]) and torch.equal(mk, want[1])
+
+
+@pytest.mark.gpu
+def test_stack_of_more_than_65535_lanes(cuda):
+    C, P = 65_536, 4
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    p, g, m = (torch.randn(C, P, device=cuda, generator=gen)
+               for _ in range(3))
+    leaves = _split(g, [(1,), (3,)])
+    ok = torch.rand(C, device=cuda, generator=gen) > 0.3
+    lr = torch.tensor([0.02], device=cuda)
+    want = sgd_lanes_reference(p, leaves, m, ok, lr, reset=False,
+                               momentum=0.9)
+    fused_sgd_lanes(p, leaves, m, ok, lr, reset=False, momentum=0.9)
+    torch.cuda.synchronize()
+    assert torch.equal(p, want[0]) and torch.equal(m, want[1])
+
+
+@pytest.mark.gpu
+def test_wrapper_never_waits_on_the_host(cuda):
+    C, shapes = 5, LAYOUTS["mlp"]
+    P = sum(math.prod(s) for s in shapes)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    p, g, m = (torch.randn(C, P, device=cuda, generator=gen)
+               for _ in range(3))
+    leaves = _split(g, shapes)
+    ok = torch.ones(C, dtype=torch.bool, device=cuda)
+    lr = torch.tensor([0.02], device=cuda)
+    want = sgd_lanes_reference(p, leaves, m, ok, lr, reset=True,
+                               momentum=0.9)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fused_sgd_lanes(p, leaves, m, ok, lr, reset=True, momentum=0.9)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert torch.equal(p, want[0]) and torch.equal(m, want[1])
+
+
+@pytest.mark.gpu
 def test_cuda_tensor_never_falls_back_to_the_plain_version():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     p = torch.zeros(2, 8, device="cuda")
+    ok = torch.ones(2, dtype=torch.bool, device="cuda")
+    lr = torch.tensor([0.1], device="cuda")
     with pytest.raises(ValueError):     # mixed devices: raise, not fall back
-        fused_sgd_lanes(p, torch.zeros(2, 8), p.clone(),
-                        torch.ones(2, dtype=torch.bool, device="cuda"),
-                        torch.tensor([0.1], device="cuda"), reset=False,
+        fused_sgd_lanes(p, torch.zeros(2, 8), p.clone(), ok, lr, reset=False,
                         momentum=0.5)
+    with pytest.raises(ValueError):     # a leaf the kernel cannot read in place
+        fused_sgd_lanes(p, [torch.zeros(4, 2, device="cuda").t(),
+                            torch.zeros(2, 4, device="cuda")], p.clone(), ok,
+                        lr, reset=False, momentum=0.5)
+    assert not p.any()
