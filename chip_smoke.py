@@ -47,13 +47,13 @@ non-zero at the end, before any result line is printed):
    launched once per SGD step the plans imply, one dispatch per block;
    plans, comm meters and H2D bytes identical between the two runs, every
    eval's accuracy within 0.02 of the CPU run's, and the final accuracy
-   well above chance. Then ``fused_sgd``'s times at the path's shape, with
-   one (C, P) gradient and with the paper MLP's six leaves (the path's
-   call): events with the L2 flushed, the profiler's kernel time with the
-   L2 flushed by a write and by a read and warm; the plain version and
-   ``torch._fused_sgd_``. Last a profiler pass over one round, with the
-   update's device time and the device kernels a SGD step; the round must
-   run no ``torch.cat`` (the kernel reads the gradient leaves in place).
+   well above chance. Then ``fused_sgd``'s times at the path's shape and
+   with the paper MLP's six leaves (the path's call): events and the
+   profiler's kernel time with the L2 flushed, and the profiler's time
+   warm; the plain version and ``torch._fused_sgd_``. Last a profiler
+   pass over one round, with the update's device time and the device
+   kernels a SGD step; the round must run no ``torch.cat`` (the kernel
+   reads the gradient leaves in place).
 4. The yi-9b serving path at full width and 2 layers, GPU against CPU
    from the same CPU-drawn weights, in float32 and in bfloat16:
    ``prefill_step`` at B=1, S=256 and ``prefill_and_decode`` at B=4,
@@ -411,13 +411,12 @@ def time_launch(fn, reps: int = 50) -> float:
 
 
 def time_kernels(fused_sgd_lanes, sgd_lanes_reference):
-    """``fused_sgd`` at the path's shape, with the gradient as one (C, P)
-    tensor and as the paper MLP's six leaves (the path's own call): the
-    event time with the L2 flushed by a write (the table's convention),
-    the profiler's kernel time with the L2 flushed by a write, flushed by a
-    read (no dirty lines for the kernel to write back), and warm (launches
-    back to back, the operands in L2, as on the path); then the plain
-    version and ``torch._fused_sgd_``. Returns the path call's row."""
+    """``fused_sgd`` at the path's shape with the gradient as the paper
+    MLP's six leaves (the path's own call): the event time and the
+    profiler's kernel time with the L2 flushed by a write, and the
+    profiler's time warm (launches back to back, the operands in L2, as on
+    the path); then the plain version and ``torch._fused_sgd_``. Returns
+    the row of the kernels line."""
     C, P = MAIN_SHAPE
     gen = torch.Generator(device="cuda").manual_seed(1)
     p, g, m = (torch.randn(MAIN_SHAPE, device="cuda", generator=gen)
@@ -427,14 +426,13 @@ def time_kernels(fused_sgd_lanes, sgd_lanes_reference):
     lr = torch.tensor([1e-4], device="cuda")
     kw = {"reset": False, "momentum": 0.5}
     kname = "fused_sgd_kernel"
+
+    def call():
+        fused_sgd_lanes(p, leaves, m, ok, lr, **kw)
     before = fused_sgd_lanes.launches
-    times = {}
-    for what, grads in (("one (C, P) gradient", g), ("MLP leaves", leaves)):
-        def call(grads=grads):
-            fused_sgd_lanes(p, grads, m, ok, lr, **kw)
-        times[what] = (time_launch(call),
-                       *(kernel_times(call, [kname], 30, flush)[kname][0]
-                         for flush in ("write", "read", None)))
+    ms = time_launch(call)
+    cold = kernel_times(call, [kname], 30)[kname][0]
+    warm = kernel_times(call, [kname], 30, warm=True)[kname][0]
     fused_sgd_lanes.launches = before       # timing launches are not the path's
     plain_ms = time_launch(lambda: sgd_lanes_reference(p, leaves, m, ok, lr,
                                                        **kw))
@@ -444,17 +442,13 @@ def time_kernels(fused_sgd_lanes, sgd_lanes_reference):
         nesterov=False, maximize=False, is_first_step=False))
     nbytes = 20 * C * P + C + 4          # read p, g, m, ok, lr; write p, m
     bound_ms, bound_by = _bound(nbytes, 4 * C * P, H100_F32_FLOPS)
-    for what, (ev, dirty, clean, warm) in times.items():
-        log(f"[time] fused_sgd at {MAIN_SHAPE}, {what}: events {ev:.5f} ms "
-            f"(L2 flushed by a write); profiler {dirty:.5f} ms (flushed by a "
-            f"write, {100 * bound_ms / dirty:.1f}% of the bound), "
-            f"{clean:.5f} ms (flushed by a read, "
-            f"{100 * bound_ms / clean:.1f}%), {warm:.5f} ms (warm L2)")
+    log(f"[time] fused_sgd at {MAIN_SHAPE}, MLP leaves: events {ms:.5f} ms; "
+        f"profiler {cold:.5f} ms ({100 * bound_ms / cold:.1f}% of the bound) "
+        f"with the L2 flushed, {warm:.5f} ms warm")
     log(f"[time] fused_sgd: plain {plain_ms:.5f} ms, torch._fused_sgd_ "
         f"{library_ms:.5f} ms, bound {bound_ms:.5f} ms ({bound_by})")
-    return {"ms": times["MLP leaves"][0], "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def device_rows(prof):
@@ -1479,28 +1473,25 @@ def time_decode(decode, decode_plain, shape, reps, forced=()):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def kernel_times(fn, names, reps=10, flush="write") -> dict:
+def kernel_times(fn, names, reps=10, warm=False) -> dict:
     """Each named kernel's median device time (ms) over ``reps`` calls of
     ``fn`` from a profiler run, and how many of the calls the profiler saw
-    it in. Before each call the L2 is flushed by writing a 256 MB buffer
-    (``flush="write"``: the kernel finds dirty lines to write back), by
-    reading one (``"read"``: clean lines), or not at all (``None``: warm,
-    after a few calls to warm up)."""
+    it in. Before each call the L2 is flushed by writing a 256 MB buffer;
+    ``warm`` leaves it as the calls before left it (after a few calls to
+    warm up), as a kernel finds its operands on a path that launches it
+    back to back."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    buf = torch.ones(64 * 1024 * 1024, dtype=torch.float32, device="cuda")
-    sink = torch.empty((), device="cuda")
-    if flush is None:
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device="cuda")
+    if warm:
         for _ in range(3):
             fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for i in range(reps):
-            if flush == "write":
-                buf.fill_(float(i))
-            elif flush == "read":
-                torch.sum(buf, dim=0, out=sink)
+            if not warm:
+                flush.fill_(float(i))
             fn()
         torch.cuda.synchronize()
     times = {}

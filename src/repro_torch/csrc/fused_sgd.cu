@@ -51,8 +51,11 @@
 // Measured at the paper MLP's shape (PERF.md): persistent grids
 // that stream several slots a thread (a register ring of 2-8 slots, a
 // cp.async ring in shared memory, a shared segment table) lost to this
-// one-wave grid, and so did spans cut off p's grid, which gave every span
-// of a lane starting off the grid its own head and tail.
+// one-wave grid; so did a flat stream of 2 to 8 blocks an SM whose spans
+// cross segment boundaries (a block that meets two segments waits on two
+// round trips, and at 8 blocks an SM its 32-register cap spills), and
+// spans cut off p's grid, which gave every span of a lane starting off
+// the grid its own head and tail.
 //
 // Every multiply and add is an explicitly rounded intrinsic, so nvcc cannot
 // contract p - lr * d into an FMA: the kernel matches its plain PyTorch
