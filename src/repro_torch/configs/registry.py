@@ -31,6 +31,7 @@ _MODULE_FOR = {
     "yi-9b": "yi_9b",
     "mamba2-2.7b": "mamba2_2_7b",
     "fedsr-mlp": "fedsr_mlp",
+    "fedsr-cnn": "fedsr_cnn",
 }
 
 _NOT_PORTED = {
@@ -42,7 +43,6 @@ _NOT_PORTED = {
     "deepseek-7b": "A10",
     "qwen3-moe-30b-a3b": "A10",
     "phi3.5-moe-42b-a6.6b": "A10",
-    "fedsr-cnn": "A3",
 }
 
 

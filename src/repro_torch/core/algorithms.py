@@ -1,13 +1,14 @@
 """FL algorithms as planners (the port's twin of the JAX package's
-``core/algorithms.py``) — the shared planner base and FedSR.
+``core/algorithms.py``) — the shared planner base, FedAvg, RingOptimization
+and FedSR.
 
 A planner consumes only the host RNG, the config and its host-side state,
 and emits ``RoundPlan``s; ``run_schedule`` pre-plans a block of rounds into
 a ``Schedule`` and hands it to the engine, which runs it as one call. Every
 draw happens in the reference's order, so the port's plans are
 bit-identical to the JAX package's for the same seed. The other algorithms
-(FedAvg, FedProx, MOON, SCAFFOLD, HierFAVG, Ring, Centralized) are ROADMAP
-A5; the scenario, adversary and DP axes are ROADMAP A7.
+(FedProx, HierFAVG, MOON, SCAFFOLD, Centralized) are ROADMAP A4; the
+scenario, adversary and DP axes are ROADMAP A7.
 """
 from __future__ import annotations
 
@@ -28,7 +29,10 @@ from repro_torch.data.pipeline import ClientData, plan_epoch_indices
 
 
 class _Planner:
-    """Shared planner base: sampling helpers + the block runner."""
+    """Shared planner base: sampling/weights helpers + the block runner."""
+
+    variant = "plain"
+    _transfers_per_client = 1       # model each way
 
     def __init__(self, trainer: LocalTrainer, clients: List[ClientData],
                  fl: FLConfig):
@@ -92,6 +96,16 @@ class _Planner:
                     state: Dict) -> RoundPlan:
         raise NotImplementedError
 
+    # -- algorithm state in checkpoints (the plain algorithms keep none) ---
+    def state_to_ckpt(self, state: Dict) -> Dict:
+        """State carry -> the per-client-id dict layout of
+        ``algo_state.msgpack``."""
+        return dict(state)
+
+    def state_from_ckpt(self, ck: Dict, w_glob) -> Dict:
+        """Inverse of ``state_to_ckpt`` over a restored checkpoint."""
+        return dict(ck)
+
     # -- planning helpers ------------------------------------------------
     def _batch_plan(self, i: int, rng: np.random.Generator) -> np.ndarray:
         return plan_epoch_indices(self.clients[i], self.fl.batch_size,
@@ -101,6 +115,10 @@ class _Planner:
         k = self.fl.num_devices
         n = max(1, int(round(k * self.fl.participation)))
         return sorted(rng.choice(k, size=n, replace=False).tolist())
+
+    def _weights(self, ids: List[int]) -> np.ndarray:
+        sizes = np.asarray([len(self.clients[i]) for i in ids], np.float64)
+        return sizes / sizes.sum()
 
     def _ring_hops(self, rings: List[List[int]],
                    rng: np.random.Generator) -> Tuple[Hop, ...]:
@@ -124,6 +142,40 @@ class _Planner:
                             for r, ring in enumerate(rings)))
             for lap in range(fl.ring_rounds) for j in range(width)
         )
+
+
+class FedAvg(_Planner):
+    """McMahan et al. 2017 — the star baseline (paper Fig. 1): one cohort
+    visit group, flat |D_i|/|D| aggregation."""
+
+    def _plan_round(self, t, rng, state):
+        ids = self._sample(rng)
+        plans = tuple(self._batch_plan(i, rng) for i in ids)
+        group = VisitGroup(hops=(Hop(tuple(ids), plans),),
+                           variant=self.variant,
+                           agg=AggSpec.flat(self._weights(ids)))
+        n = self._transfers_per_client * len(ids)
+        return RoundPlan(groups=(group,),
+                         comm=(("cloud_down", n), ("cloud_up", n)))
+
+
+class RingOptimization(_Planner):
+    """Paper §III-B standalone baseline: ONE global ring over all sampled
+    devices, R laps per round; no cloud aggregation inside the ring."""
+
+    def _plan_round(self, t, rng, state):
+        fl = self.fl
+        ring = self._sample(rng)
+        if fl.reshuffle_ring:
+            rng.shuffle(ring)
+        comm = (("cloud_down", 1),          # seed the first device
+                ("p2p", ring_lap_hops(len(ring), fl.ring_rounds)),
+                ("cloud_up", 1))            # readout
+        groups = ()
+        if fl.ring_rounds > 0:
+            groups = (VisitGroup(hops=self._ring_hops([ring], rng),
+                                 agg=AggSpec.flat([1.0])),)
+        return RoundPlan(groups=groups, comm=comm)
 
 
 class FedSR(_Planner):
@@ -156,17 +208,16 @@ class FedSR(_Planner):
         return RoundPlan(groups=groups, comm=comm)
 
 
-ALGORITHMS = {"fedsr": FedSR}
-_NOT_PORTED = ("fedavg", "fedprox", "moon", "scaffold", "hieravg", "ring",
-               "centralized")
+ALGORITHMS = {"fedavg": FedAvg, "ring": RingOptimization, "fedsr": FedSR}
+_NOT_PORTED = ("fedprox", "moon", "scaffold", "hieravg", "centralized")
 
 
 def make_algorithm(name: str, trainer: LocalTrainer,
                    clients: List[ClientData], fl: FLConfig):
     if name in _NOT_PORTED:
         raise NotImplementedError(
-            f"algorithm {name!r} is not ported yet (ROADMAP A5); the port "
-            "runs 'fedsr'")
+            f"algorithm {name!r} is not ported yet (ROADMAP A4); the port "
+            f"runs {sorted(ALGORITHMS)}")
     if name not in ALGORITHMS:
         raise ValueError(f"unknown algorithm {name!r}")
     return ALGORITHMS[name](trainer, clients, fl)

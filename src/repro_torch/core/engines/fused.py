@@ -50,7 +50,7 @@ class FusedEngine(BatchedEngine):
         if len(plans[0].groups) > 1:
             raise NotImplementedError(
                 "multi-group (HierFAVG) schedules are not ported yet "
-                "(ROADMAP A5)")
+                "(ROADMAP A4)")
         variant = plans[0].groups[0].variant
         if variant != "plain":
             raise NotImplementedError(

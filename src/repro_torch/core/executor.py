@@ -13,18 +13,28 @@ replay, so a parity run passes the reference's ``w_glob`` in, as numpy
 arrays or tensors) and ``device`` (the GPU unless the caller asks for
 another; there is no silent CPU fallback). ``on_block(t0, schedule)`` is
 called with every block's pre-drawn plans before the block runs.
-Checkpoints, the prefetch pipeline and personalization are not ported yet
-(ROADMAP A5, A6, A8) and raise.
+
+Checkpoints (``checkpoint_dir``, ``checkpoint_every``, ``resume``) keep the
+reference's files and layout — ``model.msgpack``, ``algo_state.msgpack``
+and ``state.json`` — so a run saved by either package resumes in the
+other; on resume the checkpoint's weights replace ``init_params``. Only
+the serial block driver exists (the prefetch pipeline is ROADMAP A6), so
+the saved RNG state is the generator's state after the block, as the
+reference's serial driver saves it. The prefetch pipeline and
+personalization are not ported yet (ROADMAP A6, A8) and raise.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import time
 from typing import Callable, Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.io import restore, save
 from repro_torch.configs.base import FLConfig, ModelConfig
 from repro_torch.core.algorithms import make_algorithm
 from repro_torch.core.comm import CommMeter
@@ -86,10 +96,7 @@ class ExperimentResult:
         return None
 
 
-def _check_ported(fl: FLConfig, checkpoint_dir, resume) -> None:
-    if checkpoint_dir or resume:
-        raise NotImplementedError(
-            "checkpoints are not ported yet (ROADMAP A5)")
+def _check_ported(fl: FLConfig) -> None:
     if fl.prefetch:
         raise NotImplementedError(
             "the prefetch pipeline (prefetch=1) is not ported yet "
@@ -109,13 +116,14 @@ def run_experiment(
     test: Optional[Dataset] = None,
     quiet: bool = True,
     checkpoint_dir: Optional[str] = None,
+    checkpoint_every: int = 0,
     resume: bool = False,
     stop_after: Optional[int] = None,   # simulate interruption after round N
     init_params: Optional[Mapping] = None,
     device=None,
     on_block: Optional[Callable[[int, Schedule], None]] = None,
 ) -> ExperimentResult:
-    _check_ported(fl, checkpoint_dir, resume)
+    _check_ported(fl)
     device = resolve_device(device)
     if train is None or test is None:
         train, test = make_task(task, seed=fl.seed)
@@ -125,6 +133,10 @@ def run_experiment(
         rng=rng, xi=fl.xi, alpha=fl.alpha,
     )
     trainer = LocalTrainer(model_cfg, fl, device)
+    ck = (_restore_checkpoint(checkpoint_dir)
+          if resume and checkpoint_dir else None)
+    if ck is not None:
+        init_params = ck["w_glob"]
     if init_params is None:
         params = init_small_model(torch.Generator().manual_seed(fl.seed),
                                   model_cfg, device)
@@ -134,14 +146,24 @@ def run_experiment(
                  else v) for k, v in init_params.items()}, device)
     layout = layout_of(params)
     if layout != trainer.layout:
-        raise ValueError(f"init_params layout {layout} does not match the "
-                         f"model's {trainer.layout}")
+        raise ValueError(f"initial weights' layout {layout} does not match "
+                         f"the model's {trainer.layout}")
     w_glob = ravel_params(params)
     algo = make_algorithm(fl.algorithm, trainer, clients, fl)
     meter = CommMeter(model_bytes=tree_bytes(params))
     lr_fn = cosine_decay(fl.init_lr, fl.final_lr, fl.rounds)
     state: Dict = {}
+    start_round = 0
     history: List[RoundRecord] = []
+    if ck is not None:
+        start_round = int(ck["round"])
+        rng.bit_generator.state = ck["rng_state"]
+        for k, v in ck["comm"].items():
+            setattr(meter, k, float(v) if k == "sim_seconds" else int(v))
+        # the pre-checkpoint history rides along, so rounds_to_accuracy and
+        # comm_to_accuracy see the whole run, not just the resumed tail
+        history = [RoundRecord(**h) for h in ck.get("history", [])]
+        state = algo.state_from_ckpt(ck.get("state") or {}, w_glob)
 
     test_images = torch.from_numpy(test.images).to(device)
     test_labels = torch.from_numpy(test.labels).to(device)
@@ -153,11 +175,14 @@ def run_experiment(
     end = fl.rounds if stop_after is None else min(fl.rounds, stop_after)
 
     def next_boundary(t: int) -> int:
-        return min(end, t - t % eval_every + eval_every)
+        stop = min(end, t - t % eval_every + eval_every)
+        if checkpoint_dir and checkpoint_every:
+            stop = min(stop, t - t % checkpoint_every + checkpoint_every)
+        return stop
 
-    t = 0
+    t = start_round
     last_time = time.perf_counter()
-    last_round = 0
+    last_round = start_round
     while t < end:
         stop = next_boundary(t)
         lrs = np.asarray([float(lr_fn(i)) for i in range(t, stop)])
@@ -187,6 +212,11 @@ def run_experiment(
                 print(f"  [{fl.algorithm:>12}] round {t:>3} "
                       f"acc={acc:.4f} lr={lrs[-1]:.5f} "
                       f"transfers={meter.total_transfers}")
+        if (checkpoint_dir and checkpoint_every
+                and t % checkpoint_every == 0):
+            _save_checkpoint(checkpoint_dir, unravel(w_glob, layout), t,
+                             rng.bit_generator.state, meter, history,
+                             algo.state_to_ckpt(state))
 
     stage_s, overlap_s = algo.engine.staging_stats()
     res = algo.residency
@@ -198,3 +228,59 @@ def run_experiment(
                             dispatch_seconds=res.dispatch_seconds,
                             h2d_bytes=trainer.h2d_bytes,
                             dispatches=trainer.dispatches)
+
+
+# ---------------------------------------------------------------------------
+# checkpoint / resume (exact: model + round + numpy RNG + comm counters +
+# eval history + algorithm state), in the reference's files and layout
+
+
+def _pack_state(state):
+    """Algorithm state as a msgpack-able tree: client-id dict keys (ints)
+    become tagged strings so ``checkpoint.io`` round-trips them exactly."""
+    if isinstance(state, dict):
+        return {(f"i:{k}" if isinstance(k, int) else str(k)): _pack_state(v)
+                for k, v in state.items()}
+    return state
+
+
+def _unpack_state(obj):
+    """Inverse of ``_pack_state`` over a restored tree."""
+    if isinstance(obj, dict):
+        return {(int(k[2:]) if isinstance(k, str) and k.startswith("i:")
+                 else k): _unpack_state(v)
+                for k, v in obj.items()}
+    return obj
+
+
+_COMM_FIELDS = ("model_bytes", "cloud_up", "cloud_down", "edge_up",
+                "edge_down", "p2p")
+
+
+def _save_checkpoint(ckdir: str, params: Mapping[str, torch.Tensor],
+                     round_: int, rng_state: Dict, meter: CommMeter,
+                     history: List[RoundRecord] = (),
+                     state: Optional[Dict] = None) -> None:
+    """``rng_state`` is the numpy bit-generator state to persist: the
+    serial driver's, after the block that ends at ``round_``."""
+    os.makedirs(ckdir, exist_ok=True)
+    save(f"{ckdir}/model.msgpack", params)
+    save(f"{ckdir}/algo_state.msgpack", _pack_state(state or {}))
+    comm = {f: int(getattr(meter, f)) for f in _COMM_FIELDS}
+    comm["sim_seconds"] = float(meter.sim_seconds)
+    with open(f"{ckdir}/state.json", "w") as f:
+        json.dump({"round": round_, "rng_state": rng_state, "comm": comm,
+                   "history": [dataclasses.asdict(r) for r in history]}, f)
+
+
+def _restore_checkpoint(ckdir: str) -> Optional[Dict]:
+    """The checkpoint in ``ckdir`` with numpy weights, or None when there
+    is none."""
+    if not os.path.exists(f"{ckdir}/state.json"):
+        return None
+    with open(f"{ckdir}/state.json") as f:
+        meta = json.load(f)
+    out = {"w_glob": restore(f"{ckdir}/model.msgpack"), **meta}
+    if os.path.exists(f"{ckdir}/algo_state.msgpack"):
+        out["state"] = _unpack_state(restore(f"{ckdir}/algo_state.msgpack"))
+    return out

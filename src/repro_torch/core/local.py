@@ -1,6 +1,6 @@
 """Local training of the port — the twin of the JAX package's
 ``core/local.py`` for the fused engine's block dispatch (``variant="plain"``,
-weighted-mean reduce).
+weighted-mean reduce), for either small model (the paper's MLP or CNN).
 
 The JAX package compiles one eval-to-eval block of rounds into ONE
 ``lax.scan``; here the same block is one Python call
@@ -16,7 +16,11 @@ loss (lanes are independent, so each gets its own gradient), then apply
 the masked momentum update. Momentum is zeroed wherever a new client visit
 starts. The gradient stays as autograd's per-leaf tensors: the fused update
 reads them in place, and only the unfused path concatenates them into a
-flat ``(C, P)`` buffer (the reference's ``ravel_pytree``).
+flat ``(C, P)`` buffer (the reference's ``ravel_pytree``). The CNN's
+conv-weight gradients come back from autograd as permuted views of the
+grouped conv's (C*Cout, Cin, 3, 3) gradient; each is copied dense (one
+copy kernel per conv weight a step), since the kernel reads leaves only
+in place and contiguous.
 
 The update has two paths, as in the reference, and they round differently
 (ROADMAP C2), so each is held against its own reference path:
@@ -41,7 +45,8 @@ import torch
 from repro_torch.configs.base import FLConfig, ModelConfig
 from repro_torch.kernels.fused_sgd.ops import fused_sgd_lanes
 from repro_torch.kernels.fused_sgd.ref import flat_grads
-from repro_torch.models.small import classifier_loss_lanes, mlp_specs
+from repro_torch.models.registry import specs_for
+from repro_torch.models.small import classifier_loss_lanes
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.tree import unravel
 
@@ -70,9 +75,6 @@ class LocalTrainer:
     """Lane-stacked local SGD for one (model, FL) config on one device."""
 
     def __init__(self, cfg: ModelConfig, fl: FLConfig, device=None):
-        if cfg.family != "mlp":
-            raise NotImplementedError(
-                f"model family {cfg.family!r} is not ported yet (ROADMAP A3)")
         if fl.reducer != "weighted_mean":
             raise NotImplementedError(
                 f"reducer {fl.reducer!r} is not ported yet (ROADMAP A7)")
@@ -82,7 +84,7 @@ class LocalTrainer:
         self.cfg = cfg
         self.fl = fl
         self.device = resolve_device(device)
-        specs = mlp_specs(cfg)
+        specs = specs_for(cfg)
         self.layout = tuple((k, specs[k].shape) for k in sorted(specs))
         self.h2d_bytes = 0
         self.dispatches = 0
@@ -90,15 +92,16 @@ class LocalTrainer:
     # ------------------------------------------------------------------
     def lane_grads(self, params: torch.Tensor, batch: Dict[str, torch.Tensor]):
         """Per-lane losses (C,) and the gradient as autograd's leaves, one
-        (C, *shape) tensor per leaf in ``self.layout`` order, for the
-        (C, P) flat lane stack ``params``."""
+        contiguous (C, *shape) tensor per leaf in ``self.layout`` order,
+        for the (C, P) flat lane stack ``params``. ``.contiguous()`` is a
+        no-op on every leaf but the CNN's conv weights."""
         leaves = {k: v.detach().requires_grad_()
                   for k, v in unravel(params, self.layout).items()}
         with torch.enable_grad():
             losses = classifier_loss_lanes(leaves, batch, self.cfg)
             grads = torch.autograd.grad(
                 losses.sum(), [leaves[k] for k, _ in self.layout])
-        return losses.detach(), grads
+        return losses.detach(), tuple(g.contiguous() for g in grads)
 
     def _update(self, p, grads, m, ok, lr, reset: bool) -> None:
         """The masked momentum step on the (C, P) stack ``p`` from the

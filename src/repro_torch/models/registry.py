@@ -11,11 +11,9 @@ from repro_torch.configs.base import ModelConfig
 
 
 def specs_for(cfg: ModelConfig) -> Dict[str, Any]:
-    if cfg.family == "cnn":
-        raise NotImplementedError("the CNN is not ported yet (ROADMAP A3)")
-    if cfg.family == "mlp":
-        from repro_torch.models.small import mlp_specs
-        return mlp_specs(cfg)
+    if cfg.family in ("cnn", "mlp"):
+        from repro_torch.models.small import small_model_specs
+        return small_model_specs(cfg)
     from repro_torch.models.transformer import model_specs
     return model_specs(cfg)
 

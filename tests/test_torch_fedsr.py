@@ -1,15 +1,16 @@
-"""The port's FedSR main path against the JAX package's.
+"""The port's FedSR main path, and the FedAvg and Ring baselines, against
+the JAX package's.
 
 * Host side, exactly: configs, ``make_task``, the partitions,
   ``plan_epoch_indices``/``stack_plan_indices``, the data plane's bytes,
-  FedSR's ``plan_schedule`` and the fused engine's stacked block arrays,
-  comm meters, ``h2d_bytes`` and ``dispatches``.
+  FedSR's, FedAvg's and Ring's ``plan_schedule`` and the fused engine's
+  stacked block arrays, comm meters, ``h2d_bytes`` and ``dispatches``.
 * One SGD step of the full-width paper MLP: per-lane loss and gradients
   within 1e-5 (f32, different summation orders).
 * Whole runs of a narrow MLP through ``run_experiment`` from the
   reference's initial weights, with ``use_fused_sgd`` on and off (each held
-  against its own reference path): final weights within 1e-4 and every
-  eval's accuracy within one test sample.
+  against its own reference path), for FedSR, FedAvg and Ring: final
+  weights within 1e-4 and every eval's accuracy within one test sample.
 * Port rules: the port imports nothing of JAX or of the JAX package, and
   options it does not run yet raise.
 """
@@ -145,8 +146,8 @@ def test_cosine_decay_matches_up_to_the_cosine_rounding():
                                    atol=0.5 * (0.01 - 1e-5) * 2.0**-23)
 
 
-def _planners(participation, **fl_kw):
-    """The FedSR planner of each package over identical clients."""
+def _planners(participation, algorithm="fedsr", **fl_kw):
+    """The ``algorithm`` planner of each package over identical clients."""
     from repro.core.algorithms import make_algorithm as ref_make_algorithm
     from repro.core.local import LocalTrainer as RefTrainer
     from repro.data.pipeline import make_clients as ref_make_clients
@@ -161,8 +162,8 @@ def _planners(participation, **fl_kw):
                           rng=np.random.default_rng(0), alpha=0.5)
     pc = make_clients(ptr, scheme="dirichlet", num_devices=8,
                       rng=np.random.default_rng(0), alpha=0.5)
-    ref = ref_make_algorithm("fedsr", RefTrainer(rm, rfl), rc, rfl)
-    port = make_algorithm("fedsr", LocalTrainer(pm, pfl, CPU), pc, pfl)
+    ref = ref_make_algorithm(algorithm, RefTrainer(rm, rfl), rc, rfl)
+    port = make_algorithm(algorithm, LocalTrainer(pm, pfl, CPU), pc, pfl)
     return ref, port
 
 
@@ -185,6 +186,36 @@ def test_fedsr_schedule_and_block_arrays_are_identical(participation):
         assert rxs[k].dtype == pxs[k].dtype, k
         np.testing.assert_array_equal(rxs[k], pxs[k], err_msg=k)
     assert rr.bit_generator.state == pr.bit_generator.state
+
+
+@pytest.mark.parametrize("algorithm,participation,reshuffle", [
+    ("fedavg", 1.0, True), ("fedavg", 0.5, True),
+    ("ring", 1.0, True), ("ring", 0.75, False)])
+def test_baseline_schedule_and_block_arrays_are_identical(
+        algorithm, participation, reshuffle):
+    """FedAvg: one hop of every sampled client, step counts padded per
+    lane by ``stack_plan_indices`` to the block's longest plan, |D_i|/|D|
+    weights. Ring: one global ring over the sampled devices, optionally
+    reshuffled (one more draw), R laps as hops. Same seed -> identical
+    plans, comm, block arrays and RNG state."""
+    ref, port = _planners(participation, algorithm,
+                          reshuffle_ring=reshuffle, local_epochs=2)
+    rr, pr = np.random.default_rng(7), np.random.default_rng(7)
+    lrs = np.asarray([0.05, 0.04, 0.03])
+    rs = ref.plan_schedule(0, 3, rr, {})
+    ps = port.plan_schedule(0, 3, pr, {})
+    assert_schedules_equal(rs, ps)
+    assert rr.bit_generator.state == pr.bit_generator.state
+    np.testing.assert_array_equal(rs.visited(), ps.visited())
+    rxs = ref.engine._stack_cohort_schedule(rs.plans, lrs, "plain", {})
+    pxs = port.engine._stack_cohort_schedule(ps.plans, lrs)
+    assert sorted(rxs) == sorted(pxs)
+    for k in pxs:
+        assert rxs[k].dtype == pxs[k].dtype, k
+        np.testing.assert_array_equal(rxs[k], pxs[k], err_msg=k)
+    if algorithm == "fedavg":
+        steps = pxs["valid"].sum(-1)                # (n, H=1, C)
+        assert pxs["valid"].shape[1] == 1 and len(set(steps.ravel())) > 1
 
 
 def test_blocks_meter_identically_and_train_alike():
@@ -286,6 +317,30 @@ def test_whole_run_matches_reference(use_fused_sgd):
     assert_trees_close(port.final_model, ref.final_model, atol=1e-4)
 
 
+@pytest.mark.parametrize("algorithm", ["fedavg", "ring"])
+@pytest.mark.parametrize("use_fused_sgd", [True, False])
+def test_baseline_run_matches_reference(algorithm, use_fused_sgd):
+    from repro.core.executor import run_experiment as ref_run
+    from repro_torch.core.executor import run_experiment
+
+    (rm, rfl), (pm, pfl) = configs(SMALL, **_fl(
+        algorithm=algorithm, use_fused_sgd=use_fused_sgd, participation=0.75))
+    (rtr, rte), (ptr, pte) = _tasks()
+    ref = ref_run(task="mnist_like", model_cfg=rm, fl=rfl, eval_every=2,
+                  train=rtr, test=rte)
+    port = run_experiment(task="mnist_like", model_cfg=pm, fl=pfl,
+                          eval_every=2, train=ptr, test=pte,
+                          init_params=jax_init(rm, rfl.seed), device="cpu")
+    assert [r.round for r in ref.history] == [r.round for r in port.history]
+    for a, b in zip(ref.history, port.history):
+        assert abs(a.accuracy - b.accuracy) <= 1.0 / len(rte) + 1e-6
+        assert a.comm == b.comm
+        assert np.float32(a.lr) == np.float32(b.lr)
+    assert port.dispatches == 2
+    assert ref.peak_device_bytes == port.peak_device_bytes
+    assert_trees_close(port.final_model, ref.final_model, atol=1e-4)
+
+
 # ---------------------------------------------------------------------------
 # port rules
 
@@ -307,9 +362,15 @@ def test_importing_the_port_leaves_jax_unloaded():
             "repro_torch.core.engines.fused", "repro_torch.data",
             "repro_torch.data.store", "repro_torch.kernels.fused_sgd",
             "repro_torch.kernels.fused_sgd.kernel",
-            "repro_torch.models.small", "repro_torch.configs.fedsr_mlp"]
+            "repro_torch.models.small", "repro_torch.configs.fedsr_mlp",
+            "repro_torch.configs.fedsr_cnn", "repro_torch.checkpoint",
+            "repro_torch.checkpoint.io"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
+            "from repro_torch.core.algorithms import (\n"
+            "    ALGORITHMS, FedAvg, RingOptimization)\n"
+            "assert ALGORITHMS['fedavg'] is FedAvg\n"
+            "assert ALGORITHMS['ring'] is RingOptimization\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
             "print(bad)\n")
@@ -321,35 +382,32 @@ def test_importing_the_port_leaves_jax_unloaded():
 
 
 @pytest.mark.parametrize("override", [
-    {"algorithm": "fedavg"}, {"engine": "batched"}, {"engine": "sequential"},
+    {"algorithm": "fedprox"}, {"engine": "batched"}, {"engine": "sequential"},
     {"store": "host"}, {"prefetch": 1}, {"reducer": "median"},
     {"dp_clip": 1.0}, {"mesh_data_axis": "data"},
     {"scenario": "drop"}, {"adversary": "sign_flip"},
-    {"personalize": "full"}, {"family": "cnn"}, {"checkpoint": True},
+    {"personalize": "full"}, {"algorithm": "hieravg"},
+    {"algorithm": "moon"}, {"algorithm": "scaffold"},
+    {"algorithm": "centralized"},
 ])
-def test_unported_options_raise(override, tmp_path):
+def test_unported_options_raise(override):
     from repro_torch.configs.base import (
         AdversaryConfig, PersonalizeConfig, ScenarioConfig,
     )
     from repro_torch.core.executor import run_experiment
 
     override = dict(override)
-    model_kw, run_kw = dict(SMALL), {}
-    if override.pop("family", None):
-        model_kw["family"] = "cnn"
-    if override.pop("checkpoint", None):
-        run_kw["checkpoint_dir"] = str(tmp_path)
     if override.pop("scenario", None):
         override["scenario"] = ScenarioConfig(drop_rate=0.5)
     if override.pop("adversary", None):
         override["adversary"] = AdversaryConfig(frac=0.25)
     if override.pop("personalize", None):
         override["personalize"] = PersonalizeConfig(epochs=1)
-    _, (pm, pfl) = configs(model_kw, **_fl(**override))
+    _, (pm, pfl) = configs(SMALL, **_fl(**override))
     _, (ptr, pte) = _tasks(train_per_class=4, test_per_class=1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run_experiment(task="mnist_like", model_cfg=pm, fl=pfl, train=ptr,
-                       test=pte, device="cpu", **run_kw)
+                       test=pte, device="cpu")
 
 
 def test_entry_point_refuses_to_fall_back_to_the_cpu(monkeypatch):

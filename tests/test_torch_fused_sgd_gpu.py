@@ -11,7 +11,8 @@ bit. The gradient is also given as a list of leaves, read in place, in
 each class of alignment between p and a leaf (sharing 16 bytes, 8 bytes,
 4 bytes), with the span a block updates forced through ``kernel.launch``
 (every block one 16-byte slot, a few slots, more than a segment) as well
-as the kernel's default.
+as the kernel's default; and at the full-width paper CNN's ten leaves
+with 1, 5 and 20 lanes (the FedSR rings and the FedAvg cohort).
 """
 import math
 
@@ -34,6 +35,10 @@ LAYOUTS = {
     "share4": [(1,), (16, 40), (3,)],
     # the paper MLP's sorted layout (lanes alternate 16 and 8 bytes in w0)
     "mlp": [(200,), (200,), (10,), (784, 200), (200, 200), (200, 10)],
+    # the paper CNN's sorted layout, 319,178 parameters (lanes alternate 16
+    # and 8 bytes from fc1_b, a 10-float leaf, on)
+    "cnn": [(32,), (3, 3, 3, 32), (64,), (3, 3, 32, 64), (64,),
+            (3, 3, 64, 64), (64,), (4096, 64), (10,), (64, 10)],
     # odd sizes at odd offsets
     "odd": [(3,), (1,), (7, 5), (2,), (13,), (1,), (33,)],
 }
@@ -116,6 +121,36 @@ def test_leaf_list_equals_plain_version_bit_for_bit(cuda, layout, span, C):
                 torch.cuda.synchronize()
                 assert torch.equal(pk, want[0]) and torch.equal(mk, want[1]), (
                     mask[:C], reset, momentum, nesterov)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("span", [0, 4, 4096])
+def test_cnn_leaves_at_the_fedavg_cohort_of_20_lanes(cuda, span):
+    C, shapes = 20, LAYOUTS["cnn"]
+    P = sum(math.prod(s) for s in shapes)
+    gen = torch.Generator(device=cuda).manual_seed(C + span)
+    p, g, m = (torch.randn(C, P, device=cuda, generator=gen)
+               for _ in range(3))
+    leaves = _split(g, shapes)
+    lr = torch.tensor([0.02], device=cuda)
+    for mask in ([True] * C, [MASKS[1][i % 5] for i in range(C)],
+                 [False] * C):
+        ok = torch.tensor(mask, device=cuda)
+        for reset in (False, True):
+            want = sgd_lanes_reference(p, leaves, m, ok, lr, reset=reset,
+                                       momentum=0.9)
+            pk, mk = p.clone(), m.clone()
+            if span == 0:
+                before = fused_sgd_lanes.launches
+                fused_sgd_lanes(pk, leaves, mk, ok, lr, reset=reset,
+                                momentum=0.9)
+                assert fused_sgd_lanes.launches == before + 1
+            else:
+                kernel.launch(pk, leaves, mk, ok, lr, reset=reset,
+                              momentum=0.9, nesterov=False, span=span)
+            torch.cuda.synchronize()
+            assert torch.equal(pk, want[0]) and torch.equal(mk, want[1]), (
+                mask, reset)
 
 
 @pytest.mark.gpu

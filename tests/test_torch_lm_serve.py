@@ -142,7 +142,7 @@ def test_registry_and_yi_9b_configs_equal_the_reference():
     assert reg.ARCH_IDS == ref_reg.ARCH_IDS
     assert dataclasses.asdict(CONFIG) == dataclasses.asdict(REF_CONFIG)
     assert dataclasses.asdict(SMOKE) == dataclasses.asdict(REF_SMOKE)
-    for arch in ("yi-9b", "fedsr-mlp"):
+    for arch in ("yi-9b", "fedsr-mlp", "fedsr-cnn"):
         assert (dataclasses.asdict(reg.get_config(arch))
                 == dataclasses.asdict(ref_reg.get_config(arch)))
         assert (dataclasses.asdict(reg.get_smoke_config(arch))
@@ -156,7 +156,7 @@ def test_registry_and_yi_9b_configs_equal_the_reference():
 
 
 @pytest.mark.parametrize("arch", ["stablelm-12b", "qwen3-moe-30b-a3b",
-                                  "jamba-v0.1-52b", "fedsr-cnn"])
+                                  "jamba-v0.1-52b", "granite-8b"])
 def test_unported_archs_raise_naming_their_roadmap_item(arch):
     from repro_torch.configs.registry import get_config, get_smoke_config
     for fn in (get_config, get_smoke_config):
@@ -201,9 +201,10 @@ def test_model_specs_have_the_reference_shapes_and_init_kinds(arch_cfg):
 
 
 def test_registry_dispatches_specs_and_init_by_family():
+    from repro_torch.configs.fedsr_cnn import CONFIG as CNN
     from repro_torch.configs.fedsr_mlp import CONFIG as MLP
     from repro_torch.models.registry import init_for, specs_for
-    from repro_torch.models.small import mlp_specs
+    from repro_torch.models.small import cnn_specs, mlp_specs
 
     assert specs_for(SMOKE) == PT.model_specs(SMOKE)
     assert specs_for(MLP) == mlp_specs(MLP)
@@ -211,8 +212,9 @@ def test_registry_dispatches_specs_and_init_by_family():
     q = PT.init_model(torch.Generator().manual_seed(0), SMOKE, CPU)
     assert all(torch.equal(a, b) for a, b in
                zip(_flat(p).values(), _flat(q).values()))
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        specs_for(dataclasses.replace(MLP, family="cnn"))
+    assert specs_for(CNN) == cnn_specs(CNN)
+    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+        specs_for(dataclasses.replace(SMOKE, family="moe"))
 
 
 def test_init_params_draws_each_kind():
