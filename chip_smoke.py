@@ -59,14 +59,16 @@ non-zero at the end, before any result line is printed):
    with an eval every 2, at ``CNN_LR`` (see there), cuDNN deterministic:
    GPU then CPU with phase 3's checks (80 launches a round; accuracy
    within ``CNN_ACC_TOL``), the round-1 model GPU against CPU within
-   ``CNN_ROUND1_TOL``, a stop after round 2 and a resume to round 4 on the
+   ``CNN_ROUND1_TOL`` (and the same round with TF32 on outside it), a
+   stop after round 2 and a resume to round 4 on the
    GPU that must equal the uninterrupted GPU run bit for bit; FedAvg's
    cohort of all 20 clients (20 lanes, one hop a round) for 2 rounds, GPU
    then CPU. Then ``fused_sgd``'s times with the CNN's leaves at
-   (5, 319,178) and (20, 319,178), and a profiler pass over one CNN round:
-   kernels a step, busy share, the convolutions' share, the update's
-   device time a step and the conv-weight gradients' dense copies (three
-   a step).
+   (5, 319,178) and (20, 319,178), one CNN round timed without the
+   profiler (cuDNN's default algorithms and deterministic ones) and a
+   profiler pass over one round: kernels a step, busy share against the
+   unprofiled round, the convolutions' share, the update's device time a
+   step and the conv-weight gradients' dense copies (three a step).
 4. The yi-9b serving path at full width and 2 layers, GPU against CPU
    from the same CPU-drawn weights, in float32 and in bfloat16:
    ``prefill_step`` at B=1, S=256 and ``prefill_and_decode`` at B=4,
@@ -117,6 +119,7 @@ line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import re
@@ -382,16 +385,13 @@ def plan_steps(blocks) -> int:
     return steps
 
 
-def check_main_path(runs, cfg, acc_tol=0.02, min_final_acc=0.5,
+def check_main_path(runs, n_params, acc_tol=0.02, min_final_acc=0.5,
                     tag="main") -> None:
     """The checks of one FL path's GPU run against its CPU run: launches
     per step, one dispatch per block, identical plans, meters and H2D
     bytes, every eval's accuracy within ``acc_tol`` of the CPU's, the
     final accuracy above ``min_final_acc`` (None: not checked), finite
-    weights and the model's parameter count."""
-    from repro_torch.models.small import small_model_specs
-    from repro_torch.nn.module import param_count
-
+    weights and the model's parameter count, ``n_params``."""
     gpu, gblocks, glaunch, _ = runs["cuda"]
     cpu, cblocks, claunch, _ = runs["cpu"]
     steps = plan_steps(gblocks)
@@ -430,9 +430,9 @@ def check_main_path(runs, cfg, acc_tol=0.02, min_final_acc=0.5,
           f"{min_final_acc}")
     for k, v in gpu.final_model.items():
         check(bool(torch.isfinite(v).all()), f"non-finite weights in {k}")
-    n_params = sum(v.numel() for v in gpu.final_model.values())
-    want = param_count(small_model_specs(cfg))
-    check(n_params == want, f"{n_params} parameters, expected {want:,}")
+    have = sum(v.numel() for v in gpu.final_model.values())
+    check(have == n_params, f"{tag}: {have} parameters, expected "
+          f"{n_params:,}")
 
 
 # Phase 3b, the paper CNN (319,178 parameters) on cifar10_like. The
@@ -446,13 +446,13 @@ CNN_LR = 1e-3
 # ReLU or max-pool kink that an element crosses in one run and not the
 # other moves one step's update at one position by about lr / B. A 1e-7
 # relative change of the initial weights moves the CPU's own round-1 model
-# by 1.4e-6 to 3.3e-5 (three draws, scripts/cnn_sensitivity.py); round 1
-# is held at 1e-3. Accuracies
-# drift further over four rounds of 80 steps: within 0.05 (20 of 400 test
-# images) of the CPU's, and above 0.3 at round 4 (the CPU run reaches
-# 0.4475).
-CNN_ROUND1_TOL = 1e-3
-CNN_ACC_TOL = 0.05
+# by 1.4e-6 to 3.3e-5 (three draws, scripts/cnn_sensitivity.py), so round 1
+# is held at 1e-4, three times the largest of those; the same round with
+# TF32 on for matmul and cuDNN is the control that must land outside it.
+# Accuracies: within 0.0125 (5 of 400 test images) of the CPU's at every
+# eval, and above 0.3 at round 4 (the CPU run reaches 0.4475).
+CNN_ROUND1_TOL = 1e-4
+CNN_ACC_TOL = 0.0125
 CNN_MIN_ACC = 0.3
 
 
@@ -474,7 +474,7 @@ def cnn_path(run_experiment, fused_sgd_lanes, cfg, fl, init) -> dict:
     try:
         runs = main_path(run_experiment, fused_sgd_lanes, cfg, fl, init,
                          task="cifar10_like", eval_every=2, tag="cnn")
-        check_main_path(runs, cfg, acc_tol=CNN_ACC_TOL,
+        check_main_path(runs, 319_178, acc_tol=CNN_ACC_TOL,
                         min_final_acc=CNN_MIN_ACC, tag="cnn")
         launches = {"cnn": runs["cuda"][2]}
         check(launches["cnn"] == 80 * fl.rounds,
@@ -492,6 +492,21 @@ def cnn_path(run_experiment, fused_sgd_lanes, cfg, fl, init) -> dict:
             f"|diff| {err:.3e}, relative L2 {rel:.3e} (bound {CNN_ROUND1_TOL})")
         check(err <= CNN_ROUND1_TOL,
               f"cnn round 1: GPU model {err} from the CPU's")
+        tf32 = (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            control = run_experiment(fl=fl, eval_every=2, device="cuda",
+                                     stop_after=1, **run).final_model
+        finally:
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = tf32
+        err = max_abs_diff(control, first["cpu"])
+        log(f"[cnn] control: the round-1 model with TF32 on, GPU against "
+            f"CPU: max |diff| {err:.3e} (must exceed {CNN_ROUND1_TOL})")
+        check(err > CNN_ROUND1_TOL, "cnn round 1: the bound does not tell "
+              "a TF32 run from the CPU's")
 
         full = runs["cuda"][0]
         with tempfile.TemporaryDirectory() as ckdir:
@@ -517,18 +532,19 @@ def cnn_path(run_experiment, fused_sgd_lanes, cfg, fl, init) -> dict:
     avg_fl = dataclasses.replace(fl, algorithm="fedavg", rounds=2)
     avg = main_path(run_experiment, fused_sgd_lanes, cfg, avg_fl, init,
                     task="cifar10_like", eval_every=2, tag="fedavg")
-    check_main_path(avg, cfg, acc_tol=CNN_ACC_TOL, min_final_acc=None,
+    check_main_path(avg, 319_178, acc_tol=CNN_ACC_TOL, min_final_acc=None,
                     tag="fedavg")
     launches["fedavg"] = avg["cuda"][2]
     lanes = {len(g.hops[0].ids) for _, sched in avg["cuda"][1]
              for p in sched.plans for g in p.groups}
     check(lanes == {fl.num_devices},
           f"fedavg: cohorts of {lanes} lanes, not all {fl.num_devices}")
-    for tag, res in (("cnn", runs), ("fedavg", avg)):
+    for tag, res, mode in (("cnn", runs, "deterministic"),
+                           ("fedavg", avg, "default")):
         for rec in res["cuda"][0].history:
             log(f"[{tag}] cuda block ending round {rec.round}: "
-                f"{rec.seconds * 1e3 / rec.rounds:.2f} ms/round "
-                f"(acc {rec.accuracy:.4f})")
+                f"{rec.seconds * 1e3 / rec.rounds:.2f} ms/round, cuDNN "
+                f"{mode} (acc {rec.accuracy:.4f})")
     return launches
 
 
@@ -652,14 +668,18 @@ def grad_copies(prof):
 
 def profile_round(cfg, fl, init, fused_sgd_lanes, task="mnist_like",
                   what="FedSR") -> None:
-    """Where one steady-state round of an FL path spends its time —
-    ``torch.profiler`` over one round after a warm-up round — and what the
-    momentum update costs a SGD step: its device time and the kernels of a
-    step. The fused path concatenates no gradient, so the round must run
-    no ``torch.cat`` kernel. For the CNN also the convolutions' share of
-    the busy time (forward and backward, by their aten ops) and the dense
-    copies of the conv-weight gradients (``aten::contiguous``: three a
-    step in ``lane_grads``, one a round for the lane broadcast)."""
+    """Where one steady-state round of an FL path spends its time. After a
+    warm-up round, one round is timed without the profiler (cuDNN's default
+    algorithms, as a user runs it; for the CNN also one with
+    ``cudnn.deterministic``, as phase 3b runs it), and one round runs under
+    ``torch.profiler``: the busy share is its device time over the
+    unprofiled round's wall. Also what the momentum update costs a SGD step:
+    its device time and the kernels of a step. The fused path concatenates
+    no gradient, so the round must run no ``torch.cat`` kernel. For the CNN
+    also the convolutions' share of the busy time (forward and backward, by
+    their aten ops) and, from one more profiled round that records shapes,
+    the dense copies of the conv-weight gradients (``aten::contiguous``:
+    three a step in ``lane_grads``, one a round for the lane broadcast)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.algorithms import make_algorithm
@@ -677,38 +697,64 @@ def profile_round(cfg, fl, init, fused_sgd_lanes, task="mnist_like",
                           clients, fl)
     w = ravel_params(params_from_numpy(init, torch.device("cuda")))
     lr = np.asarray([fl.init_lr])
-    w, _ = algo.run_schedule(w, 0, lr, rng, None, {})
-    torch.cuda.synchronize()
-    before = fused_sgd_lanes.launches
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=cfg.family == "cnn") as prof:
-        t0 = time.perf_counter()
-        w, _ = algo.run_schedule(w, 1, lr, rng, None, {})
+    t = 0
+
+    def one_round(prof_kw=None):
+        nonlocal w, t
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    steps = fused_sgd_lanes.launches - before
-    fused_sgd_lanes.launches = before    # the path's count is its phase's
-    busy_share = profile_report(prof, wall_us, f"one {what} round")
+        with (profile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA], **prof_kw)
+              if prof_kw is not None else contextlib.nullcontext()) as prof:
+            t0 = time.perf_counter()
+            w, _ = algo.run_schedule(w, t, lr, rng, None, {})
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        t += 1
+        return wall_ms, prof
+
+    before = fused_sgd_lanes.launches
+    one_round()                                         # warm-up
+    walls = {"default": one_round()[0]}
+    if cfg.family == "cnn":
+        torch.backends.cudnn.deterministic = True
+        try:
+            walls["deterministic"] = one_round()[0]
+        finally:
+            torch.backends.cudnn.deterministic = False
+    log(f"[profile] one {what} round without the profiler: "
+        + ", ".join(f"{v:.2f} ms (cuDNN {k})" for k, v in walls.items()))
+    mark = fused_sgd_lanes.launches
+    prof_wall, prof = one_round({})
+    steps = fused_sgd_lanes.launches - mark
+    busy_share = profile_report(prof, prof_wall * 1e3, f"one {what} round")
     rows = device_rows(prof)
+    busy = sum(r[0] for r in rows)
     kernels = sum(r[1] for r in rows)
     update = [r for r in rows if "fused_sgd" in r[2] or "Cat" in r[2]]
     cats = sum(r[1] for r in rows if "Cat" in r[2])
+    log(f"[profile] one {what} round: device busy {busy / 1e3:.3f} ms, "
+        f"{100 * busy / (1e3 * walls['default']):.1f}% of the unprofiled "
+        f"round's {walls['default']:.2f} ms ({100 * busy_share:.1f}% of the "
+        f"profiled wall)")
     if cfg.family == "cnn":
-        busy = sum(r[0] for r in rows)
         ops = op_rows(prof, ("aten::convolution",
                              "aten::convolution_backward"))
-        conv = sum(t for t, _ in ops.values())
-        copy_us, copies = grad_copies(prof)
-        log(f"[profile] one {what} round: busy {100 * busy_share:.1f}% of the "
-            f"wall; convolutions (forward + backward) {conv / 1e3:.3f} ms in "
-            f"{sum(n for _, n in ops.values())} calls, "
+        conv = sum(d for d, _ in ops.values())
+        mark = fused_sgd_lanes.launches
+        _, shaped = one_round({"record_shapes": True})
+        shaped_steps = fused_sgd_lanes.launches - mark
+        copy_us, copies = grad_copies(shaped)
+        log(f"[profile] one {what} round: convolutions (forward + backward) "
+            f"{conv / 1e3:.3f} ms in {sum(n for _, n in ops.values())} calls, "
             f"{100 * conv / max(busy, 1e-9):.1f}% of the busy time; the "
-            f"conv-weight gradients' dense copies {copies} calls, "
-            f"{copies / max(steps, 1):.2f} a step, "
-            f"{copy_us / max(steps, 1):.3f} us of device time a step")
-        check(copies == 3 * steps,
+            f"conv-weight gradients' dense copies (a round with shapes "
+            f"recorded) {copies} calls, {copies / max(shaped_steps, 1):.2f} a "
+            f"step, {copy_us / max(shaped_steps, 1):.3f} us of device time a "
+            f"step")
+        check(copies == 3 * shaped_steps,
               f"{what}: {copies} dense copies of conv-weight gradients over "
-              f"{steps} steps, expected three a step")
+              f"{shaped_steps} steps, expected three a step")
+    fused_sgd_lanes.launches = before    # the path's count is its phase's
     log(f"[profile] one {what} round: {steps} SGD steps, {kernels} device "
         f"kernels, {kernels / max(steps, 1):.2f} a step; the update "
         f"{sum(r[0] for r in update) / max(steps, 1):.3f} us of device time "
@@ -1797,7 +1843,7 @@ def main() -> int:
         torch.Generator().manual_seed(0), CONFIG, torch.device("cpu")))
     runs = main_path(run_experiment, fused_sgd_lanes, CONFIG, fl, init)
     launches = {"fused_sgd": runs["cuda"][2]}
-    check_main_path(runs, CONFIG)
+    check_main_path(runs, 199_210)
     log("[main] checks done: launches per step, one dispatch per block, "
         "identical plans/meters/h2d, accuracy within 0.02 of the CPU run")
     gpu_hist = runs["cuda"][0].history

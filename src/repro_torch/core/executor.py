@@ -235,24 +235,6 @@ def run_experiment(
 # eval history + algorithm state), in the reference's files and layout
 
 
-def _pack_state(state):
-    """Algorithm state as a msgpack-able tree: client-id dict keys (ints)
-    become tagged strings so ``checkpoint.io`` round-trips them exactly."""
-    if isinstance(state, dict):
-        return {(f"i:{k}" if isinstance(k, int) else str(k)): _pack_state(v)
-                for k, v in state.items()}
-    return state
-
-
-def _unpack_state(obj):
-    """Inverse of ``_pack_state`` over a restored tree."""
-    if isinstance(obj, dict):
-        return {(int(k[2:]) if isinstance(k, str) and k.startswith("i:")
-                 else k): _unpack_state(v)
-                for k, v in obj.items()}
-    return obj
-
-
 _COMM_FIELDS = ("model_bytes", "cloud_up", "cloud_down", "edge_up",
                 "edge_down", "p2p")
 
@@ -265,7 +247,7 @@ def _save_checkpoint(ckdir: str, params: Mapping[str, torch.Tensor],
     serial driver's, after the block that ends at ``round_``."""
     os.makedirs(ckdir, exist_ok=True)
     save(f"{ckdir}/model.msgpack", params)
-    save(f"{ckdir}/algo_state.msgpack", _pack_state(state or {}))
+    save(f"{ckdir}/algo_state.msgpack", state or {})
     comm = {f: int(getattr(meter, f)) for f in _COMM_FIELDS}
     comm["sim_seconds"] = float(meter.sim_seconds)
     with open(f"{ckdir}/state.json", "w") as f:
@@ -282,5 +264,5 @@ def _restore_checkpoint(ckdir: str) -> Optional[Dict]:
         meta = json.load(f)
     out = {"w_glob": restore(f"{ckdir}/model.msgpack"), **meta}
     if os.path.exists(f"{ckdir}/algo_state.msgpack"):
-        out["state"] = _unpack_state(restore(f"{ckdir}/algo_state.msgpack"))
+        out["state"] = restore(f"{ckdir}/algo_state.msgpack")
     return out
