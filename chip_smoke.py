@@ -69,6 +69,18 @@ non-zero at the end, before any result line is printed):
    profiler pass over one round: kernels a step, busy share against the
    unprofiled round, the convolutions' share, the update's device time a
    step and the conv-weight gradients' dense copies (three a step).
+3c. The per-round engines on phase 3's path (the paper MLP at full width,
+   ``use_fused_sgd=True``, TF32 off), two rounds each: FedSR and FedAvg
+   (20 lanes, one hop a round) through ``engine="sequential"`` (one client
+   visit at a time, ``fused_sgd`` at (1, 199,210) once per real step) and
+   ``engine="batched"`` (one call a hop over host-built batch stacks,
+   ``fused_sgd`` once per padded step of each hop), GPU then CPU with
+   phase 3's checks under each engine's own launch and dispatch counts;
+   each round-1 model GPU against CPU within ``ENGINE_ROUND1_TOL``, and
+   the GPU's round-1 FedSR models of the sequential, batched and fused
+   engines within it of each other. Then ``fused_sgd``'s times at
+   (1, 199,210), and one steady FedSR round of each new engine timed
+   without the profiler and profiled, beside phase 3's fused round.
 4. The yi-9b serving path at full width and 2 layers, GPU against CPU
    from the same CPU-drawn weights, in float32 and in bfloat16:
    ``prefill_step`` at B=1, S=256 and ``prefill_and_decode`` at B=4,
@@ -139,6 +151,7 @@ H100_BYTES_PER_S = 3.35e12     # H100 SXM datasheet memory rate
 H100_F32_FLOPS = 67e12         # H100 SXM datasheet float32 (non-tensor) rate
 H100_BF16_FLOPS = 989e12       # H100 SXM datasheet dense bf16 tensor-core rate
 MAIN_SHAPE = (5, 199_210)      # M=5 ring lanes x the paper MLP's parameters
+LANE_SHAPE = (1, 199_210)      # the sequential engine's one-lane visit
 SWEEP_N = (1, 255, 257, 1023, 4097, 199_210)
 
 
@@ -372,37 +385,53 @@ def main_path(run_experiment, fused_sgd_lanes, cfg, fl, init,
     return runs
 
 
-def plan_steps(blocks) -> int:
-    """The SGD steps the blocks' plans imply: rounds x hops x the longest
-    visit (shorter visits and ring tails run masked steps)."""
-    steps = 0
+def engine_counts(blocks, engine: str):
+    """(``fused_sgd`` launches, dispatches) that the blocks' plans imply
+    under ``engine``. Fused: rounds x hops x the block's longest visit
+    (shorter visits and ring tails run masked steps), one dispatch a block.
+    Batched: each hop's longest visit (a hop of ring tails alone still
+    takes one masked step), one call a hop. Sequential: each real visit's
+    own steps, one dispatch a step."""
+    launches = dispatches = 0
     for _, sched in blocks:
-        groups = [p.groups[0] for p in sched.plans]
-        H = max(len(g.hops) for g in groups)
-        S = max(p.shape[0] for g in groups for h in g.hops for p in h.plans
-                if p is not None)
-        steps += len(sched.plans) * H * S
-    return steps
+        groups = [g for p in sched.plans for g in p.groups]
+        hops = [h for g in groups for h in g.hops]
+        if engine == "fused":
+            H = max(len(g.hops) for g in groups)
+            S = max(p.shape[0] for h in hops for p in h.plans if p is not None)
+            launches += len(sched.plans) * H * S
+            dispatches += 1
+        elif engine == "batched":
+            launches += sum(max(1 if p is None else p.shape[0]
+                                for p in h.plans) for h in hops)
+            dispatches += len(hops)
+        else:
+            steps = sum(p.shape[0] for h in hops for p in h.plans
+                        if p is not None)
+            launches += steps
+            dispatches += steps
+    return launches, dispatches
 
 
 def check_main_path(runs, n_params, acc_tol=0.02, min_final_acc=0.5,
-                    tag="main") -> None:
+                    tag="main", engine="fused") -> None:
     """The checks of one FL path's GPU run against its CPU run: launches
-    per step, one dispatch per block, identical plans, meters and H2D
-    bytes, every eval's accuracy within ``acc_tol`` of the CPU's, the
-    final accuracy above ``min_final_acc`` (None: not checked), finite
-    weights and the model's parameter count, ``n_params``."""
+    and dispatches as ``engine_counts`` implies for ``engine``, identical
+    plans, meters and H2D bytes, every eval's accuracy within ``acc_tol``
+    of the CPU's, the final accuracy above ``min_final_acc`` (None: not
+    checked), finite weights and the model's parameter count,
+    ``n_params``."""
     gpu, gblocks, glaunch, _ = runs["cuda"]
     cpu, cblocks, claunch, _ = runs["cpu"]
-    steps = plan_steps(gblocks)
-    log(f"[{tag}] the plans imply {steps} SGD steps over {len(gblocks)} "
-        f"blocks")
-    check(glaunch == steps, f"fused_sgd launched {glaunch} times, the plans "
-          f"imply {steps} steps")
-    check(claunch == 0, "the CPU run launched the CUDA kernel")
-    check(gpu.dispatches == len(gblocks) == cpu.dispatches,
-          f"dispatches {gpu.dispatches}/{cpu.dispatches} != blocks "
-          f"{len(gblocks)}")
+    steps, calls = engine_counts(gblocks, engine)
+    log(f"[{tag}] under the {engine} engine the plans imply {steps} SGD "
+        f"steps and {calls} dispatches over {len(gblocks)} blocks")
+    check(glaunch == steps, f"{tag}: fused_sgd launched {glaunch} times, "
+          f"the plans imply {steps} steps")
+    check(claunch == 0, f"{tag}: the CPU run launched the CUDA kernel")
+    check(gpu.dispatches == calls == cpu.dispatches,
+          f"{tag}: dispatches {gpu.dispatches}/{cpu.dispatches}, the plans "
+          f"imply {calls}")
     check(len(gblocks) == len(cblocks), "block counts differ")
     for (ta, sa), (tb, sb) in zip(gblocks, cblocks):
         check(ta == tb and sa.comm == sb.comm, "block comm differs")
@@ -417,7 +446,7 @@ def check_main_path(runs, n_params, acc_tol=0.02, min_final_acc=0.5,
                         check((a is None) == (b is None) and (
                             a is None or np.array_equal(a, b)),
                             "batch plans differ")
-    check(gpu.h2d_bytes == cpu.h2d_bytes, "h2d_bytes differ")
+    check(gpu.h2d_bytes == cpu.h2d_bytes, f"{tag}: h2d_bytes differ")
     check([r.round for r in gpu.history] == [r.round for r in cpu.history],
           "eval rounds differ")
     for a, b in zip(gpu.history, cpu.history):
@@ -548,6 +577,64 @@ def cnn_path(run_experiment, fused_sgd_lanes, cfg, fl, init) -> dict:
     return launches
 
 
+# Phase 3c, the per-round engines. GPU against CPU after one round of the
+# paper MLP: the products sum in other orders on the two devices (TF32 is
+# off), as in the CNN's round 1, so the round-1 models are held at the
+# CNN's 1e-4, and so are the GPU's three engines against each other (the
+# CPU tests hold batched bit-equal to fused and sequential within 1e-6 of
+# it: tests/test_torch_engines.py).
+ENGINE_ROUND1_TOL = 1e-4
+
+
+def engines_path(run_experiment, fused_sgd_lanes, cfg, fl, init) -> int:
+    """Phase 3c: FedSR and FedAvg through the sequential and the batched
+    engine, two rounds each, GPU then CPU, with phase 3's checks under each
+    engine's own launch and dispatch counts; the round-1 model of each on
+    the GPU against the CPU's, and the GPU's round-1 FedSR models of the
+    sequential, batched and fused engines against each other. Returns the
+    ``fused_sgd`` launches of the four GPU runs."""
+    launches = 0
+    round1 = {}
+    for algorithm in ("fedsr", "fedavg"):
+        for engine in ("sequential", "batched"):
+            tag = f"{algorithm}/{engine}"
+            efl = dataclasses.replace(fl, algorithm=algorithm, engine=engine,
+                                      rounds=2)
+            runs = main_path(run_experiment, fused_sgd_lanes, cfg, efl, init,
+                             eval_every=1, tag=tag)
+            check_main_path(runs, 199_210, min_final_acc=None, tag=tag,
+                            engine=engine)
+            gpu, blocks, n, _ = runs["cuda"]
+            launches += n
+            lanes = {len(g.hops[0].ids) for _, sched in blocks
+                     for p in sched.plans for g in p.groups}
+            log(f"[{tag}] lanes a group {sorted(lanes)}; GPU launches {n}, "
+                f"dispatches {gpu.dispatches}, h2d_bytes {gpu.h2d_bytes}")
+            first = {dev: run_experiment(task="mnist_like", model_cfg=cfg,
+                                         fl=efl, init_params=init,
+                                         device=dev, stop_after=1).final_model
+                     for dev in ("cuda", "cpu")}
+            err = max_abs_diff(first["cuda"], first["cpu"])
+            log(f"[{tag}] the global model after round 1, GPU against CPU: "
+                f"max |diff| {err:.3e} (bound {ENGINE_ROUND1_TOL})")
+            check(err <= ENGINE_ROUND1_TOL,
+                  f"{tag} round 1: GPU model {err} from the CPU's")
+            if algorithm == "fedsr":
+                round1[engine] = first["cuda"]
+    round1["fused"] = run_experiment(
+        task="mnist_like", model_cfg=cfg, fl=dataclasses.replace(fl, rounds=2),
+        init_params=init, device="cuda", stop_after=1).final_model
+    for a, b in (("sequential", "batched"), ("sequential", "fused"),
+                 ("batched", "fused")):
+        err = max_abs_diff(round1[a], round1[b])
+        log(f"[engines] the GPU's round-1 FedSR model, {a} against {b}: max "
+            f"|diff| {err:.3e} (bound {ENGINE_ROUND1_TOL})")
+        check(err <= ENGINE_ROUND1_TOL,
+              f"round-1 FedSR models of the {a} and {b} engines {err} apart "
+              f"on the GPU")
+    return launches
+
+
 def time_launch(fn, reps: int = 50) -> float:
     """Median ms of one call of ``fn``, timed alone with CUDA events. Before
     every call a 256 MB write flushes the 50 MB L2 cache, and a spin kernel
@@ -667,7 +754,7 @@ def grad_copies(prof):
 
 
 def profile_round(cfg, fl, init, fused_sgd_lanes, task="mnist_like",
-                  what="FedSR") -> None:
+                  what="FedSR") -> dict:
     """Where one steady-state round of an FL path spends its time. After a
     warm-up round, one round is timed without the profiler (cuDNN's default
     algorithms, as a user runs it; for the CNN also one with
@@ -679,7 +766,9 @@ def profile_round(cfg, fl, init, fused_sgd_lanes, task="mnist_like",
     also the convolutions' share of the busy time (forward and backward, by
     their aten ops) and, from one more profiled round that records shapes,
     the dense copies of the conv-weight gradients (``aten::contiguous``:
-    three a step in ``lane_grads``, one a round for the lane broadcast)."""
+    three a step in ``lane_grads``, one a round for the lane broadcast).
+    Returns the unprofiled round's wall (ms), the device busy time (ms)
+    and the SGD steps of the profiled round."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.algorithms import make_algorithm
@@ -764,6 +853,8 @@ def profile_round(cfg, fl, init, fused_sgd_lanes, task="mnist_like",
     check(steps > 0 and cats == 0,
           f"the fused {what} round ran {cats} torch.cat kernels over {steps} "
           f"steps: the update must read the gradient leaves in place")
+    return {"wall_ms": walls["default"], "busy_ms": busy / 1e3,
+            "steps": steps}
 
 
 # ---------------------------------------------------------------------------
@@ -1718,25 +1809,38 @@ def kernel_times(fn, names, reps=10, warm=False) -> dict:
     if warm:
         for _ in range(3):
             fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(reps):
-            if not warm:
-                flush.fill_(float(i))
-            fn()
-        torch.cuda.synchronize()
-    times = {}
-    for e in prof.events():
-        name = next((k for k in names if k in e.name), None)
-        if name and e.device_type == DeviceType.CUDA:
-            times.setdefault(name, []).append(e.self_device_time_total / 1e3)
     # the profiler may miss the first kernels of a window (it missed one
-    # to three of 30 on the H100), so each kernel must be seen, not seen in
-    # every call; the log says in how many
+    # to three of 30 on the H100, and once all 30 warm calls, which run
+    # back to back in under a millisecond), so a spin kernel opens the
+    # window, a window that misses a kernel is taken again (three tries),
+    # and each kernel must be seen, not seen in every call; the log says
+    # in how many
+    for attempt in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1_000_000)        # ~0.5 ms of device time
+            for i in range(reps):
+                if not warm:
+                    flush.fill_(float(i))
+                fn()
+            torch.cuda.synchronize()
+        times = {}
+        for e in prof.events():
+            name = next((k for k in names if k in e.name), None)
+            if name and e.device_type == DeviceType.CUDA:
+                times.setdefault(name, []).append(
+                    e.self_device_time_total / 1e3)
+        if sorted(times) == sorted(names):
+            break
+        log(f"[time] the profiler missed one of {names} in window "
+            f"{attempt + 1}: { {k: len(t) for k, t in times.items()} } of "
+            f"{reps} calls")
     check(sorted(times) == sorted(names),
           f"the profiler did not see each of {names}: "
           f"{ {k: len(t) for k, t in times.items()} } of {reps} calls")
-    return {k: (float(np.median(t)), len(t)) for k, t in times.items()}
+    # a kernel never seen reads NaN: the run goes on to report its failure
+    return {k: (float(np.median(times[k])), len(times[k])) if k in times
+            else (float("nan"), 0) for k in names}
 
 
 def time_ssd(ssd, ssd_plain, shape, dtype, reps):
@@ -1855,7 +1959,8 @@ def main() -> int:
     log(f"[main] cpu: {sum(r.seconds for r in cpu_hist) * 1e3 / fl.rounds:.2f}"
         f" ms/round")
     times = {"fused_sgd": time_kernels(fused_sgd_lanes, sgd_lanes_reference)}
-    profile_round(CONFIG, fl, init, fused_sgd_lanes)
+    engine_rounds = {"fused": profile_round(CONFIG, fl, init,
+                                            fused_sgd_lanes)}
 
     # phase 3b: the paper CNN through FedSR (with a stop and a resume) and
     # FedAvg
@@ -1875,6 +1980,27 @@ def main() -> int:
                      what)
     profile_round(CNN, cnn_fl, cnn_init, fused_sgd_lanes, "cifar10_like",
                   "CNN FedSR")
+
+    # phase 3c: the sequential and batched engines on the paper MLP
+    t0 = time.perf_counter()
+    engine_launches = engines_path(run_experiment, fused_sgd_lanes, CONFIG,
+                                   fl, init)
+    log(f"[engines] fused_sgd launches of phase 3c's GPU runs: "
+        f"{engine_launches}; its runs in {time.perf_counter() - t0:.1f}s")
+    launches["fused_sgd"] += engine_launches
+    time_kernels(fused_sgd_lanes, sgd_lanes_reference, LANE_SHAPE, MLP_LEAVES,
+                 "MLP leaves (one sequential lane)")
+    for engine in ("batched", "sequential"):
+        engine_rounds[engine] = profile_round(
+            CONFIG, dataclasses.replace(fl, engine=engine), init,
+            fused_sgd_lanes, what=f"FedSR {engine}")
+    for engine, r in engine_rounds.items():
+        log(f"[engines] one steady FedSR round, {engine} engine: "
+            f"{r['wall_ms']:.2f} ms unprofiled, {r['steps']} fused_sgd "
+            f"launches ({1e3 * r['wall_ms'] / max(r['steps'], 1):.1f} us of wall "
+            f"each), device busy {r['busy_ms']:.3f} ms "
+            f"({100 * r['busy_ms'] / r['wall_ms']:.1f}% of the unprofiled "
+            f"round)")
 
     # phases 4-7: the yi-9b and the mamba2-2.7b serving paths
     yi = ServePath(

@@ -4,7 +4,8 @@ and FedSR.
 
 A planner consumes only the host RNG, the config and its host-side state,
 and emits ``RoundPlan``s; ``run_schedule`` pre-plans a block of rounds into
-a ``Schedule`` and hands it to the engine, which runs it as one call. Every
+a ``Schedule`` and hands it to the engine (round by round under the
+sequential and batched engines, as one call under the fused engine). Every
 draw happens in the reference's order, so the port's plans are
 bit-identical to the JAX package's for the same seed. The other algorithms
 (FedProx, HierFAVG, MOON, SCAFFOLD, Centralized) are ROADMAP A4; the
@@ -59,10 +60,18 @@ class _Planner:
         return w_glob, state
 
     def dispatch_block(self, sched: Schedule, w_glob, lrs, state: Dict):
-        """Stage the block's data, record residency and run the block."""
+        """Stage the block's data, record residency and run the block, with
+        the algorithm's state update between rounds where the engine runs
+        round by round."""
         data_bytes = self.engine.stage_data(sched.visited())
         self.residency.record(data_bytes, 0)
-        return self.engine.run_schedule(sched, w_glob, lrs)
+        return self.engine.run_schedule(sched, w_glob, lrs, state,
+                                        self.update_state)
+
+    def update_state(self, plan: RoundPlan, w_before, w_after, lr: float,
+                     state: Dict) -> None:
+        """The algorithm's state update after one round; the ported
+        planners keep no state."""
 
     def finish_block(self, sched: Schedule, state: Dict,
                      meter: CommMeter) -> None:

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from repro_torch.core.engines.base import check_ported_plans
 from repro_torch.core.engines.batched import BatchedEngine
 from repro_torch.core.plan import Schedule
 from repro_torch.data.pipeline import DeviceDataPlane, stack_plan_indices
@@ -43,18 +44,13 @@ class FusedEngine(BatchedEngine):
     def staging_stats(self):
         return self.store.stage_seconds, self.store.overlapped_stage_seconds
 
-    def run_schedule(self, sched: Schedule, w_glob, lrs):
+    def run_schedule(self, sched: Schedule, w_glob, lrs, state, update_fn):
+        """The whole block as one ``train_schedule`` call. The ported
+        planners keep no state, so ``update_fn`` has nothing to apply."""
         plans = sched.plans
         if not plans or not plans[0].groups:
             return w_glob       # ring_rounds=0: rounds leave w unchanged
-        if len(plans[0].groups) > 1:
-            raise NotImplementedError(
-                "multi-group (HierFAVG) schedules are not ported yet "
-                "(ROADMAP A4)")
-        variant = plans[0].groups[0].variant
-        if variant != "plain":
-            raise NotImplementedError(
-                f"loss variant {variant!r} is not ported yet (ROADMAP A4)")
+        check_ported_plans(plans)
         xs = self._stack_cohort_schedule(plans, lrs)
         return self.trainer.train_schedule(w_glob, self.plane, xs)
 

@@ -1,0 +1,39 @@
+"""The reference engine: a Python loop of single-client steps (the port's
+twin of the JAX package's ``core/engines/sequential.py``).
+
+Interprets a RoundPlan literally — every lane of a group is an independent
+chain of ``LocalTrainer.train`` calls over the pre-drawn batch plans,
+aggregated in the reference's order by ``utils.tree.weighted_sum`` (the
+paper-faithful semantics every other engine must reproduce). Lanes are
+independent given their plans, so training lane by lane is exactly
+Algorithm 1's device-by-device schedule; the planner already drew the RNG
+stream in this visit order.
+
+The reduce is the two-level sum of eq. 11 (each group's lanes weighted in
+lane order, then the groups), not the batched and fused engines' folded
+``aggv @ lanes``: both are eq. 11 but round differently, so this engine
+agrees with the others within f32 rounding, not bit for bit.
+"""
+from __future__ import annotations
+
+from repro_torch.core.engines.base import Engine
+from repro_torch.utils.tree import weighted_sum
+
+
+class SequentialEngine(Engine):
+
+    def _run_group(self, grp, w_glob, lr):
+        lanes = []
+        for c in range(grp.lanes):
+            w = w_glob
+            for hop in grp.hops:
+                if hop.plans[c] is None:        # ring tail: carried unchanged
+                    continue
+                w = self.trainer.train(w, self.clients[hop.ids[c]], lr=lr,
+                                       plan=hop.plans[c])
+            lanes.append(w)
+        agg = grp.agg
+        groups = [weighted_sum([lanes[la] for la in members],
+                               [agg.lane_weights[la] for la in members])
+                  for members in agg.groups]
+        return weighted_sum(groups, agg.group_weights)

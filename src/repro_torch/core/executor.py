@@ -3,8 +3,9 @@ rounds -> eval history (the twin of the JAX package's
 ``core/executor.py::run_experiment``, serial block loop).
 
 Rounds run in eval-to-eval blocks — plan block -> run block -> eval ->
-record — through ``algo.run_schedule``; under the fused engine a block is
-one ``LocalTrainer.train_schedule`` call. Block boundaries come from
+record — through ``algo.dispatch_block``; under the fused engine a block is
+one ``LocalTrainer.train_schedule`` call, under the sequential and batched
+engines one ``Engine.run`` per round. Block boundaries come from
 absolute round indices, as in the reference.
 
 Two arguments the reference does not have: ``init_params`` (the JAX
@@ -71,12 +72,14 @@ class ExperimentResult:
     partition: str
     history: List[RoundRecord]
     final_model: Optional[Dict[str, torch.Tensor]] = None
-    peak_device_bytes: int = 0              # data plane + staged state
+    peak_device_bytes: int = 0              # data plane + staged state (0
+                                            # under the host-fed engines)
     stage_seconds: float = 0.0              # the data plane's upload wall
     overlapped_stage_seconds: float = 0.0   # 0: no prefetch pipeline yet
     dispatch_seconds: float = 0.0           # per-block dispatch-to-sync wall
     h2d_bytes: int = 0                      # LocalTrainer.h2d_bytes at the end
-    dispatches: int = 0                     # LocalTrainer.dispatches (blocks)
+    dispatches: int = 0                     # LocalTrainer.dispatches (steps,
+                                            # hop calls or blocks)
 
     @property
     def final_accuracy(self) -> float:
@@ -97,6 +100,11 @@ class ExperimentResult:
 
 
 def _check_ported(fl: FLConfig) -> None:
+    if fl.store in ("host", "stream"):
+        # the reference's planners stage algorithm state per block under
+        # these stores, whatever the engine
+        raise NotImplementedError(
+            f"FLConfig.store={fl.store!r} is not ported yet (ROADMAP A6)")
     if fl.prefetch:
         raise NotImplementedError(
             "the prefetch pipeline (prefetch=1) is not ported yet "

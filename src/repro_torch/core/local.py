@@ -1,43 +1,55 @@
 """Local training of the port — the twin of the JAX package's
-``core/local.py`` for the fused engine's block dispatch (``variant="plain"``,
+``core/local.py`` for the three ported engines (``variant="plain"``,
 weighted-mean reduce), for either small model (the paper's MLP or CNN).
 
-The JAX package compiles one eval-to-eval block of rounds into ONE
-``lax.scan``; here the same block is one Python call
-(``train_schedule``) that loops over rounds and, inside a round, over the
-flat H*S steps of ``_run_hops``. Parameters and momentum of the C lanes
-each live in ONE contiguous ``(C, P)`` buffer, in the sorted-leaf layout
-of ``utils.tree``; the model reads per-leaf views of it, and one update
-launch covers the whole stack.
+Parameters and momentum of C lanes each live in ONE contiguous ``(C, P)``
+buffer, in the sorted-leaf layout of ``utils.tree``; the model reads
+per-leaf views of it, and one update launch covers the whole stack. Each
+engine has its entry point:
 
-Per step: gather the lanes' batches from the device-resident data plane,
-take every lane's gradient with one autograd pass over the lane-summed
-loss (lanes are independent, so each gets its own gradient), then apply
-the masked momentum update. Momentum is zeroed wherever a new client visit
-starts. The gradient stays as autograd's per-leaf tensors: the fused update
-reads them in place, and only the unfused path concatenates them into a
-flat ``(C, P)`` buffer (the reference's ``ravel_pytree``). The CNN's
-conv-weight gradients come back from autograd as permuted views of the
-grouped conv's (C*Cout, Cin, 3, 3) gradient; each is copied dense (one
-copy kernel per conv weight a step), since the kernel reads leaves only
-in place and contiguous.
+* ``train`` (sequential engine) — one client visit as a one-lane stack,
+  one step per row of the plan, each step's batch moved H2D from the
+  client's numpy shard;
+* ``train_many`` (batched engine) — one hop of C concurrent visits over
+  host-built ``(C, S, B, ...)`` batch stacks moved H2D per call;
+* ``train_schedule`` (fused engine) — an eval-to-eval block of rounds as
+  ONE call against the device-resident data plane. The JAX package
+  compiles it into one ``lax.scan``; here it is a Python loop over rounds
+  and, inside a round, over the flat H*S steps of ``_run_hops``.
 
-The update has two paths, as in the reference, and they round differently
-(ROADMAP C2), so each is held against its own reference path:
+A lane-stacked step (``_sgd_steps``, shared by ``train_many`` and
+``_run_hops``; only the batch source differs) takes every lane's gradient
+with one autograd pass over the lane-summed loss (lanes are independent,
+so each gets its own gradient), then applies the masked momentum update.
+Momentum is zeroed wherever a new client visit starts. The gradient stays
+as autograd's per-leaf tensors: the fused update reads them in place, and
+only the unfused masked path concatenates them into a flat ``(C, P)``
+buffer (the reference's ``ravel_pytree``). The CNN's conv-weight
+gradients come back from autograd as permuted views of the grouped conv's
+(C*Cout, Cin, 3, 3) gradient; each is copied dense (one copy kernel per
+conv weight a step), since the kernel reads leaves only in place and
+contiguous.
 
-* ``use_fused_sgd=False`` — the reference's folded-mask arithmetic,
-  ``m' = m + ok*((mu-1)m + g)``, ``p' = p - (ok*lr)*m'``, in torch ops;
-* ``use_fused_sgd=True`` — ``m' = mu*m + g`` under a per-lane select: the
-  hand-written CUDA kernel on the GPU (``kernels.fused_sgd``), its plain
-  version on the CPU.
+The update rounds in three forms, as in the reference (ROADMAP C2), so
+each path is held against its own reference path:
 
-Counters, as the reference meters them: ``h2d_bytes`` (the block's index
-plans and per-round arrays — the whole per-block H2D payload) and
-``dispatches`` (one per block).
+* masked, ``use_fused_sgd=False`` — the reference's folded-mask
+  arithmetic, ``m' = m + ok*((mu-1)m + g)``, ``p' = p - (ok*lr)*m'``;
+* masked, ``use_fused_sgd=True`` — ``m' = mu*m + g`` under a per-lane
+  select: the hand-written CUDA kernel on the GPU (``kernels.fused_sgd``),
+  its plain version on the CPU;
+* unmasked (``train``) — ``m' = mu*m + g``, ``p' = p - lr*m'``: the same
+  kernel with every lane stepping when ``use_fused_sgd``, else per leaf in
+  torch ops.
+
+Counters, as the reference meters them: ``h2d_bytes`` (what each entry
+point ships: per-step batches, per-hop stacks and masks, or the block's
+index plans and per-round arrays) and ``dispatches`` (one per step, per
+hop call, or per block).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -46,6 +58,7 @@ from repro_torch.configs.base import FLConfig, ModelConfig
 from repro_torch.kernels.fused_sgd.ops import fused_sgd_lanes
 from repro_torch.kernels.fused_sgd.ref import flat_grads
 from repro_torch.models.registry import specs_for
+from repro_torch.data.pipeline import plan_epoch_indices
 from repro_torch.models.small import classifier_loss_lanes
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.tree import unravel
@@ -114,6 +127,20 @@ class LocalTrainer:
             masked_momentum_update(p, flat_grads(grads, p.shape[0]), m, ok,
                                    lr, reset=reset, momentum=self.fl.momentum)
 
+    def _sgd_steps(self, params: torch.Tensor,
+                   batch_at: Callable[[int], Dict[str, torch.Tensor]],
+                   ok: torch.Tensor, lr: torch.Tensor, S: int) -> torch.Tensor:
+        """The flat loop of masked SGD steps, in place on the (C, P) lane
+        stack ``params``: step t trains on ``batch_at(t)`` (a (C, B, ...)
+        batch), lanes where ``ok[t]`` (T, C) is False are left unchanged,
+        and a client visit starts — the momentum is zeroed — when
+        t % S == 0 (the reference's per-step reset flag)."""
+        m = torch.zeros_like(params)
+        for t in range(ok.shape[0]):
+            _, grads = self.lane_grads(params, batch_at(t))
+            self._update(params, grads, m, ok[t], lr, reset=t % S == 0)
+        return params
+
     @torch.no_grad()
     def _run_hops(self, params: torch.Tensor, plane, rows: torch.Tensor,
                   plans: torch.Tensor, valid: torch.Tensor,
@@ -121,27 +148,103 @@ class LocalTrainer:
         """The flat H*S-step gathered-SGD loop over one visit group, in
         place on the (C, P) lane stack ``params``; ``rows`` (H, C),
         ``plans`` (H, C, S, B) and ``valid`` (H, C, S) index the
-        device-resident fleet arrays, ``lr`` is a (1,) tensor. Step t
-        starts a client visit when t % S == 0: the momentum is zeroed
-        there (the reference's per-step reset flag)."""
+        device-resident fleet arrays, ``lr`` is a (1,) tensor."""
         H, C, S = valid.shape
         flat_rows = rows.repeat_interleave(S, dim=0)                 # (HS, C)
         flat_ix = plans.permute(0, 2, 1, 3).reshape(H * S, C, -1)   # (HS, C, B)
         flat_ok = valid.permute(0, 2, 1).reshape(H * S, C).contiguous()
-        m = torch.zeros_like(params)
-        for t in range(H * S):
+
+        def gather(t):
             # fleet row r, sample i -> flat row offsets[r] + i
             gidx = (torch.index_select(plane.offsets, 0, flat_rows[t])
                     .unsqueeze(1) + flat_ix[t]).reshape(-1)
-            batch = {
+            return {
                 "images": torch.index_select(plane.images, 0, gidx)
                 .reshape(C, -1, *plane.images.shape[1:]),
                 "labels": torch.index_select(plane.labels, 0, gidx)
                 .reshape(C, -1),
             }
-            _, grads = self.lane_grads(params, batch)
-            self._update(params, grads, m, flat_ok[t], lr, reset=t % S == 0)
-        return params
+        return self._sgd_steps(params, gather, flat_ok, lr, S)
+
+    def _device_lr(self, lr: float) -> torch.Tensor:
+        """A python learning rate as the (1,) float32 device tensor the
+        update reads (the reference's ``jnp.asarray(lr, jnp.float32)``)."""
+        return torch.tensor([lr], dtype=torch.float32, device=self.device)
+
+    @torch.no_grad()
+    def train(self, params: torch.Tensor, client, *, lr: float,
+              epochs: Optional[int] = None,
+              rng: Optional[np.random.Generator] = None,
+              plan: Optional[np.ndarray] = None) -> torch.Tensor:
+        """One client visit (the sequential engine's unit): from the flat
+        (P,) model ``params``, one step per row of the pre-drawn ``plan``
+        (a (steps, batch) index array), or of one drawn from ``rng`` with
+        the planners' calls (``plan_epoch_indices`` over ``epochs``).
+        Momentum starts at zero. The model trains as a one-lane (1, P)
+        stack; each step's batch moves H2D from the client's numpy shard
+        and is metered into ``h2d_bytes``, and each step is one dispatch.
+        The update is unmasked (see the module docstring). Returns the
+        trained (P,) model; ``params`` is left as it was."""
+        if plan is None:
+            if epochs is None or rng is None:
+                raise ValueError(
+                    "train() needs a pre-drawn plan= or epochs= and rng= "
+                    "to draw one")
+            plan = plan_epoch_indices(client, self.fl.batch_size, epochs, rng)
+        p = params.reshape(1, -1).clone()
+        m = torch.zeros_like(p)
+        lr = self._device_lr(lr)
+        ok = torch.ones(1, dtype=torch.bool, device=p.device)
+        mom = self.fl.momentum
+        for s, sl in enumerate(plan):
+            batch = {"images": client.images[sl], "labels": client.labels[sl]}
+            self.h2d_bytes += sum(_h2d_nbytes(v) for v in batch.values())
+            self.dispatches += 1
+            _, grads = self.lane_grads(p, {
+                k: torch.from_numpy(v).to(self.device).unsqueeze(0)
+                for k, v in batch.items()})
+            if self.fl.use_fused_sgd:
+                fused_sgd_lanes(p, grads, m, ok, lr, reset=s == 0,
+                                momentum=mom)
+            else:
+                for pk, mk, g in zip(unravel(p, self.layout).values(),
+                                     unravel(m, self.layout).values(), grads):
+                    mk.mul_(mom).add_(g)
+                    pk.sub_(lr * mk)
+        return p.reshape(-1)
+
+    @torch.no_grad()
+    def train_many(self, params: torch.Tensor, batches: Dict[str, np.ndarray],
+                   valid: np.ndarray, *, lr: float, broadcast: bool = False,
+                   agg: Optional[np.ndarray] = None) -> torch.Tensor:
+        """One hop of C concurrent client visits as one call (the batched
+        engine's unit). ``batches`` (``images`` (C, S, B, ...), ``labels``
+        (C, S, B)) and the (C, S) step mask ``valid`` are host arrays
+        (``stack_plans``), moved to the device here and metered into
+        ``h2d_bytes``; the call is one dispatch. ``params`` is the (C, P)
+        lane stack, trained in place, or with ``broadcast=True`` one (P,)
+        model every lane starts from. Momentum starts at zero; invalid
+        steps leave their lane unchanged. ``agg`` (a (C,) weight vector,
+        ``AggSpec.matrix``) folds the eq.-11 contraction into the call and
+        returns the (P,) aggregate; without it the trained (C, P) stack is
+        returned."""
+        self.h2d_bytes += (sum(_h2d_nbytes(v) for v in batches.values())
+                           + _h2d_nbytes(valid))
+        self.dispatches += 1
+        C, S = valid.shape
+        # (C, S, ...) host stacks -> (S, C, ...) on the device, so step s
+        # reads one contiguous (C, B, ...) batch
+        dev = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+               .transpose(0, 1).contiguous() for k, v in batches.items()}
+        ok = torch.from_numpy(np.ascontiguousarray(valid.T)).to(self.device)
+        lanes = (params.unsqueeze(0).expand(C, -1).contiguous() if broadcast
+                 else params)
+        self._sgd_steps(lanes, lambda s: {k: v[s] for k, v in dev.items()},
+                        ok, self._device_lr(lr), S)
+        if agg is None:
+            return lanes
+        return torch.from_numpy(np.asarray(agg, np.float32)).to(
+            self.device) @ lanes
 
     @torch.no_grad()
     def train_schedule(self, w_glob: torch.Tensor, plane,

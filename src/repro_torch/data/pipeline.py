@@ -1,13 +1,20 @@
 """Per-client data pipeline (the port's twin of the JAX package's
-``data/pipeline.py``, fused-engine parts).
+``data/pipeline.py``).
 
 ``plan_epoch_indices`` is the one batch-plan primitive: planners pre-draw a
 (steps, batch) index plan per client visit and attach it to the RoundPlan
-IR. The fused engine keeps every shard device-resident
-(``DeviceDataPlane``, uploaded once) and ships only the int32 index form of
-the plans (``stack_plan_indices``). Every function here consumes the numpy
-generator in the reference's order, so plans are bit-identical across the
-two packages.
+IR. The engines materialize the plans in three ways:
+
+* the sequential engine feeds each plan to ``LocalTrainer.train``, which
+  moves one batch a step from the client's numpy shard;
+* the batched engine stacks one hop's plans into client-stacked host
+  arrays and a valid-step mask (``stack_plans``) that cross H2D per call;
+* the fused engine keeps every shard device-resident (``DeviceDataPlane``,
+  uploaded once) and ships only the int32 index form of the plans
+  (``stack_plan_indices``).
+
+Every function here consumes the numpy generator in the reference's order,
+so plans and stacks are bit-identical across the two packages.
 """
 from __future__ import annotations
 
@@ -57,6 +64,53 @@ def _plan_batch_width(plans: Sequence[Optional[np.ndarray]],
         "cannot stack batch plans: every plan is None (at least one client "
         "in the stack must have a real (steps, batch) index plan, or pass "
         "an explicit batch width)")
+
+
+def stack_plans(
+    clients: Sequence["ClientData"],
+    plans: Sequence[Optional[np.ndarray]],
+    pad_to: Optional[int] = None,
+    width: Optional[int] = None,
+) -> Tuple[dict, np.ndarray]:
+    """Materialize per-client batch plans into client-stacked arrays:
+    ``({"images": (C, S, B, ...), "labels": (C, S, B)}, valid)`` with S the
+    longest plan and ``valid`` a (C, S) bool mask. A shorter plan is padded
+    by repeating its first batch (real data, masked steps); a ``None`` plan
+    (a ring tail) becomes an all-invalid row of the client's first sample.
+    ``pad_to`` appends ghost rows of zero data, all-invalid; ``width``
+    gives the batch width when every plan may be ``None``."""
+    B = _plan_batch_width(plans, width)
+    real = [p if p is not None else np.zeros((1, B), np.int64) for p in plans]
+    S = max(p.shape[0] for p in real)
+    imgs, labs = [], []
+    valid = np.zeros((len(clients), S), bool)
+    for ci, (c, p) in enumerate(zip(clients, real)):
+        s = p.shape[0]
+        img, lab = c.images[p], c.labels[p]
+        if s < S:
+            img = np.concatenate([img, np.repeat(img[:1], S - s, axis=0)])
+            lab = np.concatenate([lab, np.repeat(lab[:1], S - s, axis=0)])
+        imgs.append(img)
+        labs.append(lab)
+        valid[ci, :s] = plans[ci] is not None
+    out = {"images": np.stack(imgs), "labels": np.stack(labs)}
+    if pad_to is not None and pad_to > len(clients):
+        ghosts = pad_to - len(clients)
+        out = {k: np.concatenate(
+                   [v, np.zeros((ghosts,) + v.shape[1:], v.dtype)])
+               for k, v in out.items()}
+        valid = np.concatenate([valid, np.zeros((ghosts, S), bool)])
+    return out, valid
+
+
+def stack_client_batches(
+    clients: Sequence["ClientData"], batch_size: int, epochs: int,
+    rng: np.random.Generator, pad_to: Optional[int] = None,
+) -> Tuple[dict, np.ndarray]:
+    """Plan and stack one cohort's visits, drawing the plans client by
+    client (the sequential engine's visit order)."""
+    plans = [plan_epoch_indices(c, batch_size, epochs, rng) for c in clients]
+    return stack_plans(clients, plans, pad_to=pad_to)
 
 
 def stack_plan_indices(

@@ -10,7 +10,7 @@ one contiguous buffer that every per-leaf view writes through.
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
 
 import torch
 
@@ -42,4 +42,17 @@ def unravel(flat: torch.Tensor, layout: Layout) -> Dict[str, torch.Tensor]:
         off += n
     if off != flat.shape[-1]:
         raise ValueError(f"flat width {flat.shape[-1]} != layout size {off}")
+    return out
+
+
+def weighted_sum(vectors: Sequence[torch.Tensor],
+                 weights: Sequence[float]) -> torch.Tensor:
+    """``sum_i w_i * v_i`` in the reference's order (``tree_weighted_sum``,
+    the cloud aggregation of eq. 11): ``w_0 * v_0``, then ``+ w_i * v_i``
+    one term at a time, each product and sum rounded in float32."""
+    if len(vectors) != len(weights) or not vectors:
+        raise ValueError(f"{len(vectors)} vectors for {len(weights)} weights")
+    out = vectors[0] * weights[0]
+    for v, w in zip(vectors[1:], weights[1:]):
+        out = out + w * v
     return out

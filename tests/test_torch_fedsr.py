@@ -30,30 +30,14 @@ import jax
 import jax.numpy as jnp
 
 from torch_parity import (
-    assert_schedules_equal, assert_trees_close, configs, jax_init,
+    SMALL, assert_schedules_equal, assert_trees_close, configs, fl_kwargs,
+    jax_init, mnist_tasks,
 )
 
 ROOT = Path(__file__).resolve().parents[1]
-SMALL = {"mlp_hidden": (32, 32)}
 CPU = torch.device("cpu")
-
-
-def _fl(**kw):
-    base = {"algorithm": "fedsr", "engine": "fused", "num_devices": 4,
-            "num_edges": 2, "ring_rounds": 2, "rounds": 4, "batch_size": 8,
-            "partition": "pathological"}
-    base.update(kw)
-    return base
-
-
-def _tasks(train_per_class=20, test_per_class=10):
-    from repro.data.synthetic import make_task as ref_make_task
-    from repro_torch.data.synthetic import make_task
-
-    return (ref_make_task("mnist_like", train_per_class=train_per_class,
-                          test_per_class=test_per_class),
-            make_task("mnist_like", train_per_class=train_per_class,
-                      test_per_class=test_per_class))
+_fl = fl_kwargs
+_tasks = mnist_tasks
 
 
 # ---------------------------------------------------------------------------
@@ -359,7 +343,9 @@ def test_port_sources_import_nothing_of_jax_or_the_reference():
 def test_importing_the_port_leaves_jax_unloaded():
     mods = ["repro_torch", "repro_torch.core", "repro_torch.core.executor",
             "repro_torch.core.algorithms", "repro_torch.core.local",
-            "repro_torch.core.engines.fused", "repro_torch.data",
+            "repro_torch.core.engines.fused",
+            "repro_torch.core.engines.sequential",
+            "repro_torch.core.engines.batched", "repro_torch.data",
             "repro_torch.data.store", "repro_torch.kernels.fused_sgd",
             "repro_torch.kernels.fused_sgd.kernel",
             "repro_torch.models.small", "repro_torch.configs.fedsr_mlp",
@@ -382,7 +368,9 @@ def test_importing_the_port_leaves_jax_unloaded():
 
 
 @pytest.mark.parametrize("override", [
-    {"algorithm": "fedprox"}, {"engine": "batched"}, {"engine": "sequential"},
+    {"algorithm": "fedprox"}, {"engine": "sharded"},
+    {"engine": "sequential", "store": "host"},
+    {"engine": "batched", "algorithm": "fedprox"},
     {"store": "host"}, {"prefetch": 1}, {"reducer": "median"},
     {"dp_clip": 1.0}, {"mesh_data_axis": "data"},
     {"scenario": "drop"}, {"adversary": "sign_flip"},

@@ -22,6 +22,30 @@ import numpy as np
 # switches; one step is held at 1e-5.
 CNN_RUN_ATOL = 5e-3
 
+# the narrow paper MLP and the small FL setting of the whole-run tests
+SMALL = {"mlp_hidden": (32, 32)}
+
+
+def fl_kwargs(**kw) -> dict:
+    """FLConfig fields of the tests' small FedSR runs, with overrides."""
+    base = {"algorithm": "fedsr", "engine": "fused", "num_devices": 4,
+            "num_edges": 2, "ring_rounds": 2, "rounds": 4, "batch_size": 8,
+            "partition": "pathological"}
+    base.update(kw)
+    return base
+
+
+def mnist_tasks(train_per_class=20, test_per_class=10):
+    """``((ref_train, ref_test), (port_train, port_test))`` of
+    ``mnist_like`` at a small size, made by each package."""
+    from repro.data.synthetic import make_task as ref_make_task
+    from repro_torch.data.synthetic import make_task
+
+    return (ref_make_task("mnist_like", train_per_class=train_per_class,
+                          test_per_class=test_per_class),
+            make_task("mnist_like", train_per_class=train_per_class,
+                      test_per_class=test_per_class))
+
 
 def configs(model_overrides=None, **fl_kw):
     """``((ref_model, ref_fl), (port_model, port_fl))``: the paper MLP and
