@@ -81,6 +81,23 @@ non-zero at the end, before any result line is printed):
    engines within it of each other. Then ``fused_sgd``'s times at
    (1, 199,210), and one steady FedSR round of each new engine timed
    without the profiler and profiled, beside phase 3's fused round.
+3d. Table III's new rows on the card: FedProx (E=5, R=1, ``mu`` 0.01) and
+   HierFAVG (E=1, R=5) as ``benchmarks/fl_tables.py::_fl`` sets them, on
+   phase 3's path (the paper MLP at full width, K=20, M=5, batch 32,
+   ``use_fused_sgd=True``, TF32 off), two rounds each on the fused engine,
+   GPU then CPU with phase 3's checks; ``fused_sgd`` launches and
+   dispatches from the plans against the literals (20 launches a round of
+   each: FedProx's cohort of 20 lanes x 20 steps, HierFAVG's 20 (edge,
+   device) lanes x 5 iterations x 4 steps), the comm meters (HierFAVG's
+   ``edge_up`` and ``edge_down`` too) against their literals; each
+   round-1 model GPU against CPU within ``ENGINE_ROUND1_TOL``, and the same
+   round at a 3% larger learning rate (the control) outside it. HierFAVG,
+   the first seeded plan, also runs its first round through the
+   sequential and batched engines on the card, under their own literal
+   counts, and its three round-1 models must agree within the bound.
+   Then ``fused_sgd``'s times at (20, 199,210) with the MLP's six leaves,
+   and one steady round of each algorithm on the fused engine timed
+   without the profiler and profiled.
 4. The yi-9b serving path at full width and 2 layers, GPU against CPU
    from the same CPU-drawn weights, in float32 and in bfloat16:
    ``prefill_step`` at B=1, S=256 and ``prefill_and_decode`` at B=4,
@@ -287,7 +304,7 @@ SGD_LAYOUTS = {"share16": [(64,), (16, 40), (8,)],
                "mlp": MLP_LEAVES,
                "cnn": CNN_LEAVES,
                "odd": [(3,), (1,), (7, 5), (2,), (13,), (1,), (33,)]}
-SGD_LANES = {"cnn": (1, 5, 20)}    # other layouts: (1, 5)
+SGD_LANES = {"cnn": (1, 5, 20), "mlp": (1, 5, 20)}    # others: (1, 5)
 SGD_SPANS = (4, 12, 4096)      # forced spans a block: one slot, three, 1,024
 SGD_MASK = (True, False, True, True, False)     # repeated over the lanes
 
@@ -387,8 +404,9 @@ def main_path(run_experiment, fused_sgd_lanes, cfg, fl, init,
 
 def engine_counts(blocks, engine: str):
     """(``fused_sgd`` launches, dispatches) that the blocks' plans imply
-    under ``engine``. Fused: rounds x hops x the block's longest visit
-    (shorter visits and ring tails run masked steps), one dispatch a block.
+    under ``engine``. Fused: visit groups (one a round, HierFAVG's R a
+    round) x hops x the block's longest visit (shorter visits and ring
+    tails run masked steps), one dispatch a block.
     Batched: each hop's longest visit (a hop of ring tails alone still
     takes one masked step), one call a hop. Sequential: each real visit's
     own steps, one dispatch a step."""
@@ -399,7 +417,7 @@ def engine_counts(blocks, engine: str):
         if engine == "fused":
             H = max(len(g.hops) for g in groups)
             S = max(p.shape[0] for h in hops for p in h.plans if p is not None)
-            launches += len(sched.plans) * H * S
+            launches += len(groups) * H * S
             dispatches += 1
         elif engine == "batched":
             launches += sum(max(1 if p is None else p.shape[0]
@@ -487,6 +505,22 @@ CNN_MIN_ACC = 0.3
 
 def max_abs_diff(a, b) -> float:
     return max(float((a[k].cpu() - b[k].cpu()).abs().max()) for k in a)
+
+
+def diff_spread(a, b, over: float = 1e-6) -> str:
+    """Where two models differ by more than ``over``: per leaf the count of
+    such elements and of the last-axis units they lie in. A ReLU that one
+    run sees on the other side of its kink moves one hidden unit's weights
+    (a column of the layer before it); an update that differs everywhere
+    moves every unit."""
+    out = []
+    for k in sorted(a):
+        big = (a[k].cpu() - b[k].cpu()).abs() > over
+        if big.any():
+            units = int(big.reshape(-1, big.shape[-1]).any(0).sum())
+            out.append(f"{k}: {int(big.sum())} of {big.numel()} in {units} "
+                       f"of {big.shape[-1]} units")
+    return "; ".join(out) or "none"
 
 
 def cnn_path(run_experiment, fused_sgd_lanes, cfg, fl, init) -> dict:
@@ -632,6 +666,130 @@ def engines_path(run_experiment, fused_sgd_lanes, cfg, fl, init) -> int:
         check(err <= ENGINE_ROUND1_TOL,
               f"round-1 FedSR models of the {a} and {b} engines {err} apart "
               f"on the GPU")
+    return launches
+
+
+# Phase 3d, Table III's FedProx and HierFAVG rows (fl_tables.py::_fl:
+# star baselines at E=5 and R=1, HierFAVG at E=1 and R=5). Each client
+# holds 100 images, 4 batches of 32, so both take 20 SGD steps a round on
+# the fused engine over 20 lanes: FedProx's cohort of all K clients for
+# E=5, HierFAVG's (edge, device) pairs for 5 iterations of one epoch.
+TABLE3 = {"fedprox": {"local_epochs": 5, "ring_rounds": 1, "mu": 0.01},
+          "hieravg": {"local_epochs": 1, "ring_rounds": 5}}
+TABLE3_SHAPE = (20, 199_210)
+TABLE3_STEPS = 20               # fused_sgd launches a round of each
+# the comm records of one round: FedProx's cohort both ways; HierFAVG's
+# cloud exchange with each of the 5 edges and each edge's 5 iterations
+# with its 4 devices both ways
+TABLE3_COMM = {"fedprox": {"cloud_down": 20, "cloud_up": 20},
+               "hieravg": {"cloud_down": 5, "edge_down": 100,
+                           "edge_up": 100, "cloud_up": 5}}
+# HierFAVG's first round, (fused_sgd launches, dispatches) under the
+# per-round engines: sequential 20 lanes x 5 iterations x 4 steps, one
+# dispatch a step; batched one call a hop (5) of 4 steps
+HIER_ROUND1_COUNTS = {"sequential": (400, 400), "batched": (20, 5)}
+# The control of ENGINE_ROUND1_TOL: the same round at a learning rate 3%
+# larger moves the round-1 model by 1.6e-4 (FedProx) and 3.8e-4 (HierFAVG)
+# on the CPU at full width, outside the bound; GPU against CPU and engine
+# against engine must stay inside it.
+LR_CONTROL = 1.03
+
+
+def table3_path(run_experiment, fused_sgd_lanes, cfg, fl, init) -> int:
+    """Phase 3d: FedProx and HierFAVG as Table III sets them, two rounds
+    each on the fused engine, GPU then CPU, with phase 3's checks and the
+    literal launch, dispatch and comm counts; each round-1 model on the GPU
+    against the CPU's, and the learning-rate control outside the bound;
+    HierFAVG's first round through the sequential and batched engines on
+    the GPU against the fused engine's. Returns the ``fused_sgd`` launches
+    of its GPU runs."""
+    launches = 0
+    round1 = {}
+    hfl = dataclasses.replace(fl, algorithm="hieravg", rounds=2,
+                              **TABLE3["hieravg"])
+    for algorithm, kw in TABLE3.items():
+        tfl = dataclasses.replace(fl, algorithm=algorithm, rounds=2, **kw)
+        runs = main_path(run_experiment, fused_sgd_lanes, cfg, tfl, init,
+                         eval_every=1, tag=algorithm)
+        check_main_path(runs, 199_210, min_final_acc=None, tag=algorithm)
+        gpu, blocks, n, _ = runs["cuda"]
+        launches += n
+        want = (TABLE3_STEPS * tfl.rounds, tfl.rounds)
+        log(f"[{algorithm}] fused_sgd launches {n}, dispatches "
+            f"{gpu.dispatches}; the literals {want} ({TABLE3_STEPS} launches "
+            f"a round, one dispatch a block of one round)")
+        check((n, gpu.dispatches) == want,
+              f"{algorithm}: launches and dispatches {(n, gpu.dispatches)}, "
+              f"expected {want}")
+        lanes = {len(g.hops[0].ids) for _, sched in blocks
+                 for p in sched.plans for g in p.groups}
+        check(lanes == {TABLE3_SHAPE[0]},
+              f"{algorithm}: groups of {lanes} lanes, not {TABLE3_SHAPE[0]}")
+        per_round = TABLE3_COMM[algorithm]
+        for _, sched in blocks:
+            got = dict(sched.comm)
+            want = {c: k * len(sched.plans) for c, k in per_round.items()}
+            check(got == want, f"{algorithm}: block comm {got}, expected "
+                  f"{want}")
+        edge = per_round.get("edge_up", 0) + per_round.get("edge_down", 0)
+        meters = [(r.comm["cloud_transfers"], r.comm["edge_transfers"])
+                  for r in gpu.history]
+        want = [(r * (per_round["cloud_down"] + per_round["cloud_up"]),
+                 r * edge) for r in range(1, tfl.rounds + 1)]
+        log(f"[{algorithm}] (cloud, edge) transfers at each eval {meters}, "
+            f"expected {want}")
+        check(meters == want, f"{algorithm}: comm meters {meters}, expected "
+              f"{want}")
+        first = {dev: run_experiment(task="mnist_like", model_cfg=cfg,
+                                     fl=tfl, init_params=init, device=dev,
+                                     stop_after=1).final_model
+                 for dev in ("cuda", "cpu")}
+        err = max_abs_diff(first["cuda"], first["cpu"])
+        control = run_experiment(
+            task="mnist_like", model_cfg=cfg, init_params=init,
+            fl=dataclasses.replace(tfl, init_lr=tfl.init_lr * LR_CONTROL),
+            device="cuda", stop_after=1).final_model
+        err_c = max_abs_diff(control, first["cpu"])
+        log(f"[{algorithm}] the global model after round 1, GPU against "
+            f"CPU: max |diff| {err:.3e} (bound {ENGINE_ROUND1_TOL}; above "
+            f"1e-6: {diff_spread(first['cuda'], first['cpu'])}); control, "
+            f"the GPU round at {LR_CONTROL}x the learning rate: "
+            f"{err_c:.3e} (must exceed the bound)")
+        check(err <= ENGINE_ROUND1_TOL,
+              f"{algorithm} round 1: GPU model {err} from the CPU's")
+        check(err_c > ENGINE_ROUND1_TOL,
+              f"{algorithm} round 1: the bound does not tell a "
+              f"{LR_CONTROL}x learning rate from the CPU's round")
+        if algorithm == "hieravg":
+            round1["fused"] = first["cuda"]
+
+    for engine in ("sequential", "batched"):
+        blocks = []
+        fused_sgd_lanes.launches = 0
+        res = run_experiment(task="mnist_like", model_cfg=cfg,
+                             fl=dataclasses.replace(hfl, engine=engine),
+                             init_params=init, device="cuda", stop_after=1,
+                             on_block=lambda t, s, b=blocks: b.append((t, s)))
+        n = fused_sgd_lanes.launches
+        launches += n
+        derived = engine_counts(blocks, engine)
+        want = HIER_ROUND1_COUNTS[engine]
+        log(f"[hieravg/{engine}] round 1 on the GPU: fused_sgd launches {n}, "
+            f"dispatches {res.dispatches}; the plans imply {derived}, the "
+            f"literals {want}")
+        check((n, res.dispatches) == derived == want,
+              f"hieravg/{engine}: launches and dispatches "
+              f"{(n, res.dispatches)}, plans {derived}, literals {want}")
+        round1[engine] = res.final_model
+    for a, b in (("sequential", "batched"), ("sequential", "fused"),
+                 ("batched", "fused")):
+        err = max_abs_diff(round1[a], round1[b])
+        log(f"[table3] the GPU's round-1 HierFAVG model, {a} against {b}: "
+            f"max |diff| {err:.3e} (bound {ENGINE_ROUND1_TOL}; above 1e-6: "
+            f"{diff_spread(round1[a], round1[b])})")
+        check(err <= ENGINE_ROUND1_TOL,
+              f"round-1 HierFAVG models of the {a} and {b} engines {err} "
+              f"apart on the GPU")
     return launches
 
 
@@ -1999,6 +2157,25 @@ def main() -> int:
             f"{r['wall_ms']:.2f} ms unprofiled, {r['steps']} fused_sgd "
             f"launches ({1e3 * r['wall_ms'] / max(r['steps'], 1):.1f} us of wall "
             f"each), device busy {r['busy_ms']:.3f} ms "
+            f"({100 * r['busy_ms'] / r['wall_ms']:.1f}% of the unprofiled "
+            f"round)")
+
+    # phase 3d: Table III's FedProx and HierFAVG rows on the paper MLP
+    t0 = time.perf_counter()
+    table3_launches = table3_path(run_experiment, fused_sgd_lanes, CONFIG,
+                                  fl, init)
+    log(f"[table3] fused_sgd launches of phase 3d's GPU runs: "
+        f"{table3_launches}; its runs in {time.perf_counter() - t0:.1f}s")
+    launches["fused_sgd"] += table3_launches
+    time_kernels(fused_sgd_lanes, sgd_lanes_reference, TABLE3_SHAPE,
+                 MLP_LEAVES, "MLP leaves (Table III's 20 lanes)")
+    for algorithm, kw in TABLE3.items():
+        r = profile_round(CONFIG, dataclasses.replace(
+            fl, algorithm=algorithm, **kw), init, fused_sgd_lanes,
+            what=algorithm)
+        log(f"[table3] one steady {algorithm} round, fused engine: "
+            f"{r['wall_ms']:.2f} ms unprofiled, {r['steps']} fused_sgd "
+            f"launches, device busy {r['busy_ms']:.3f} ms "
             f"({100 * r['busy_ms'] / r['wall_ms']:.1f}% of the unprofiled "
             f"round)")
 

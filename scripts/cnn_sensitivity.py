@@ -71,8 +71,8 @@ def main() -> int:
     losses = []
     lane_grads = LocalTrainer.lane_grads
 
-    def logged(self, params, batch):
-        out = lane_grads(self, params, batch)
+    def logged(self, params, batch, anchor=None):
+        out = lane_grads(self, params, batch, anchor)
         losses.append(float(out[0].max()))
         return out
 

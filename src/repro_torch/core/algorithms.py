@@ -1,15 +1,15 @@
 """FL algorithms as planners (the port's twin of the JAX package's
-``core/algorithms.py``) — the shared planner base, FedAvg, RingOptimization
-and FedSR.
+``core/algorithms.py``) — the shared planner base, FedAvg, FedProx,
+RingOptimization, HierFAVG and FedSR.
 
 A planner consumes only the host RNG, the config and its host-side state,
 and emits ``RoundPlan``s; ``run_schedule`` pre-plans a block of rounds into
 a ``Schedule`` and hands it to the engine (round by round under the
 sequential and batched engines, as one call under the fused engine). Every
 draw happens in the reference's order, so the port's plans are
-bit-identical to the JAX package's for the same seed. The other algorithms
-(FedProx, HierFAVG, MOON, SCAFFOLD, Centralized) are ROADMAP A4; the
-scenario, adversary and DP axes are ROADMAP A7.
+bit-identical to the JAX package's for the same seed. MOON, SCAFFOLD and
+Centralized are ROADMAP A4; the scenario, adversary and DP axes are
+ROADMAP A7.
 """
 from __future__ import annotations
 
@@ -22,7 +22,9 @@ from repro_torch.configs.base import FLConfig
 from repro_torch.core.comm import CommMeter, ResidencyMeter
 from repro_torch.core.engines import make_engine
 from repro_torch.core.local import LocalTrainer
-from repro_torch.core.plan import AggSpec, Hop, RoundPlan, Schedule, VisitGroup
+from repro_torch.core.plan import (
+    GLOBAL, AggSpec, Hop, RoundPlan, Schedule, VisitGroup,
+)
 from repro_torch.core.ring import ring_lap_hops
 from repro_torch.core.scenario import ScenarioState
 from repro_torch.core.topology import assign_edges, clusters_of, sample_ring
@@ -162,10 +164,25 @@ class FedAvg(_Planner):
         plans = tuple(self._batch_plan(i, rng) for i in ids)
         group = VisitGroup(hops=(Hop(tuple(ids), plans),),
                            variant=self.variant,
+                           shared_extras=self._extra_specs(ids, state),
                            agg=AggSpec.flat(self._weights(ids)))
         n = self._transfers_per_client * len(ids)
         return RoundPlan(groups=(group,),
                          comm=(("cloud_down", n), ("cloud_up", n)))
+
+    def _extra_specs(self, ids, state) -> Dict:
+        """The cohort-shared extras of one visit; values are the ``GLOBAL``
+        sentinel, which the engines resolve at run time, so a whole
+        Schedule can be planned up front."""
+        return {}
+
+
+class FedProx(FedAvg):
+    """Li et al. 2020 — proximal term mu/2 ||w - w_glob||^2."""
+    variant = "prox"
+
+    def _extra_specs(self, ids, state):
+        return {"anchor": GLOBAL}       # cohort-shared, broadcast to lanes
 
 
 class RingOptimization(_Planner):
@@ -185,6 +202,51 @@ class RingOptimization(_Planner):
             groups = (VisitGroup(hops=self._ring_hops([ring], rng),
                                  agg=AggSpec.flat([1.0])),)
         return RoundPlan(groups=groups, comm=comm)
+
+
+class HierFAVG(_Planner):
+    """Liu et al. 2020 — hierarchical FedAvg: R edge-level FedAvg iterations
+    per cloud round (the same R as FedSR's laps). Planned as R chained
+    visit groups — iteration r's lanes are the (edge, device) pairs,
+    seeded from iteration r-1's per-edge aggregates; only the final group
+    collapses the edge models into the cloud model."""
+
+    def _plan_round(self, t, rng, state):
+        fl = self.fl
+        edge_ids, plans = [], {}
+        for e, edge_devices in enumerate(self.edges):
+            ids = sample_ring(edge_devices, rng,
+                              participation=fl.participation, reshuffle=False)
+            edge_ids.append(ids)
+            for r in range(fl.ring_rounds):
+                for i in ids:
+                    plans[e, r, i] = self._batch_plan(i, rng)
+        pairs = [(e, i) for e, ids in enumerate(edge_ids) for i in ids]
+        lane_w, agg_groups, off = [], [], 0
+        for ids in edge_ids:
+            lane_w += self._weights(ids).tolist()
+            agg_groups.append(tuple(range(off, off + len(ids))))
+            off += len(ids)
+        sizes = [sum(len(self.clients[i]) for i in ids) for ids in edge_ids]
+        total = float(sum(sizes))
+        groups = tuple(
+            VisitGroup(
+                hops=(Hop(tuple(i for _, i in pairs),
+                          tuple(plans[e, r, i] for e, i in pairs)),),
+                seed=None if r == 0 else tuple(e for e, _ in pairs),
+                agg=AggSpec(
+                    groups=tuple(agg_groups), lane_weights=tuple(lane_w),
+                    group_weights=(tuple(s / total for s in sizes)
+                                   if r == fl.ring_rounds - 1 else None)))
+            for r in range(fl.ring_rounds)
+        )
+        comm = []
+        for ids in edge_ids:
+            comm += [("cloud_down", 1),
+                     ("edge_down", fl.ring_rounds * len(ids)),
+                     ("edge_up", fl.ring_rounds * len(ids)),
+                     ("cloud_up", 1)]
+        return RoundPlan(groups=groups, comm=tuple(comm))
 
 
 class FedSR(_Planner):
@@ -217,8 +279,9 @@ class FedSR(_Planner):
         return RoundPlan(groups=groups, comm=comm)
 
 
-ALGORITHMS = {"fedavg": FedAvg, "ring": RingOptimization, "fedsr": FedSR}
-_NOT_PORTED = ("fedprox", "moon", "scaffold", "hieravg", "centralized")
+ALGORITHMS = {"fedavg": FedAvg, "fedprox": FedProx,
+              "ring": RingOptimization, "hieravg": HierFAVG, "fedsr": FedSR}
+_NOT_PORTED = ("moon", "scaffold", "centralized")
 
 
 def make_algorithm(name: str, trainer: LocalTrainer,

@@ -11,33 +11,32 @@ from typing import Callable, List, Sequence
 import torch
 
 from repro_torch.configs.base import FLConfig
-from repro_torch.core.plan import RoundPlan, Schedule, VisitGroup
+from repro_torch.core.plan import GLOBAL, RoundPlan, Schedule, VisitGroup
 
 
 def check_ported_plans(plans: Sequence[RoundPlan]) -> None:
-    """Refuse what the port's engines cannot run yet: multi-group (seeded,
-    HierFAVG) plans and loss variants other than ``"plain"``. A Schedule's
-    plans share group structure, so the first plan with groups decides."""
+    """Refuse what the port's engines cannot run yet: loss variants other
+    than ``"plain"`` and FedProx's ``"prox"`` (MOON's and SCAFFOLD's). A
+    Schedule's plans share group structure, so the first plan with groups
+    decides."""
     plan = next((p for p in plans if p.groups), None)
     if plan is None:
         return
-    if len(plan.groups) > 1:
-        raise NotImplementedError(
-            "multi-group (HierFAVG) schedules are not ported yet "
-            "(ROADMAP A4)")
-    variant = plan.groups[0].variant
-    if variant != "plain":
-        raise NotImplementedError(
-            f"loss variant {variant!r} is not ported yet (ROADMAP A4)")
+    for grp in plan.groups:
+        if grp.variant not in ("plain", "prox"):
+            raise NotImplementedError(
+                f"loss variant {grp.variant!r} is not ported yet "
+                "(ROADMAP A4)")
 
 
 class Engine:
     """Base plan interpreter: subclasses implement ``_run_group``.
 
-    ``run`` walks the plan's visit groups; the final group's collapsed
-    aggregate is the round's global model. Engines never touch the comm
-    meter (the executor applies ``plan.comm``) and never draw from the RNG
-    stream (planners pre-draw every batch plan)."""
+    ``run`` walks the plan's visit groups, handing each group's aggregate
+    to the next (HierFAVG's edge iterations seed from it); the final
+    group's collapsed aggregate is the round's global model. Engines never
+    touch the comm meter (the executor applies ``plan.comm``) and never
+    draw from the RNG stream (planners pre-draw every batch plan)."""
 
     def __init__(self, trainer, clients: List, fl: FLConfig):
         self.trainer = trainer
@@ -59,13 +58,13 @@ class Engine:
 
     def run(self, plan: RoundPlan, w_glob: torch.Tensor,
             lr: float) -> torch.Tensor:
-        """One round: every group from ``w_glob``; returns the final
-        group's collapsed aggregate (no groups: ``w_glob`` unchanged)."""
-        out = w_glob
+        """One round: returns the final group's collapsed aggregate (no
+        groups: ``w_glob`` unchanged)."""
+        out, prev = w_glob, None    # prev: the previous group's aggregate
         for grp in plan.groups:
-            agg = self._run_group(grp, w_glob, lr)
+            prev = self._run_group(grp, w_glob, prev, lr)
             if grp.agg.collapsed:
-                out = agg
+                out = prev
         return out
 
     def run_schedule(self, sched: Schedule, w_glob: torch.Tensor, lrs,
@@ -83,7 +82,18 @@ class Engine:
             w_glob = w_new
         return w_glob
 
-    def _run_group(self, grp: VisitGroup, w_glob: torch.Tensor,
-                   lr: float) -> torch.Tensor:
-        """Execute one visit group; returns its aggregate."""
+    def _run_group(self, grp: VisitGroup, w_glob: torch.Tensor, prev,
+                   lr: float):
+        """Execute one visit group, its seeded lanes starting from rows of
+        ``prev`` (the previous group's G edge models); returns its
+        aggregate: the (P,) model when ``grp.agg`` collapses, else the G
+        per-group models."""
         raise NotImplementedError
+
+    @staticmethod
+    def _loss_kwargs(grp: VisitGroup, w_glob: torch.Tensor) -> dict:
+        """The group's loss variant and its cohort-shared extras as keyword
+        arguments of the trainer, ``GLOBAL`` resolved to ``w_glob``."""
+        return dict(variant=grp.variant,
+                    **{k: w_glob if v is GLOBAL else v
+                       for k, v in grp.shared_extras.items()})

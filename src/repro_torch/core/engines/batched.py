@@ -6,14 +6,19 @@ ring in lockstep — runs as ONE ``LocalTrainer.train_many`` call over the
 (C, P) lane stack, with host-built padded batch stacks and a (C, S)
 valid-step mask (``stack_plans``) that cross H2D every hop. A star cohort
 of one hop starts every lane from the global model (``broadcast``); a ring
-group carries the lane stack from hop to hop. The group's last call folds
-the eq.-11 weighted reduce in (``agg=``).
+group carries the lane stack from hop to hop; a seeded group (HierFAVG's
+edge iterations) starts from a fresh stack of the previous group's edge
+models. The group's last call folds the reduce in (``agg=``): the eq.-11
+weighted cloud reduce, or the (G, C) per-edge reduce of an uncollapsed
+group.
 
 The fused engine inherits ``_pad``. Its mesh-sharded form
 (``engine="sharded"``, ghost lanes up to a mesh multiple) is ROADMAP A5;
 on one GPU no mesh exists, so lane padding is the identity.
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.core.engines.base import Engine
 from repro_torch.core.plan import Hop
@@ -27,23 +32,34 @@ class BatchedEngine(Engine):
         the sharded engine); identity with no mesh."""
         return c
 
-    def _run_group(self, grp, w_glob, lr):
+    def _seed_stack(self, prev: torch.Tensor, seed, padded: int):
+        """A fresh (padded, P) stack of each lane's seed row of the previous
+        group's (G, P) aggregate; ghost lanes reuse row 0 (weight 0, never
+        trained)."""
+        idx = torch.tensor(list(seed) + [0] * (padded - len(seed)),
+                           device=prev.device)
+        return torch.index_select(prev, 0, idx)
+
+    def _run_group(self, grp, w_glob, prev, lr):
         padded = self._pad(grp.lanes)
         agg = grp.agg.matrix(padded)
+        kw = self._loss_kwargs(grp, w_glob)
         hops = grp.hops
         # the group-wide batch width: a single hop can hold only None plans
         B = next(p.shape[1] for h in hops for p in h.plans if p is not None)
-        if len(hops) == 1:
+        if grp.seed is None and len(hops) == 1:
             # star cohort: every lane starts from the global model
             return self._train_hop(hops[0], padded, B, w_glob, lr,
-                                   broadcast=True, agg=agg)
-        # ring lap sequence: carry the lane stack hop to hop; the LAST
-        # hop's call folds the reduce
-        models = w_glob.unsqueeze(0).expand(padded, -1).contiguous()
+                                   broadcast=True, agg=agg, **kw)
+        # ring lap sequence / seeded edge iteration: carry the lane stack
+        # hop to hop; the LAST hop's call folds the reduce
+        models = (w_glob.unsqueeze(0).expand(padded, -1).contiguous()
+                  if grp.seed is None
+                  else self._seed_stack(prev, grp.seed, padded))
         for j, hop in enumerate(hops):
             last = j == len(hops) - 1
             models = self._train_hop(hop, padded, B, models, lr,
-                                     agg=agg if last else None)
+                                     agg=agg if last else None, **kw)
         return models
 
     def _train_hop(self, hop: Hop, padded: int, width: int, params, lr,

@@ -5,9 +5,14 @@ Client shards upload once (``DeviceStore``). The plans of an eval-to-eval
 block stack along a leading round axis — ghost lanes, all-invalid hops and
 invalid steps pad rounds whose participation drew different shapes — into
 int32/bool/f32 arrays that are the block's entire H2D payload, and
-``LocalTrainer.train_schedule`` runs them.
+``LocalTrainer.train_schedule`` runs them. A block of single-group plans
+stacks as a cohort (``_stack_cohort_schedule``); a block of HierFAVG's
+chained edge iterations as an iteration axis inside the round axis
+(``_stack_hier_schedule``).
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 
@@ -51,8 +56,13 @@ class FusedEngine(BatchedEngine):
         if not plans or not plans[0].groups:
             return w_glob       # ring_rounds=0: rounds leave w unchanged
         check_ported_plans(plans)
-        xs = self._stack_cohort_schedule(plans, lrs)
-        return self.trainer.train_schedule(w_glob, self.plane, xs)
+        xs = (self._stack_hier_schedule(plans, lrs)
+              if len(plans[0].groups) > 1
+              else self._stack_cohort_schedule(plans, lrs))
+        grp = plans[0].groups[0]
+        return self.trainer.train_schedule(
+            w_glob, self.plane, xs, variant=grp.variant,
+            shared_extras=grp.shared_extras)
 
     def _schedule_dims(self, groups):
         """(lane pad, hop pad, step pad, batch width) over a block's
@@ -87,3 +97,37 @@ class FusedEngine(BatchedEngine):
             aggv[r] = g.agg.matrix(Cp)
         return {"rows": rows, "plans": idx, "valid": valid,
                 "lr": np.asarray(lrs, np.float32), "aggv": aggv}
+
+    def _stack_hier_schedule(self, plans, lrs):
+        """Stack a block of HierFAVG plans: each round's R chained edge
+        iterations become an iteration axis inside the round axis —
+        ``rows``/``plans``/``valid`` (n, R, C, ...), per-round ``lr``, the
+        uncollapsed (G, C) per-edge reduce ``wg`` applied after every
+        iteration but the last, each lane's edge ``seed`` (n, C) and the
+        collapsed cloud vector ``aggv`` of the last iteration."""
+        n = len(plans)
+        R = len(plans[0].groups)
+        groups = [g for p in plans for g in p.groups]
+        Cp, _, S, B = self._schedule_dims(groups)
+        G = len(plans[0].groups[0].agg.groups)
+        rows = np.zeros((n, R, Cp), np.int32)
+        idx = np.zeros((n, R, Cp, S, B), np.int32)
+        valid = np.zeros((n, R, Cp, S), bool)
+        wg = np.zeros((n, G, Cp), np.float32)
+        seed = np.zeros((n, Cp), np.int32)
+        aggv = np.zeros((n, Cp), np.float32)
+        for r, plan in enumerate(plans):
+            for it, g in enumerate(plan.groups):
+                (hop,) = g.hops
+                rows[r, it], idx[r, it], valid[r, it] = stack_plan_indices(
+                    list(hop.plans), list(hop.ids), pad_to=Cp, steps=S,
+                    width=B)
+            first, last = plan.groups[0], plan.groups[-1]
+            # ghost lanes weigh 0 in every row of wg and seed from row 0
+            wg[r] = dataclasses.replace(
+                first.agg, group_weights=None).matrix(Cp)
+            aggv[r] = last.agg.matrix(Cp)
+            seed[r, :last.lanes] = last.seed
+        return {"rows": rows, "plans": idx, "valid": valid,
+                "lr": np.asarray(lrs, np.float32), "wg": wg, "seed": seed,
+                "aggv": aggv}

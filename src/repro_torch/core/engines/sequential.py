@@ -12,7 +12,10 @@ stream in this visit order.
 The reduce is the two-level sum of eq. 11 (each group's lanes weighted in
 lane order, then the groups), not the batched and fused engines' folded
 ``aggv @ lanes``: both are eq. 11 but round differently, so this engine
-agrees with the others within f32 rounding, not bit for bit.
+agrees with the others within f32 rounding, not bit for bit. An
+uncollapsed group (HierFAVG's intermediate edge iterations) returns its G
+group models, and lane c of the next group starts from model
+``seed[c]``.
 """
 from __future__ import annotations
 
@@ -22,18 +25,21 @@ from repro_torch.utils.tree import weighted_sum
 
 class SequentialEngine(Engine):
 
-    def _run_group(self, grp, w_glob, lr):
+    def _run_group(self, grp, w_glob, prev, lr):
+        kw = self._loss_kwargs(grp, w_glob)
         lanes = []
         for c in range(grp.lanes):
-            w = w_glob
+            w = w_glob if grp.seed is None else prev[grp.seed[c]]
             for hop in grp.hops:
                 if hop.plans[c] is None:        # ring tail: carried unchanged
                     continue
                 w = self.trainer.train(w, self.clients[hop.ids[c]], lr=lr,
-                                       plan=hop.plans[c])
+                                       plan=hop.plans[c], **kw)
             lanes.append(w)
         agg = grp.agg
         groups = [weighted_sum([lanes[la] for la in members],
                                [agg.lane_weights[la] for la in members])
                   for members in agg.groups]
+        if not agg.collapsed:
+            return groups
         return weighted_sum(groups, agg.group_weights)

@@ -1,6 +1,7 @@
 """Local training of the port — the twin of the JAX package's
-``core/local.py`` for the three ported engines (``variant="plain"``,
-weighted-mean reduce), for either small model (the paper's MLP or CNN).
+``core/local.py`` for the three ported engines (the ``"plain"`` loss and
+FedProx's ``"prox"``, weighted-mean reduce), for either small model (the
+paper's MLP or CNN).
 
 Parameters and momentum of C lanes each live in ONE contiguous ``(C, P)``
 buffer, in the sorted-leaf layout of ``utils.tree``; the model reads
@@ -15,7 +16,12 @@ engine has its entry point:
 * ``train_schedule`` (fused engine) — an eval-to-eval block of rounds as
   ONE call against the device-resident data plane. The JAX package
   compiles it into one ``lax.scan``; here it is a Python loop over rounds
-  and, inside a round, over the flat H*S steps of ``_run_hops``.
+  and, inside a round, over the flat H*S steps of ``_run_hops`` (for
+  HierFAVG over R chained edge iterations of one hop each).
+
+FedProx's ``"prox"`` loss adds ``mu/2 ||w - anchor||^2`` per lane to the
+classifier loss, the anchor being the round's global model; its gradient
+reaches the update through the same leaves, so the update is unchanged.
 
 A lane-stacked step (``_sgd_steps``, shared by ``train_many`` and
 ``_run_hops``; only the batch source differs) takes every lane's gradient
@@ -55,6 +61,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import FLConfig, ModelConfig
+from repro_torch.core.plan import GLOBAL
 from repro_torch.kernels.fused_sgd.ops import fused_sgd_lanes
 from repro_torch.kernels.fused_sgd.ref import flat_grads
 from repro_torch.models.registry import specs_for
@@ -69,6 +76,19 @@ def _h2d_nbytes(a) -> int:
     meters them: 64-bit dtypes count as the 32-bit arrays JAX ships."""
     a = np.asarray(a)
     return a.size * min(a.dtype.itemsize, 4)
+
+
+def _loss_anchor(variant: str, anchor=None):
+    """The anchor that ``variant``'s loss reads: none for ``"plain"``, the
+    (P,) global model for FedProx's ``"prox"``."""
+    if variant == "plain":
+        return None
+    if variant != "prox":
+        raise NotImplementedError(
+            f"loss variant {variant!r} is not ported yet (ROADMAP A4)")
+    if anchor is None:
+        raise ValueError("the 'prox' loss needs anchor=")
+    return anchor
 
 
 def masked_momentum_update(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
@@ -103,15 +123,24 @@ class LocalTrainer:
         self.dispatches = 0
 
     # ------------------------------------------------------------------
-    def lane_grads(self, params: torch.Tensor, batch: Dict[str, torch.Tensor]):
+    def lane_grads(self, params: torch.Tensor, batch: Dict[str, torch.Tensor],
+                   anchor: Optional[torch.Tensor] = None):
         """Per-lane losses (C,) and the gradient as autograd's leaves, one
         contiguous (C, *shape) tensor per leaf in ``self.layout`` order,
         for the (C, P) flat lane stack ``params``. ``.contiguous()`` is a
-        no-op on every leaf but the CNN's conv weights."""
+        no-op on every leaf but the CNN's conv weights. With ``anchor`` (a
+        (P,) model, never differentiated) each lane's loss is FedProx's,
+        the reference's ``prox_loss``: the classifier loss plus
+        ``0.5 * mu * sum_k ||w_k - anchor_k||^2`` over the leaves."""
         leaves = {k: v.detach().requires_grad_()
                   for k, v in unravel(params, self.layout).items()}
         with torch.enable_grad():
             losses = classifier_loss_lanes(leaves, batch, self.cfg)
+            if anchor is not None:
+                anc = unravel(anchor, self.layout)
+                sq = sum(torch.square(leaves[k] - anc[k]).flatten(1).sum(1)
+                         for k, _ in self.layout)
+                losses = losses + 0.5 * self.fl.mu * sq
             grads = torch.autograd.grad(
                 losses.sum(), [leaves[k] for k, _ in self.layout])
         return losses.detach(), tuple(g.contiguous() for g in grads)
@@ -129,22 +158,25 @@ class LocalTrainer:
 
     def _sgd_steps(self, params: torch.Tensor,
                    batch_at: Callable[[int], Dict[str, torch.Tensor]],
-                   ok: torch.Tensor, lr: torch.Tensor, S: int) -> torch.Tensor:
+                   ok: torch.Tensor, lr: torch.Tensor, S: int,
+                   anchor: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The flat loop of masked SGD steps, in place on the (C, P) lane
         stack ``params``: step t trains on ``batch_at(t)`` (a (C, B, ...)
         batch), lanes where ``ok[t]`` (T, C) is False are left unchanged,
         and a client visit starts — the momentum is zeroed — when
-        t % S == 0 (the reference's per-step reset flag)."""
+        t % S == 0 (the reference's per-step reset flag). ``anchor``:
+        FedProx's loss (``lane_grads``)."""
         m = torch.zeros_like(params)
         for t in range(ok.shape[0]):
-            _, grads = self.lane_grads(params, batch_at(t))
+            _, grads = self.lane_grads(params, batch_at(t), anchor)
             self._update(params, grads, m, ok[t], lr, reset=t % S == 0)
         return params
 
     @torch.no_grad()
     def _run_hops(self, params: torch.Tensor, plane, rows: torch.Tensor,
                   plans: torch.Tensor, valid: torch.Tensor,
-                  lr: torch.Tensor) -> torch.Tensor:
+                  lr: torch.Tensor,
+                  anchor: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The flat H*S-step gathered-SGD loop over one visit group, in
         place on the (C, P) lane stack ``params``; ``rows`` (H, C),
         ``plans`` (H, C, S, B) and ``valid`` (H, C, S) index the
@@ -164,7 +196,7 @@ class LocalTrainer:
                 "labels": torch.index_select(plane.labels, 0, gidx)
                 .reshape(C, -1),
             }
-        return self._sgd_steps(params, gather, flat_ok, lr, S)
+        return self._sgd_steps(params, gather, flat_ok, lr, S, anchor)
 
     def _device_lr(self, lr: float) -> torch.Tensor:
         """A python learning rate as the (1,) float32 device tensor the
@@ -175,7 +207,8 @@ class LocalTrainer:
     def train(self, params: torch.Tensor, client, *, lr: float,
               epochs: Optional[int] = None,
               rng: Optional[np.random.Generator] = None,
-              plan: Optional[np.ndarray] = None) -> torch.Tensor:
+              plan: Optional[np.ndarray] = None, variant: str = "plain",
+              anchor: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One client visit (the sequential engine's unit): from the flat
         (P,) model ``params``, one step per row of the pre-drawn ``plan``
         (a (steps, batch) index array), or of one drawn from ``rng`` with
@@ -183,8 +216,10 @@ class LocalTrainer:
         Momentum starts at zero. The model trains as a one-lane (1, P)
         stack; each step's batch moves H2D from the client's numpy shard
         and is metered into ``h2d_bytes``, and each step is one dispatch.
-        The update is unmasked (see the module docstring). Returns the
+        The update is unmasked (see the module docstring). ``variant``
+        picks the loss: ``"prox"`` reads the (P,) ``anchor``. Returns the
         trained (P,) model; ``params`` is left as it was."""
+        anchor = _loss_anchor(variant, anchor)
         if plan is None:
             if epochs is None or rng is None:
                 raise ValueError(
@@ -202,7 +237,7 @@ class LocalTrainer:
             self.dispatches += 1
             _, grads = self.lane_grads(p, {
                 k: torch.from_numpy(v).to(self.device).unsqueeze(0)
-                for k, v in batch.items()})
+                for k, v in batch.items()}, anchor)
             if self.fl.use_fused_sgd:
                 fused_sgd_lanes(p, grads, m, ok, lr, reset=s == 0,
                                 momentum=mom)
@@ -216,7 +251,8 @@ class LocalTrainer:
     @torch.no_grad()
     def train_many(self, params: torch.Tensor, batches: Dict[str, np.ndarray],
                    valid: np.ndarray, *, lr: float, broadcast: bool = False,
-                   agg: Optional[np.ndarray] = None) -> torch.Tensor:
+                   agg: Optional[np.ndarray] = None, variant: str = "plain",
+                   anchor: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One hop of C concurrent client visits as one call (the batched
         engine's unit). ``batches`` (``images`` (C, S, B, ...), ``labels``
         (C, S, B)) and the (C, S) step mask ``valid`` are host arrays
@@ -224,10 +260,12 @@ class LocalTrainer:
         ``h2d_bytes``; the call is one dispatch. ``params`` is the (C, P)
         lane stack, trained in place, or with ``broadcast=True`` one (P,)
         model every lane starts from. Momentum starts at zero; invalid
-        steps leave their lane unchanged. ``agg`` (a (C,) weight vector,
-        ``AggSpec.matrix``) folds the eq.-11 contraction into the call and
-        returns the (P,) aggregate; without it the trained (C, P) stack is
-        returned."""
+        steps leave their lane unchanged. ``agg`` (``AggSpec.matrix``) folds
+        the reduce into the call: a (C,) weight vector returns the (P,)
+        aggregate, a (G, C) matrix the (G, P) per-group stack; without it
+        the trained (C, P) stack is returned. ``variant``/``anchor``: the
+        loss, as in ``train``."""
+        anchor = _loss_anchor(variant, anchor)
         self.h2d_bytes += (sum(_h2d_nbytes(v) for v in batches.values())
                            + _h2d_nbytes(valid))
         self.dispatches += 1
@@ -240,7 +278,7 @@ class LocalTrainer:
         lanes = (params.unsqueeze(0).expand(C, -1).contiguous() if broadcast
                  else params)
         self._sgd_steps(lanes, lambda s: {k: v[s] for k, v in dev.items()},
-                        ok, self._device_lr(lr), S)
+                        ok, self._device_lr(lr), S, anchor)
         if agg is None:
             return lanes
         return torch.from_numpy(np.asarray(agg, np.float32)).to(
@@ -248,27 +286,49 @@ class LocalTrainer:
 
     @torch.no_grad()
     def train_schedule(self, w_glob: torch.Tensor, plane,
-                       xs: Dict[str, np.ndarray]) -> torch.Tensor:
-        """An entire block of FedSR rounds as ONE call (one dispatch).
+                       xs: Dict[str, np.ndarray], *, variant: str = "plain",
+                       shared_extras: Optional[Dict] = None) -> torch.Tensor:
+        """An entire block of rounds as ONE call (one dispatch).
 
         ``w_glob`` is the global model as a flat (P,) vector. ``xs`` stacks
         the block along a leading round axis n (built by
-        ``engines.fused.FusedEngine.run_schedule``): ``rows`` (n, H, C),
-        ``plans`` (n, H, C, S, B), ``valid`` (n, H, C, S), ``lr`` (n,) and
-        the collapsed eq.-11 weights ``aggv`` (n, C) — the block's whole
-        H2D payload. Each round broadcasts the carried global to the C
-        lanes, runs the hop loop and contracts ``aggv`` against the
-        trained stack. Returns the new (P,) global model."""
+        ``engines.fused.FusedEngine``): ``rows`` (n, H, C), ``plans``
+        (n, H, C, S, B), ``valid`` (n, H, C, S), ``lr`` (n,) and the
+        collapsed eq.-11 weights ``aggv`` (n, C) — the block's whole H2D
+        payload. Each round broadcasts the carried global to the C lanes,
+        runs the hop loop and contracts ``aggv`` against the trained stack.
+        ``variant`` and ``shared_extras`` are the plans' loss inputs, a
+        ``GLOBAL`` extra read as each round's carried global (FedProx's
+        anchor). With ``wg`` in ``xs`` (HierFAVG) the H axis is the round's
+        R edge iterations of one hop each: each lane starts from its edge's
+        row ``seed`` (n, C) of the (G, P) edge models (the carried global in
+        iteration 0), and after every iteration but the last the per-edge
+        reduce ``wg`` (n, G, C) gives the next edge models; the last applies
+        ``aggv``. Returns the new (P,) global model."""
         self.h2d_bytes += sum(_h2d_nbytes(v) for v in xs.values())
         self.dispatches += 1
         dev = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
                for k, v in xs.items()}
-        n, _, C = xs["rows"].shape
+        n, H, C = xs["rows"].shape
         w = w_glob
         for r in range(n):
-            lanes = w.unsqueeze(0).expand(C, -1).contiguous()
-            lanes = self._run_hops(lanes, plane, dev["rows"][r],
-                                   dev["plans"][r], dev["valid"][r],
-                                   dev["lr"][r:r + 1])
-            w = dev["aggv"][r] @ lanes
+            x = {k: v[r] for k, v in dev.items()}
+            lr = dev["lr"][r:r + 1]
+            anchor = _loss_anchor(variant, **{
+                k: w if v is GLOBAL else v
+                for k, v in (shared_extras or {}).items()})
+            if "wg" in x:
+                edges = w.unsqueeze(0).expand(x["wg"].shape[0], -1)
+                for it in range(H):
+                    lanes = self._run_hops(
+                        torch.index_select(edges, 0, x["seed"]), plane,
+                        x["rows"][it:it + 1], x["plans"][it:it + 1],
+                        x["valid"][it:it + 1], lr, anchor)
+                    if it < H - 1:
+                        edges = x["wg"] @ lanes
+            else:
+                lanes = self._run_hops(
+                    w.unsqueeze(0).expand(C, -1).contiguous(), plane,
+                    x["rows"], x["plans"], x["valid"], lr, anchor)
+            w = x["aggv"] @ lanes
         return w

@@ -8,28 +8,49 @@ a sequence of ``VisitGroup``s; a group trains C *lanes* concurrently for H
 pre-drawn batch plan ``hops[h].plans[c]`` (``None``: the lane's model is
 carried unchanged, the ring-tail rule). A FedSR round is one group whose
 lanes are the edge rings and whose H = R * max-ring-size hops are the lap
-sequence, closed by the eq.-11 weighted cloud reduce (``AggSpec``).
+sequence, closed by the eq.-11 weighted cloud reduce (``AggSpec``). A
+HierFAVG round is R chained groups: each lane restarts from its edge's
+model, the previous group's uncollapsed per-edge aggregate (``seed``).
 
-Only what FedSR plans is ported; the fields for per-lane extras, seeded
-groups and adversarial lane scales come with the algorithms that use them
-(ROADMAP A5, A7).
+Plans never hold the global model: ``GLOBAL`` marks "the current global
+model" where a group's extras refer to it (FedProx's anchor), and the
+engine resolves it at run time, so a whole block of rounds can be planned
+before any of them runs. The per-lane extras, ``StateRef``, ``keep_locals``
+and adversarial lane scales come with the algorithms that use them
+(ROADMAP A4, A7).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
+
+
+class _Symbol:
+    """Sentinel resolved by the engine at run time."""
+
+    def __init__(self, name: str):
+        self._name = name
+
+    def __repr__(self) -> str:
+        return f"<{self._name}>"
+
+
+GLOBAL = _Symbol("GLOBAL")      # the current global model
 
 
 @dataclasses.dataclass(frozen=True)
 class AggSpec:
     """Two-level linear reduce over a group's lanes (eq. 11 as data).
 
-    Lanes are gathered into ``groups``; each group's model is the
-    ``lane_weights``-weighted sum of its lanes, and ``group_weights``
-    collapse the group models into ONE model. Aggregation is linear, so
-    ``matrix`` folds both levels into one effective per-lane weight vector.
+    Lanes are gathered into ``groups`` (the edges); each group's model is
+    the ``lane_weights``-weighted sum of its lanes. With ``group_weights``
+    the group models collapse into ONE model (the cloud reduce); without,
+    the reduce stops at the (G, ...) group stack (HierFAVG's intermediate
+    edge iterations, which seed the next group). Aggregation is linear, so
+    ``matrix`` folds both levels of a collapsed reduce into one effective
+    per-lane weight vector.
     """
 
     groups: Tuple[Tuple[int, ...], ...]      # lane indices per group
@@ -81,11 +102,19 @@ class Hop:
 
 @dataclasses.dataclass(frozen=True)
 class VisitGroup:
-    """H hop-sequenced concurrent visits over C lanes, each lane seeded
-    from the global model, then the ``agg`` reduce."""
+    """H hop-sequenced concurrent visits over C lanes, then the ``agg``
+    reduce.
+
+    ``seed`` is where each lane's model comes from: ``None`` broadcasts the
+    global model to every lane; otherwise ``seed[c]`` indexes the previous
+    group's (G, ...) aggregate stack. ``shared_extras`` are the loss
+    variant's cohort-shared inputs, each ``GLOBAL`` (FedProx's
+    ``{"anchor": GLOBAL}``)."""
 
     hops: Tuple[Hop, ...]
     variant: str = "plain"
+    shared_extras: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    seed: Optional[Tuple[int, ...]] = None
     agg: Optional[AggSpec] = None
 
     @property
@@ -95,9 +124,9 @@ class VisitGroup:
 
 @dataclasses.dataclass(frozen=True)
 class RoundPlan:
-    """One round: visit groups + closed-form comm records. The round's
-    output is the final group's collapsed aggregate (no groups — e.g.
-    ring_rounds=0 — leaves the global model unchanged). ``comm`` and
+    """One round: chained visit groups + closed-form comm records. The
+    round's output is the final group's collapsed aggregate (no groups —
+    e.g. ring_rounds=0 — leaves the global model unchanged). ``comm`` and
     ``sim_seconds`` are applied to the meter by the executor."""
 
     groups: Tuple[VisitGroup, ...]
@@ -108,6 +137,11 @@ class RoundPlan:
         for g, grp in enumerate(self.groups):
             if not grp.hops:
                 raise ValueError(f"group {g}: a VisitGroup needs >= 1 hop")
+            if grp.seed is not None and g == 0:
+                raise ValueError("group 0 cannot seed from a previous group")
+            if grp.seed is not None and self.groups[g - 1].agg is None:
+                # a seeded group indexes its predecessor's AGGREGATE stack
+                raise ValueError(f"group {g}: missing previous aggregate")
         if self.groups:
             last = self.groups[-1].agg
             if last is None or not last.collapsed:

@@ -6,9 +6,11 @@
   fused engine): a run interrupted after round 2 and resumed to round 4
   equals the uninterrupted run bit for bit, with its history, comm meters
   and ``rounds_to_accuracy``/``comm_to_accuracy`` answers — for FedSR,
-  FedAvg and Ring on a narrow MLP and FedSR on a narrow CNN.
-* Across packages, both ways: a run checkpointed by one package resumes in
-  the other and matches the reference's uninterrupted run — eval rounds,
+  FedAvg, FedProx, Ring and HierFAVG on a narrow MLP and FedSR on a narrow
+  CNN.
+* Across packages, both ways, for FedSR (MLP and CNN) and HierFAVG (MLP):
+  a run checkpointed by one package resumes in the other and matches the
+  reference's uninterrupted run — eval rounds,
   comm meters and learning rates exactly, the restored history records
   exactly, every accuracy within one test sample, final weights within
   1e-4 (MLP) or the CNN's whole-run bound (``torch_parity.CNN_RUN_ATOL``).
@@ -35,7 +37,8 @@ MODELS = {"mlp": ("fedsr_mlp", {"mlp_hidden": (32, 32)}, "mnist_like", 1e-4),
 
 def _setup(family, **fl_kw):
     """Both packages' (model config, FLConfig, train, test) for a narrow
-    model of ``family``, and the run's whole-run weight tolerance."""
+    model of ``family``, and the run's whole-run weight tolerance. HierFAVG
+    runs R=2 edge iterations a round, so that its second is seeded."""
     import importlib
 
     from repro.configs.base import FLConfig as RefFL
@@ -47,6 +50,8 @@ def _setup(family, **fl_kw):
     kw = dict(algorithm="fedsr", engine="fused", num_devices=4, num_edges=2,
               rounds=4, partition="pathological", xi=2, ring_rounds=1,
               local_epochs=1, batch_size=8, seed=11)
+    if fl_kw.get("algorithm") == "hieravg":
+        kw["ring_rounds"] = 2
     kw.update(fl_kw)
     ref_cfg = importlib.import_module(f"repro.configs.{mod}").CONFIG
     cfg = importlib.import_module(f"repro_torch.configs.{mod}").CONFIG
@@ -112,7 +117,8 @@ def test_checkpoint_files_are_the_reference_bytes(tmp_path):
 
 
 @pytest.mark.parametrize("family,algorithm", [
-    ("mlp", "fedsr"), ("mlp", "fedavg"), ("mlp", "ring"), ("cnn", "fedsr")])
+    ("mlp", "fedsr"), ("mlp", "fedavg"), ("mlp", "ring"), ("cnn", "fedsr"),
+    ("mlp", "fedprox"), ("mlp", "hieravg")])
 def test_resume_is_exact(tmp_path, family, algorithm):
     from repro_torch.core.executor import run_experiment
 
@@ -154,14 +160,16 @@ def test_resume_without_checkpoint_starts_fresh(tmp_path):
 # across packages
 
 
-@pytest.mark.parametrize("family", sorted(MODELS))
+@pytest.mark.parametrize("family,algorithm", [
+    ("cnn", "fedsr"), ("mlp", "fedsr"), ("mlp", "hieravg")])
 @pytest.mark.parametrize("direction", ["reference_to_port",
                                        "port_to_reference"])
-def test_checkpoint_resumes_across_packages(tmp_path, family, direction):
+def test_checkpoint_resumes_across_packages(tmp_path, family, direction,
+                                            algorithm):
     from repro.core.executor import run_experiment as ref_run
     from repro_torch.core.executor import run_experiment
 
-    ref, port, atol = _setup(family)
+    ref, port, atol = _setup(family, algorithm=algorithm)
     full = _run(ref_run, ref)
     ckdir = str(tmp_path / "ck")
     if direction == "reference_to_port":

@@ -6,10 +6,12 @@ package's, and against the port's own fused engine.
   rows).
 * One client visit: ``LocalTrainer.train`` from the reference's weights and
   plan, ``use_fused_sgd`` off and on, within 1e-5 after one step and after
-  the whole visit, with the reference's meters.
+  the whole visit, with the reference's meters; the same with FedProx's
+  loss against the reference's ``variant="prox"``.
 * Whole runs of a narrow MLP through ``run_experiment`` from the
-  reference's initial weights, for FedSR, FedAvg and Ring under both
-  engines, ``use_fused_sgd`` off and on: eval rounds, accuracies, comm
+  reference's initial weights, for FedSR, FedAvg, FedProx, Ring and
+  HierFAVG under both engines, ``use_fused_sgd`` off and on: eval rounds,
+  accuracies, comm
   meters, learning rates and ``peak_device_bytes`` equal, the trainer's
   ``h2d_bytes`` and ``dispatches`` equal to the reference trainer's, final
   weights within 1e-4; one narrow CNN run per engine within
@@ -17,7 +19,9 @@ package's, and against the port's own fused engine.
 * Inside the port: batched bit-equal to fused, sequential within 1e-6 of
   fused (its unmasked update and its ordered two-level reduce round
   otherwise, as the reference's own sequential engine does against its
-  fused one); the block size changes no bit of either engine's result.
+  fused one), HierFAVG's seeded edge iterations included; the block size
+  changes no bit of either engine's result.
+* The plan IR's seeding rules, and which plans the engines accept.
 * A run checkpointed by the reference's sequential engine resumes in the
   port's; ``FLConfig()`` as it stands runs and matches the reference.
 """
@@ -188,6 +192,34 @@ def test_one_visit_matches_reference(use_fused_sgd, steps):
     assert tr.h2d_bytes == ref_tr.h2d_bytes > 0
 
 
+@pytest.mark.parametrize("use_fused_sgd", [False, True])
+def test_one_prox_visit_matches_reference(use_fused_sgd):
+    """``train`` with FedProx's loss (``variant="prox"``, the anchor a
+    third model) over the whole two-epoch visit: within 1e-5 of the
+    reference's ``train(variant="prox", anchor=...)``, and away from the
+    plain visit by far more than that."""
+    from repro.data.pipeline import plan_epoch_indices as ref_plan
+    from repro_torch.models.small import params_from_numpy
+    from repro_torch.utils.tree import ravel_params, unravel
+
+    ref_tr, tr, rclient, pclient, rm = _visit_setup(use_fused_sgd)
+    plan = ref_plan(rclient, 6, 2, np.random.default_rng(1))
+    w0, anchor = jax_init(rm, seed=3), jax_init(rm, seed=4)
+    want = ref_tr.train(jax.tree.map(jnp.asarray, w0), rclient, lr=0.05,
+                        plan=plan, variant="prox",
+                        anchor=jax.tree.map(jnp.asarray, anchor))
+    w = ravel_params(params_from_numpy(w0, CPU))
+    a = ravel_params(params_from_numpy(anchor, CPU))
+    got = tr.train(w, pclient, lr=0.05, plan=plan, variant="prox", anchor=a)
+    assert_trees_close(unravel(got, tr.layout), want, atol=1e-5)
+    plain = tr.train(w, pclient, lr=0.05, plan=plan)
+    assert float((got - plain).abs().max()) > 100 * 1e-5
+    with pytest.raises(ValueError, match="anchor="):
+        tr.train(w, pclient, lr=0.05, plan=plan, variant="prox")
+    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+        tr.train(w, pclient, lr=0.05, plan=plan, variant="moon")
+
+
 def test_one_visit_draws_its_plan_as_the_reference():
     """The ``epochs=``/``rng=`` form draws the plan with the planners'
     calls: the same weights and the same generator state after."""
@@ -213,12 +245,14 @@ def test_one_visit_draws_its_plan_as_the_reference():
 
 
 @pytest.mark.parametrize("use_fused_sgd", [False, True])
-@pytest.mark.parametrize("algorithm", ["fedsr", "fedavg", "ring"])
+@pytest.mark.parametrize("algorithm", ["fedsr", "fedavg", "ring", "fedprox",
+                                       "hieravg"])
 @pytest.mark.parametrize("engine", ENGINES)
 def test_whole_run_matches_reference(monkeypatch, engine, algorithm,
                                      use_fused_sgd):
     """Participation 0.75 (FedSR draws uneven rings: ring-tail hops; FedAvg
-    cohorts of uneven step counts), two blocks of two rounds."""
+    and FedProx cohorts of uneven step counts; HierFAVG's R=2 edge
+    iterations, the second seeded), two blocks of two rounds."""
     (rm, rfl), (pm, pfl) = configs(SMALL, **fl_kwargs(
         algorithm=algorithm, engine=engine, use_fused_sgd=use_fused_sgd,
         participation=0.75))
@@ -270,7 +304,7 @@ def test_whole_cnn_run_matches_reference(monkeypatch, engine):
 
 
 def _engine_runs(algorithm, participation, use_fused_sgd, engines,
-                 eval_every=2):
+                 eval_every=2, **fl_kw):
     (rm, _), (pm, _) = configs(SMALL)
     _, (ptr, pte) = mnist_tasks()
     init = jax_init(rm, 0)
@@ -278,7 +312,7 @@ def _engine_runs(algorithm, participation, use_fused_sgd, engines,
     for engine in engines:
         _, (_, pfl) = configs(SMALL, **fl_kwargs(
             algorithm=algorithm, engine=engine, participation=participation,
-            use_fused_sgd=use_fused_sgd))
+            use_fused_sgd=use_fused_sgd, **fl_kw))
         out[engine] = _port_run(pm, pfl, ptr, pte, init,
                                 eval_every=eval_every)
     return out
@@ -286,15 +320,31 @@ def _engine_runs(algorithm, participation, use_fused_sgd, engines,
 
 @pytest.mark.parametrize("use_fused_sgd", [False, True])
 @pytest.mark.parametrize("participation", [1.0, 0.75])
-@pytest.mark.parametrize("algorithm", ["fedsr", "fedavg", "ring"])
+@pytest.mark.parametrize("algorithm", ["fedsr", "fedavg", "ring", "fedprox",
+                                       "hieravg"])
 def test_engines_agree_inside_the_port(algorithm, participation,
                                        use_fused_sgd):
     """``batched`` runs the fused engine's step and reduce on the same
     values: bit-equal. ``sequential`` rounds its update and its reduce
     otherwise: within 1e-6. Meters and histories agree; only the fused
     engine keeps a device-resident data plane."""
-    runs = _engine_runs(algorithm, participation, use_fused_sgd,
-                        ("fused", "batched", "sequential"))
+    _assert_engines_agree(_engine_runs(algorithm, participation,
+                                       use_fused_sgd,
+                                       ("fused", "batched", "sequential")))
+
+
+@pytest.mark.parametrize("use_fused_sgd", [False, True])
+@pytest.mark.parametrize("algorithm", ["fedprox", "hieravg"])
+def test_engines_agree_on_partial_edges(algorithm, use_fused_sgd):
+    """K=8 devices on M=2 edges at participation 0.5, R=3: FedProx's
+    cohorts of 4, and HierFAVG's 2 of 4 devices an edge through two seeded
+    edge iterations a round; the engines agree as above."""
+    _assert_engines_agree(_engine_runs(
+        algorithm, 0.5, use_fused_sgd, ("fused", "batched", "sequential"),
+        num_devices=8, ring_rounds=3))
+
+
+def _assert_engines_agree(runs) -> None:
     fused, batched, seq = (runs[e] for e in ("fused", "batched",
                                              "sequential"))
     for k in fused.final_model:
@@ -370,7 +420,6 @@ def test_the_default_config_runs(monkeypatch):
 
 @pytest.mark.parametrize("engine", ENGINES)
 @pytest.mark.parametrize("override", [
-    {"algorithm": "fedprox"}, {"algorithm": "hieravg"},
     {"algorithm": "moon"}, {"algorithm": "scaffold"},
     {"algorithm": "centralized"}, {"store": "host"}, {"store": "stream"},
     {"prefetch": 1}, {"reducer": "median"}, {"dp_clip": 1.0},
@@ -383,16 +432,45 @@ def test_unported_options_raise_under_the_new_engines(engine, override):
 
 
 def test_multi_group_and_variant_plans_raise():
-    """A plan the port's engines cannot run names A4 under every engine,
-    before any training."""
+    """The engines run HierFAVG's seeded multi-group plans and FedProx's
+    ``"prox"`` variant; MOON's and SCAFFOLD's variants still name A4 under
+    every engine, before any training."""
     from repro_torch.core.engines.base import check_ported_plans
-    from repro_torch.core.plan import AggSpec, Hop, RoundPlan, VisitGroup
+    from repro_torch.core.plan import GLOBAL, AggSpec, Hop, RoundPlan, VisitGroup
 
     hop = Hop(ids=(0,), plans=(np.zeros((1, 2), np.int64),))
     grp = VisitGroup(hops=(hop,), agg=AggSpec.flat([1.0]))
+    edge = VisitGroup(hops=(hop,), agg=AggSpec(groups=((0,),),
+                                               lane_weights=(1.0,)))
+    prox = dataclasses.replace(grp, variant="prox",
+                               shared_extras={"anchor": GLOBAL})
     check_ported_plans([RoundPlan(groups=()), RoundPlan(groups=(grp,))])
-    for plan in (RoundPlan(groups=(grp, grp)),
-                 RoundPlan(groups=(dataclasses.replace(grp,
-                                                       variant="prox"),))):
+    check_ported_plans([RoundPlan(groups=(
+        edge, dataclasses.replace(grp, seed=(0,))))])
+    check_ported_plans([RoundPlan(groups=(prox,))])
+    for variant in ("moon", "scaffold"):
+        plan = RoundPlan(groups=(dataclasses.replace(grp, variant=variant),))
         with pytest.raises(NotImplementedError, match="ROADMAP A4"):
             check_ported_plans([plan])
+
+
+def test_round_plan_refuses_a_seed_without_a_previous_aggregate():
+    """The reference's seeding rules: group 0 cannot seed, a seeded group
+    needs an ``agg`` on the group before it; an intermediate group may stay
+    uncollapsed, the final one must collapse."""
+    from repro_torch.core.plan import AggSpec, Hop, RoundPlan, VisitGroup
+
+    hop = Hop(ids=(0, 1), plans=(np.zeros((1, 2), np.int64),) * 2)
+    edges = AggSpec(groups=((0,), (1,)), lane_weights=(1.0, 1.0))
+    cloud = dataclasses.replace(edges, group_weights=(0.5, 0.5))
+    first = VisitGroup(hops=(hop,), agg=edges)
+    seeded = VisitGroup(hops=(hop,), seed=(0, 1), agg=cloud)
+    plan = RoundPlan(groups=(first, seeded))
+    np.testing.assert_array_equal(plan.groups[0].agg.matrix(3),
+                                  [[1, 0, 0], [0, 1, 0]])
+    with pytest.raises(ValueError, match="group 0 cannot seed"):
+        RoundPlan(groups=(seeded,))
+    with pytest.raises(ValueError, match="missing previous aggregate"):
+        RoundPlan(groups=(dataclasses.replace(first, agg=None), seeded))
+    with pytest.raises(ValueError, match="final group must collapse"):
+        RoundPlan(groups=(first, dataclasses.replace(seeded, agg=edges)))

@@ -1,16 +1,19 @@
-"""The port's FedSR main path, and the FedAvg and Ring baselines, against
-the JAX package's.
+"""The port's FedSR main path, and the FedAvg, FedProx, Ring and HierFAVG
+baselines, against the JAX package's.
 
 * Host side, exactly: configs, ``make_task``, the partitions,
   ``plan_epoch_indices``/``stack_plan_indices``, the data plane's bytes,
-  FedSR's, FedAvg's and Ring's ``plan_schedule`` and the fused engine's
-  stacked block arrays, comm meters, ``h2d_bytes`` and ``dispatches``.
+  every ported planner's ``plan_schedule`` and the fused engine's stacked
+  block arrays (HierFAVG's ``_stack_hier_schedule`` too), comm meters,
+  ``h2d_bytes`` and ``dispatches``.
 * One SGD step of the full-width paper MLP: per-lane loss and gradients
-  within 1e-5 (f32, different summation orders).
+  within 1e-5 (f32, different summation orders), with the plain loss and
+  with FedProx's.
 * Whole runs of a narrow MLP through ``run_experiment`` from the
   reference's initial weights, with ``use_fused_sgd`` on and off (each held
-  against its own reference path), for FedSR, FedAvg and Ring: final
-  weights within 1e-4 and every eval's accuracy within one test sample.
+  against its own reference path), for FedSR, FedAvg, FedProx, Ring and
+  HierFAVG: final weights within 1e-4 and every eval's accuracy within one
+  test sample.
 * Port rules: the port imports nothing of JAX or of the JAX package, and
   options it does not run yet raise.
 """
@@ -174,14 +177,17 @@ def test_fedsr_schedule_and_block_arrays_are_identical(participation):
 
 @pytest.mark.parametrize("algorithm,participation,reshuffle", [
     ("fedavg", 1.0, True), ("fedavg", 0.5, True),
-    ("ring", 1.0, True), ("ring", 0.75, False)])
+    ("ring", 1.0, True), ("ring", 0.75, False),
+    ("fedprox", 1.0, True), ("fedprox", 0.5, True)])
 def test_baseline_schedule_and_block_arrays_are_identical(
         algorithm, participation, reshuffle):
     """FedAvg: one hop of every sampled client, step counts padded per
     lane by ``stack_plan_indices`` to the block's longest plan, |D_i|/|D|
-    weights. Ring: one global ring over the sampled devices, optionally
-    reshuffled (one more draw), R laps as hops. Same seed -> identical
-    plans, comm, block arrays and RNG state."""
+    weights. FedProx: FedAvg's plans with the ``"prox"`` loss and the
+    global model as its shared anchor. Ring: one global ring over the
+    sampled devices, optionally reshuffled (one more draw), R laps as
+    hops. Same seed -> identical plans, comm, block arrays and RNG
+    state."""
     ref, port = _planners(participation, algorithm,
                           reshuffle_ring=reshuffle, local_epochs=2)
     rr, pr = np.random.default_rng(7), np.random.default_rng(7)
@@ -191,15 +197,59 @@ def test_baseline_schedule_and_block_arrays_are_identical(
     assert_schedules_equal(rs, ps)
     assert rr.bit_generator.state == pr.bit_generator.state
     np.testing.assert_array_equal(rs.visited(), ps.visited())
-    rxs = ref.engine._stack_cohort_schedule(rs.plans, lrs, "plain", {})
+    variant = ps.plans[0].groups[0].variant
+    rxs = ref.engine._stack_cohort_schedule(rs.plans, lrs, variant, {})
     pxs = port.engine._stack_cohort_schedule(ps.plans, lrs)
     assert sorted(rxs) == sorted(pxs)
     for k in pxs:
         assert rxs[k].dtype == pxs[k].dtype, k
         np.testing.assert_array_equal(rxs[k], pxs[k], err_msg=k)
+    if algorithm == "fedprox":
+        from repro_torch.core.plan import GLOBAL
+
+        assert {(g.variant, tuple(g.shared_extras.items()))
+                for p in ps.plans for g in p.groups} == {
+            ("prox", (("anchor", GLOBAL),))}
     if algorithm == "fedavg":
         steps = pxs["valid"].sum(-1)                # (n, H=1, C)
         assert pxs["valid"].shape[1] == 1 and len(set(steps.ravel())) > 1
+
+
+@pytest.mark.parametrize("participation", [1.0, 0.5])
+def test_hieravg_schedule_and_block_arrays_are_identical(participation):
+    """HierFAVG at K=8, M=2, R=3: each edge samples its devices (sorted,
+    no reshuffle), the (edge, device) pairs are the lanes of R chained
+    groups, groups 1.. seed from their edge, only the last collapses, and
+    every edge records cloud and edge transfers. Same seed -> identical
+    plans, comm, RNG state and every array of ``_stack_hier_schedule``,
+    byte for byte."""
+    ref, port = _planners(participation, "hieravg", ring_rounds=3)
+    rr, pr = np.random.default_rng(7), np.random.default_rng(7)
+    lrs = np.asarray([0.05, 0.04, 0.03])
+    rs = ref.plan_schedule(0, 3, rr, {})
+    ps = port.plan_schedule(0, 3, pr, {})
+    assert_schedules_equal(rs, ps)
+    assert rr.bit_generator.state == pr.bit_generator.state
+    np.testing.assert_array_equal(rs.visited(), ps.visited())
+    lanes = 2 * max(1, round(4 * participation))
+    for plan in ps.plans:
+        assert [g.agg.collapsed for g in plan.groups] == [False, False, True]
+        assert plan.groups[0].seed is None
+        assert plan.groups[1].seed == plan.groups[2].seed == tuple(
+            sorted([0, 1] * (lanes // 2)))
+        assert [c for c, _ in plan.comm] == [
+            "cloud_down", "edge_down", "edge_up", "cloud_up"] * 2
+        assert sum(n for c, n in plan.comm if c.startswith("edge")) == \
+            2 * 3 * lanes
+    rxs = ref.engine._stack_hier_schedule(rs.plans, lrs)
+    pxs = port.engine._stack_hier_schedule(ps.plans, lrs)
+    assert sorted(rxs) == sorted(pxs) == [
+        "aggv", "lr", "plans", "rows", "seed", "valid", "wg"]
+    for k in pxs:
+        assert rxs[k].dtype == pxs[k].dtype, k
+        assert rxs[k].shape == pxs[k].shape, k
+        assert rxs[k].tobytes() == pxs[k].tobytes(), k
+    assert pxs["wg"].shape == (3, 2, lanes)
 
 
 def test_blocks_meter_identically_and_train_alike():
@@ -275,6 +325,50 @@ def test_full_width_mlp_step_loss_and_lane_gradients():
     assert_trees_close(unravel(flat, trainer.layout), want, atol=1e-5)
 
 
+def test_full_width_mlp_prox_step_loss_and_lane_gradients():
+    """FedProx's loss at full width: the reference's own ``prox_loss``
+    (vmapped over lanes, the anchor shared) against ``lane_grads`` with the
+    anchor, within 1e-5; the proximal term moves the gradient far beyond
+    that bound (a control against an anchor that is dropped)."""
+    from repro.core.local import LocalTrainer as RefTrainer
+    from repro_torch.core.local import LocalTrainer
+    from repro_torch.models.small import params_from_numpy
+    from repro_torch.utils.tree import ravel_params
+
+    (rm, rfl), (pm, pfl) = configs()
+    assert pfl.mu == rfl.mu == 0.01
+    C, B = 3, 16
+    lanes = [jax_init(rm, seed) for seed in range(C)]
+    anchor = jax_init(rm, 7)
+    rng = np.random.default_rng(1)
+    images = rng.random((C, B, 28, 28, 1), dtype=np.float32)
+    labels = rng.integers(0, 10, (C, B)).astype(np.int32)
+
+    prox_loss = RefTrainer(rm, rfl)._many_spec["prox"][0]
+    stacked = {k: jnp.stack([w[k] for w in lanes]) for k in lanes[0]}
+    ref_l, ref_g = jax.jit(jax.vmap(
+        jax.value_and_grad(lambda p, x, y, a: prox_loss(
+            p, {"images": x, "labels": y}, a)),
+        in_axes=(0, 0, 0, None)))(
+        stacked, jnp.asarray(images), jnp.asarray(labels),
+        jax.tree.map(jnp.asarray, anchor))
+
+    trainer = LocalTrainer(pm, pfl, CPU)
+    flat = torch.stack([ravel_params(params_from_numpy(w, CPU))
+                        for w in lanes])
+    batch = {"images": torch.from_numpy(images),
+             "labels": torch.from_numpy(labels)}
+    w_anchor = ravel_params(params_from_numpy(anchor, CPU))
+    losses, grads = trainer.lane_grads(flat, batch, w_anchor)
+    names = [k for k, _ in trainer.layout]
+    np.testing.assert_allclose(losses.numpy(), np.asarray(ref_l), atol=1e-5)
+    assert_trees_close(dict(zip(names, grads)), ref_g, atol=1e-5)
+    plain_l, plain_g = trainer.lane_grads(flat, batch)
+    moved = max(float((a - b).abs().max()) for a, b in zip(grads, plain_g))
+    assert moved > 100 * 1e-5, moved
+    assert float((losses - plain_l).min()) > 100 * 1e-5
+
+
 # ---------------------------------------------------------------------------
 # whole runs
 
@@ -301,7 +395,8 @@ def test_whole_run_matches_reference(use_fused_sgd):
     assert_trees_close(port.final_model, ref.final_model, atol=1e-4)
 
 
-@pytest.mark.parametrize("algorithm", ["fedavg", "ring"])
+@pytest.mark.parametrize("algorithm", ["fedavg", "ring", "fedprox",
+                                       "hieravg"])
 @pytest.mark.parametrize("use_fused_sgd", [True, False])
 def test_baseline_run_matches_reference(algorithm, use_fused_sgd):
     from repro.core.executor import run_experiment as ref_run
@@ -354,9 +449,11 @@ def test_importing_the_port_leaves_jax_unloaded():
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "from repro_torch.core.algorithms import (\n"
-            "    ALGORITHMS, FedAvg, RingOptimization)\n"
+            "    ALGORITHMS, FedAvg, FedProx, HierFAVG, RingOptimization)\n"
             "assert ALGORITHMS['fedavg'] is FedAvg\n"
+            "assert ALGORITHMS['fedprox'] is FedProx\n"
             "assert ALGORITHMS['ring'] is RingOptimization\n"
+            "assert ALGORITHMS['hieravg'] is HierFAVG\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
             "print(bad)\n")
@@ -368,13 +465,12 @@ def test_importing_the_port_leaves_jax_unloaded():
 
 
 @pytest.mark.parametrize("override", [
-    {"algorithm": "fedprox"}, {"engine": "sharded"},
+    {"engine": "sharded"},
     {"engine": "sequential", "store": "host"},
-    {"engine": "batched", "algorithm": "fedprox"},
     {"store": "host"}, {"prefetch": 1}, {"reducer": "median"},
     {"dp_clip": 1.0}, {"mesh_data_axis": "data"},
     {"scenario": "drop"}, {"adversary": "sign_flip"},
-    {"personalize": "full"}, {"algorithm": "hieravg"},
+    {"personalize": "full"},
     {"algorithm": "moon"}, {"algorithm": "scaffold"},
     {"algorithm": "centralized"},
 ])

@@ -376,7 +376,8 @@ def test_fused_run_reads_leaves_as_the_one_leaf_run_reads_its_gradient(
 
     leaves_run = run()
 
-    def flat_lane_grads(self, params, batch):
+    def flat_lane_grads(self, params, batch, anchor=None):
+        assert anchor is None       # FedSR trains the plain loss
         flat = params.detach().requires_grad_()
         with torch.enable_grad():
             losses = classifier_loss_lanes(unravel(flat, self.layout), batch,

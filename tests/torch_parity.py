@@ -89,8 +89,8 @@ def assert_trees_close(a, b, *, atol: float, rtol: float = 0.0) -> None:
 
 def assert_schedules_equal(ref_sched, port_sched) -> None:
     """Two Schedules (one per package) hold identical plans: same ids,
-    same batch-index arrays, same aggregation weights, comm records and
-    simulated seconds."""
+    same batch-index arrays, same loss variants, shared extras and seeds,
+    same aggregation weights, comm records and simulated seconds."""
     assert ref_sched.comm == port_sched.comm
     assert len(ref_sched.plans) == len(port_sched.plans)
     for rp, pp in zip(ref_sched.plans, port_sched.plans):
@@ -98,6 +98,12 @@ def assert_schedules_equal(ref_sched, port_sched) -> None:
         assert rp.sim_seconds == pp.sim_seconds
         assert len(rp.groups) == len(pp.groups)
         for rg, pg in zip(rp.groups, pp.groups):
+            assert rg.variant == pg.variant
+            assert rg.seed == pg.seed
+            # the sentinels are each package's own objects: compare names
+            assert ({k: repr(v) for k, v in rg.shared_extras.items()}
+                    == {k: repr(v) for k, v in pg.shared_extras.items()})
+            assert rg.agg.groups == pg.agg.groups
             assert rg.agg.lane_weights == pg.agg.lane_weights
             assert rg.agg.group_weights == pg.agg.group_weights
             assert len(rg.hops) == len(pg.hops)
