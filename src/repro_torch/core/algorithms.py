@@ -1,15 +1,23 @@
 """FL algorithms as planners (the port's twin of the JAX package's
-``core/algorithms.py``) — the shared planner base, FedAvg, FedProx,
-RingOptimization, HierFAVG and FedSR.
+``core/algorithms.py``) — the shared planner base and all eight algorithms
+of the paper's tables: FedAvg, FedProx, MOON, SCAFFOLD, RingOptimization,
+HierFAVG, FedSR and Centralized.
 
 A planner consumes only the host RNG, the config and its host-side state,
 and emits ``RoundPlan``s; ``run_schedule`` pre-plans a block of rounds into
 a ``Schedule`` and hands it to the engine (round by round under the
 sequential and batched engines, as one call under the fused engine). Every
 draw happens in the reference's order, so the port's plans are
-bit-identical to the JAX package's for the same seed. MOON, SCAFFOLD and
-Centralized are ROADMAP A4; the scenario, adversary and DP axes are
-ROADMAP A7.
+bit-identical to the JAX package's for the same seed.
+
+MOON's previous local models and SCAFFOLD's control variates live on the
+device (``core.state``): a (K + 1, P) client stack (and SCAFFOLD's (P,)
+server variate) plus the host ``seen`` mask. Plans name them through
+``StateRef``; the final group keeps its trained lanes (``keep_locals``)
+and ``update_state`` folds them back after each round, or the fused
+engine carries the state through its block with the same functions.
+Centralized trains on the pooled shards and bypasses the plan IR. The
+scenario, adversary and DP axes are ROADMAP A7.
 """
 from __future__ import annotations
 
@@ -17,25 +25,39 @@ import dataclasses
 from typing import Dict, List, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.configs.base import FLConfig
 from repro_torch.core.comm import CommMeter, ResidencyMeter
 from repro_torch.core.engines import make_engine
 from repro_torch.core.local import LocalTrainer
 from repro_torch.core.plan import (
-    GLOBAL, AggSpec, Hop, RoundPlan, Schedule, VisitGroup,
+    GLOBAL, AggSpec, Hop, RoundPlan, RoundResult, Schedule, StateRef,
+    VisitGroup,
 )
 from repro_torch.core.ring import ring_lap_hops
 from repro_torch.core.scenario import ScenarioState
+from repro_torch.core.state import (
+    client_stack, pack_client_rows, scaffold_step, scatter_rows,
+    unpack_client_rows,
+)
 from repro_torch.core.topology import assign_edges, clusters_of, sample_ring
 from repro_torch.data.pipeline import ClientData, plan_epoch_indices
+from repro_torch.utils.tree import unravel
 
 
 class _Planner:
     """Shared planner base: sampling/weights helpers + the block runner."""
 
     variant = "plain"
-    _transfers_per_client = 1       # model each way
+    keep_locals = False
+    pipelinable = True              # False: the algorithm bypasses the
+                                    # Schedule IR (Centralized); the
+                                    # executor calls its run_schedule
+    _transfers_per_client = 1       # model each way (SCAFFOLD ships 2)
+    _client_fields: Tuple[str, ...] = ()    # (K + 1, P) client stacks
+    _shared_fields: Tuple[str, ...] = ()    # unstacked (P,) device models
+                                            # (SCAFFOLD's server variate)
 
     def __init__(self, trainer: LocalTrainer, clients: List[ClientData],
                  fl: FLConfig):
@@ -62,18 +84,38 @@ class _Planner:
         return w_glob, state
 
     def dispatch_block(self, sched: Schedule, w_glob, lrs, state: Dict):
-        """Stage the block's data, record residency and run the block, with
-        the algorithm's state update between rounds where the engine runs
-        round by round."""
+        """Make the algorithm's state, stage the block's data, record the
+        residency (data plane plus state bytes) and run the block, with the
+        algorithm's state update between rounds where the engine runs round
+        by round."""
+        self.ensure_state(state, w_glob)
         data_bytes = self.engine.stage_data(sched.visited())
-        self.residency.record(data_bytes, 0)
+        self.residency.record(data_bytes, self._staged_state_bytes(state))
         return self.engine.run_schedule(sched, w_glob, lrs, state,
                                         self.update_state)
 
-    def update_state(self, plan: RoundPlan, w_before, w_after, lr: float,
-                     state: Dict) -> None:
-        """The algorithm's state update after one round; the ported
-        planners keep no state."""
+    def update_state(self, plan: RoundPlan, w_before, result: RoundResult,
+                     lr: float, state: Dict) -> None:
+        """The algorithm's state update after one round, from the round's
+        result (its kept lanes); stateless algorithms have none."""
+
+    def ensure_state(self, state: Dict, w_glob) -> None:
+        """Make the algorithm's state carriers on first use (they need the
+        model's size, so they cannot be made at construction)."""
+
+    def _staged_state_bytes(self, state: Dict) -> int:
+        """Device-resident algorithm-state bytes: the full (K + 1, P)
+        stacks and the shared models."""
+        return sum(state[f].numel() * state[f].element_size()
+                   for f in self._client_fields + self._shared_fields
+                   if f in state)
+
+    def _state_rows(self, ids: np.ndarray, live: np.ndarray) -> torch.Tensor:
+        """Scatter targets of a round's state update, on the device: live
+        lanes write their client's row, dead lanes the dump row K."""
+        rows = np.where(live, ids, self.fl.num_devices)
+        return torch.as_tensor(rows, dtype=torch.int64,
+                               device=self.trainer.device)
 
     def finish_block(self, sched: Schedule, state: Dict,
                      meter: CommMeter) -> None:
@@ -162,19 +204,21 @@ class FedAvg(_Planner):
     def _plan_round(self, t, rng, state):
         ids = self._sample(rng)
         plans = tuple(self._batch_plan(i, rng) for i in ids)
-        group = VisitGroup(hops=(Hop(tuple(ids), plans),),
-                           variant=self.variant,
-                           shared_extras=self._extra_specs(ids, state),
-                           agg=AggSpec.flat(self._weights(ids)))
+        shared, stacked = self._extra_specs(ids, state)
+        group = VisitGroup(
+            hops=(Hop(tuple(ids), plans),), variant=self.variant,
+            shared_extras=shared, stacked_extras=stacked,
+            agg=AggSpec.flat(self._weights(ids)),
+            keep_locals=self.keep_locals)
         n = self._transfers_per_client * len(ids)
         return RoundPlan(groups=(group,),
                          comm=(("cloud_down", n), ("cloud_up", n)))
 
-    def _extra_specs(self, ids, state) -> Dict:
-        """The cohort-shared extras of one visit; values are the ``GLOBAL``
-        sentinel, which the engines resolve at run time, so a whole
-        Schedule can be planned up front."""
-        return {}
+    def _extra_specs(self, ids, state) -> Tuple[Dict, Dict]:
+        """(shared, per-lane) extras of one cohort visit; the values are
+        ``GLOBAL`` and ``StateRef`` sentinels, which the engines resolve at
+        run time, so a whole Schedule can be planned up front."""
+        return {}, {}
 
 
 class FedProx(FedAvg):
@@ -182,7 +226,124 @@ class FedProx(FedAvg):
     variant = "prox"
 
     def _extra_specs(self, ids, state):
-        return {"anchor": GLOBAL}       # cohort-shared, broadcast to lanes
+        return {"anchor": GLOBAL}, {}   # cohort-shared, broadcast to lanes
+
+
+class Moon(FedAvg):
+    """Li et al. 2021 — model-contrastive loss. ``state["prev"]`` is the
+    (K + 1, P) stack of each client's previous local model; a client that
+    has not trained yet contrasts against the current global model
+    (``StateRef.fallback_global`` and the host ``seen`` mask)."""
+    variant = "moon"
+    keep_locals = True
+    _client_fields = ("prev",)
+
+    def _extra_specs(self, ids, state):
+        return ({"w_glob": GLOBAL},
+                {"w_prev": tuple(StateRef("prev", i, fallback_global=True)
+                                 for i in ids)})
+
+    def ensure_state(self, state, w_glob):
+        if "seen" in state:
+            return
+        state["prev"] = client_stack(w_glob, self.fl.num_devices)
+        state["seen"] = np.zeros(self.fl.num_devices + 1, bool)
+
+    def update_state(self, plan, w_before, result, lr, state):
+        grp = plan.groups[0]
+        ids = np.asarray(grp.hops[0].ids)
+        # a lane that ran no step scatters to the dump row and stays unseen
+        live = np.asarray(grp.lane_steps()) > 0
+        state["prev"] = scatter_rows(state["prev"],
+                                     self._state_rows(ids, live),
+                                     result.locals_)
+        state["seen"][ids[live]] = True
+
+    def state_to_ckpt(self, state):
+        if "prev" not in state:
+            return {}
+        return {"prev": pack_client_rows(state["prev"], state["seen"],
+                                         self.trainer.layout)}
+
+    def state_from_ckpt(self, ck, w_glob):
+        state: Dict = {}
+        if ck.get("prev"):
+            state["prev"], state["seen"] = unpack_client_rows(
+                ck["prev"], self.trainer.layout, self.fl.num_devices,
+                w_glob.device)
+        return state
+
+
+class Scaffold(_Planner):
+    """Karimireddy et al. 2020 — stochastic controlled averaging.
+
+    ``state["c"]`` is the (P,) server control variate and ``state["ci"]``
+    the (K + 1, P) client-variate stack (rows never trained are the zeros
+    the algorithm starts c_i at). Option II update for c_i:
+    c_i+ = c_i - c + (w_glob - w_i) / (K_i * lr)."""
+    variant = "scaffold"
+    keep_locals = True
+    _transfers_per_client = 2       # model + control variate each way
+    _client_fields = ("ci",)
+    _shared_fields = ("c",)
+
+    def _plan_round(self, t, rng, state):
+        ids = self._sample(rng)
+        plans = tuple(self._batch_plan(i, rng) for i in ids)
+        group = VisitGroup(
+            hops=(Hop(tuple(ids), plans),), variant="scaffold",
+            shared_extras={"c_glob": StateRef("c")},
+            stacked_extras={"c_local": tuple(StateRef("ci", i)
+                                             for i in ids)},
+            agg=AggSpec.flat(self._weights(ids)), keep_locals=True)
+        n = 2 * len(ids)                    # model + control variate
+        return RoundPlan(groups=(group,),
+                         comm=(("cloud_down", n), ("cloud_up", n)))
+
+    def ensure_state(self, state, w_glob):
+        if "c" in state:
+            return
+        state["c"] = torch.zeros_like(w_glob)
+        state["ci"] = client_stack(w_glob, self.fl.num_devices)
+        state["seen"] = np.zeros(self.fl.num_devices + 1, bool)
+
+    def update_state(self, plan, w_before, result, lr, state):
+        grp = plan.groups[0]
+        ids = np.asarray(grp.hops[0].ids)
+        steps = np.asarray(grp.lane_steps())
+        # K_i * lr per lane: the product in float64, rounded to float32 on
+        # the host, as the fused block ships it
+        kl = np.asarray([max(k, 1) * lr for k in steps], np.float32)
+        # lanes that ran no step scatter to the dump row and are left out
+        # of the server variate's mean and of the |S|/K fraction
+        live = steps > 0
+        n_live = int(live.sum())
+        mw = np.where(live, np.float32(1.0 / n_live), np.float32(0.0))
+        frac = np.float32(n_live / self.fl.num_devices)
+        dev = self.trainer.device
+        state["c"], state["ci"] = scaffold_step(
+            state["c"], state["ci"], self._state_rows(ids, live),
+            result.locals_, w_before, torch.from_numpy(kl).to(dev),
+            torch.from_numpy(mw).to(dev), torch.tensor(frac, device=dev))
+        state["seen"][ids[live]] = True
+
+    def state_to_ckpt(self, state):
+        if "c" not in state:
+            return {}
+        return {"c": dict(unravel(state["c"], self.trainer.layout)),
+                "ci": pack_client_rows(state["ci"], state["seen"],
+                                       self.trainer.layout)}
+
+    def state_from_ckpt(self, ck, w_glob):
+        state: Dict = {}
+        if "c" in ck:
+            state["c"] = torch.from_numpy(np.concatenate(
+                [np.asarray(ck["c"][k], np.float32).reshape(-1)
+                 for k, _ in self.trainer.layout])).to(w_glob.device)
+            state["ci"], state["seen"] = unpack_client_rows(
+                ck.get("ci") or {}, self.trainer.layout, self.fl.num_devices,
+                w_glob.device)
+        return state
 
 
 class RingOptimization(_Planner):
@@ -279,17 +440,42 @@ class FedSR(_Planner):
         return RoundPlan(groups=groups, comm=comm)
 
 
-ALGORITHMS = {"fedavg": FedAvg, "fedprox": FedProx,
-              "ring": RingOptimization, "hieravg": HierFAVG, "fedsr": FedSR}
-_NOT_PORTED = ("moon", "scaffold", "centralized")
+class Centralized(_Planner):
+    """Upper-bound reference: pooled-data SGD (the paper's "Centralized"
+    rows). No schedule to plan — one visit of the pooled shard a round, no
+    communication — so it bypasses the plan IR and trains through
+    ``LocalTrainer.train`` directly, under every engine."""
+
+    pipelinable = False
+
+    def __init__(self, trainer, clients, fl):
+        if fl.scenario.active or fl.adversary.active:
+            raise ValueError(
+                "algorithm='centralized' bypasses the RoundPlan IR — "
+                "scenario and adversary transforms cannot apply to pooled "
+                "SGD; disable them (scenario.frac=0, adversary.frac=0) "
+                "for the centralized baseline")
+        super().__init__(trainer, clients, fl)
+        self.pool = ClientData(-1, np.concatenate([c.images for c in clients]),
+                               np.concatenate([c.labels for c in clients]))
+
+    def run_schedule(self, w_glob, t0, lrs, rng, meter, state):
+        """A block is the per-round loop: each round one visit of the
+        pool, its batch plan drawn from ``rng`` as the reference draws it;
+        nothing to meter."""
+        for lr in lrs:
+            w_glob = self.trainer.train(w_glob, self.pool, lr=float(lr),
+                                        epochs=self.fl.local_epochs, rng=rng)
+        return w_glob, state
+
+
+ALGORITHMS = {"fedavg": FedAvg, "fedprox": FedProx, "moon": Moon,
+              "hieravg": HierFAVG, "ring": RingOptimization, "fedsr": FedSR,
+              "scaffold": Scaffold, "centralized": Centralized}
 
 
 def make_algorithm(name: str, trainer: LocalTrainer,
                    clients: List[ClientData], fl: FLConfig):
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"algorithm {name!r} is not ported yet (ROADMAP A4); the port "
-            f"runs {sorted(ALGORITHMS)}")
     if name not in ALGORITHMS:
         raise ValueError(f"unknown algorithm {name!r}")
     return ALGORITHMS[name](trainer, clients, fl)

@@ -1,32 +1,20 @@
 """Shared engine plumbing (the port's twin of the JAX package's
 ``core/engines/base.py``): what every plan interpreter holds, the
-residency hooks the block runner calls, and the per-round reference
+run-time resolution of ``GLOBAL`` and ``StateRef``, the residency hooks
+the block runner calls, and the per-round reference
 implementation of the Schedule block driver (``run``/``run_schedule``)
 that the sequential and batched engines use.
 """
 from __future__ import annotations
 
-from typing import Callable, List, Sequence
+from typing import Callable, List
 
 import torch
 
 from repro_torch.configs.base import FLConfig
-from repro_torch.core.plan import GLOBAL, RoundPlan, Schedule, VisitGroup
-
-
-def check_ported_plans(plans: Sequence[RoundPlan]) -> None:
-    """Refuse what the port's engines cannot run yet: loss variants other
-    than ``"plain"`` and FedProx's ``"prox"`` (MOON's and SCAFFOLD's). A
-    Schedule's plans share group structure, so the first plan with groups
-    decides."""
-    plan = next((p for p in plans if p.groups), None)
-    if plan is None:
-        return
-    for grp in plan.groups:
-        if grp.variant not in ("plain", "prox"):
-            raise NotImplementedError(
-                f"loss variant {grp.variant!r} is not ported yet "
-                "(ROADMAP A4)")
+from repro_torch.core.plan import (
+    GLOBAL, RoundPlan, RoundResult, Schedule, StateRef, VisitGroup,
+)
 
 
 class Engine:
@@ -36,12 +24,30 @@ class Engine:
     to the next (HierFAVG's edge iterations seed from it); the final
     group's collapsed aggregate is the round's global model. Engines never
     touch the comm meter (the executor applies ``plan.comm``) and never
-    draw from the RNG stream (planners pre-draw every batch plan)."""
+    draw from the RNG stream (planners pre-draw every batch plan).
+    ``state`` is the algorithm's device-resident memory (``core.state``):
+    plans name it only through ``StateRef``, resolved here at run time."""
 
     def __init__(self, trainer, clients: List, fl: FLConfig):
         self.trainer = trainer
         self.clients = clients
         self.fl = fl
+
+    @staticmethod
+    def _resolve(value, w_glob: torch.Tensor, state=None):
+        """A plan extra at run time: ``GLOBAL`` is ``w_glob``; a
+        ``StateRef`` is the global model while its client is unseen and
+        ``fallback_global`` is set, the state entry itself for
+        ``client < 0`` (SCAFFOLD's server variate), else the client's row
+        of the stack."""
+        if value is GLOBAL:
+            return w_glob
+        if isinstance(value, StateRef):
+            if value.fallback_global and not state["seen"][value.client]:
+                return w_glob       # the client has no row yet
+            entry = state[value.field]
+            return entry if value.client < 0 else entry[value.client]
+        return value
 
     def stage_data(self, visited) -> int:
         """Residency hook, called once per block with the block's visited
@@ -56,44 +62,49 @@ class Engine:
         — zeros for engines that never stage."""
         return 0.0, 0.0
 
-    def run(self, plan: RoundPlan, w_glob: torch.Tensor,
-            lr: float) -> torch.Tensor:
-        """One round: returns the final group's collapsed aggregate (no
-        groups: ``w_glob`` unchanged)."""
-        out, prev = w_glob, None    # prev: the previous group's aggregate
+    def run(self, plan: RoundPlan, w_glob: torch.Tensor, lr: float,
+            state=None) -> RoundResult:
+        """One round: the final group's collapsed aggregate (no groups:
+        ``w_glob`` unchanged) and, with ``keep_locals``, that group's
+        trained lanes as one (C, P) stack."""
+        result = RoundResult(w_glob)
+        prev = None     # the previous group's aggregate
         for grp in plan.groups:
-            prev = self._run_group(grp, w_glob, prev, lr)
+            prev, locals_ = self._run_group(grp, w_glob, prev, lr, state)
             if grp.agg.collapsed:
-                out = prev
-        return out
+                result.w_glob = prev
+            if grp.keep_locals:
+                result.locals_ = (torch.stack(locals_)
+                                  if isinstance(locals_, list) else locals_)
+        return result
 
     def run_schedule(self, sched: Schedule, w_glob: torch.Tensor, lrs,
                      state, update_fn: Callable) -> torch.Tensor:
         """Reference block driver: one ``run`` per plan, threading the
         global model and applying the algorithm's state update
-        (``update_fn(plan, w_before, w_after, lr, state)``) between
+        (``update_fn(plan, w_before, result, lr, state)``) between
         rounds — per-round semantics behind the block API. The fused
         engine overrides this with one call per block."""
-        check_ported_plans(sched.plans)
         for plan, lr in zip(sched.plans, lrs):
             lr = float(lr)
-            w_new = self.run(plan, w_glob, lr)
-            update_fn(plan, w_glob, w_new, lr, state)
-            w_glob = w_new
+            result = self.run(plan, w_glob, lr, state)
+            update_fn(plan, w_glob, result, lr, state)
+            w_glob = result.w_glob
         return w_glob
 
     def _run_group(self, grp: VisitGroup, w_glob: torch.Tensor, prev,
-                   lr: float):
+                   lr: float, state):
         """Execute one visit group, its seeded lanes starting from rows of
-        ``prev`` (the previous group's G edge models); returns its
-        aggregate: the (P,) model when ``grp.agg`` collapses, else the G
-        per-group models."""
+        ``prev`` (the previous group's G edge models); returns
+        ``(aggregate, lanes)``: the (P,) model when ``grp.agg`` collapses,
+        else the G per-group models, and the trained lanes (a list of (P,)
+        models or a (C, P) stack; None when not kept)."""
         raise NotImplementedError
 
-    @staticmethod
-    def _loss_kwargs(grp: VisitGroup, w_glob: torch.Tensor) -> dict:
+    def _loss_kwargs(self, grp: VisitGroup, w_glob: torch.Tensor,
+                     state) -> dict:
         """The group's loss variant and its cohort-shared extras as keyword
-        arguments of the trainer, ``GLOBAL`` resolved to ``w_glob``."""
+        arguments of the trainer, resolved (``_resolve``)."""
         return dict(variant=grp.variant,
-                    **{k: w_glob if v is GLOBAL else v
+                    **{k: self._resolve(v, w_glob, state)
                        for k, v in grp.shared_extras.items()})

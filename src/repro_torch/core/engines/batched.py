@@ -10,7 +10,9 @@ group carries the lane stack from hop to hop; a seeded group (HierFAVG's
 edge iterations) starts from a fresh stack of the previous group's edge
 models. The group's last call folds the reduce in (``agg=``): the eq.-11
 weighted cloud reduce, or the (G, C) per-edge reduce of an uncollapsed
-group.
+group; with ``keep_locals`` it returns the trained lanes too. Per-lane
+extras (MOON's ``w_prev``, SCAFFOLD's ``c_local``) are stacked along the
+lane axis on the device.
 
 The fused engine inherits ``_pad``. Its mesh-sharded form
 (``engine="sharded"``, ghost lanes up to a mesh multiple) is ROADMAP A5;
@@ -40,27 +42,41 @@ class BatchedEngine(Engine):
                            device=prev.device)
         return torch.index_select(prev, 0, idx)
 
-    def _run_group(self, grp, w_glob, prev, lr):
+    def _extras_kwargs(self, grp, w_glob, padded: int, state) -> dict:
+        """The group's loss variant and extras for ``train_many``: shared
+        ones resolved as they are, per-lane ones stacked along the lane
+        axis (ghost lanes padded with the global model; they never
+        train)."""
+        kw = self._loss_kwargs(grp, w_glob, state)
+        for k, refs in grp.stacked_extras.items():
+            rows = [self._resolve(v, w_glob, state) for v in refs]
+            kw[k] = torch.stack(rows + [w_glob] * (padded - len(rows)))
+        return kw
+
+    def _run_group(self, grp, w_glob, prev, lr, state):
         padded = self._pad(grp.lanes)
         agg = grp.agg.matrix(padded)
-        kw = self._loss_kwargs(grp, w_glob)
+        kw = self._extras_kwargs(grp, w_glob, padded, state)
+        keep = grp.keep_locals
         hops = grp.hops
         # the group-wide batch width: a single hop can hold only None plans
         B = next(p.shape[1] for h in hops for p in h.plans if p is not None)
         if grp.seed is None and len(hops) == 1:
             # star cohort: every lane starts from the global model
-            return self._train_hop(hops[0], padded, B, w_glob, lr,
-                                   broadcast=True, agg=agg, **kw)
+            out = self._train_hop(hops[0], padded, B, w_glob, lr,
+                                  broadcast=True, agg=agg, keep_locals=keep,
+                                  **kw)
+            return out if keep else (out, None)
         # ring lap sequence / seeded edge iteration: carry the lane stack
         # hop to hop; the LAST hop's call folds the reduce
         models = (w_glob.unsqueeze(0).expand(padded, -1).contiguous()
                   if grp.seed is None
                   else self._seed_stack(prev, grp.seed, padded))
-        for j, hop in enumerate(hops):
-            last = j == len(hops) - 1
-            models = self._train_hop(hop, padded, B, models, lr,
-                                     agg=agg if last else None, **kw)
-        return models
+        for hop in hops[:-1]:
+            models = self._train_hop(hop, padded, B, models, lr, **kw)
+        out = self._train_hop(hops[-1], padded, B, models, lr, agg=agg,
+                              keep_locals=keep, **kw)
+        return out if keep else (out, None)
 
     def _train_hop(self, hop: Hop, padded: int, width: int, params, lr,
                    **kw):

@@ -6,9 +6,10 @@ block stack along a leading round axis — ghost lanes, all-invalid hops and
 invalid steps pad rounds whose participation drew different shapes — into
 int32/bool/f32 arrays that are the block's entire H2D payload, and
 ``LocalTrainer.train_schedule`` runs them. A block of single-group plans
-stacks as a cohort (``_stack_cohort_schedule``); a block of HierFAVG's
-chained edge iterations as an iteration axis inside the round axis
-(``_stack_hier_schedule``).
+stacks as a cohort (``_stack_cohort_schedule``, with MOON's and
+SCAFFOLD's state lanes); a block of HierFAVG's chained edge iterations as
+an iteration axis inside the round axis (``_stack_hier_schedule``). The
+algorithm's device-resident state rides the block as its carry.
 """
 from __future__ import annotations
 
@@ -16,11 +17,14 @@ import dataclasses
 
 import numpy as np
 
-from repro_torch.core.engines.base import check_ported_plans
 from repro_torch.core.engines.batched import BatchedEngine
 from repro_torch.core.plan import Schedule
 from repro_torch.data.pipeline import DeviceDataPlane, stack_plan_indices
 from repro_torch.data.store import make_store
+
+
+# the state fields each variant's block carries (``core.state``)
+_CARRY = {"moon": ("prev",), "scaffold": ("c", "ci")}
 
 
 class FusedEngine(BatchedEngine):
@@ -50,19 +54,31 @@ class FusedEngine(BatchedEngine):
         return self.store.stage_seconds, self.store.overlapped_stage_seconds
 
     def run_schedule(self, sched: Schedule, w_glob, lrs, state, update_fn):
-        """The whole block as one ``train_schedule`` call. The ported
-        planners keep no state, so ``update_fn`` has nothing to apply."""
+        """The whole block as one ``train_schedule`` call. MOON's and
+        SCAFFOLD's state rides the call as its carry, so ``update_fn`` is
+        not called: the carry comes back into ``state`` after the call,
+        and the host ``seen`` mask advances from the plans (no device
+        readback)."""
         plans = sched.plans
         if not plans or not plans[0].groups:
             return w_glob       # ring_rounds=0: rounds leave w unchanged
-        check_ported_plans(plans)
+        grp = plans[0].groups[0]
         xs = (self._stack_hier_schedule(plans, lrs)
               if len(plans[0].groups) > 1
-              else self._stack_cohort_schedule(plans, lrs))
-        grp = plans[0].groups[0]
-        return self.trainer.train_schedule(
-            w_glob, self.plane, xs, variant=grp.variant,
-            shared_extras=grp.shared_extras)
+              else self._stack_cohort_schedule(plans, lrs, grp.variant,
+                                               state))
+        carry = {f: state[f] for f in _CARRY.get(grp.variant, ())}
+        w_glob, carry = self.trainer.train_schedule(
+            w_glob, self.plane, xs, carry, variant=grp.variant,
+            shared_extras=grp.shared_extras,
+            stacked_extras=grp.stacked_extras)
+        if carry:
+            state.update(carry)
+            for plan in plans:
+                g = plan.groups[0]
+                live = np.asarray(g.lane_steps()) > 0
+                state["seen"][np.asarray(g.hops[0].ids)[live]] = True
+        return w_glob
 
     def _schedule_dims(self, groups):
         """(lane pad, hop pad, step pad, batch width) over a block's
@@ -75,10 +91,18 @@ class FusedEngine(BatchedEngine):
                  for p in hop.plans if p is not None)
         return Cp, H, S, B
 
-    def _stack_cohort_schedule(self, plans, lrs):
+    def _stack_cohort_schedule(self, plans, lrs, variant: str = "plain",
+                               state=None):
         """Stack a block of single-group plans along the round axis:
         ``rows``/``plans``/``valid`` index arrays, per-round ``lr`` and the
-        collapsed eq.-11 weights ``aggv`` (ghost lanes weigh 0)."""
+        collapsed eq.-11 weights ``aggv`` (ghost lanes weigh 0); for MOON
+        and SCAFFOLD also the state-carry lanes: each lane's client row
+        ``ids`` (a dead lane's: the dump row K), MOON's ``use_prev`` (from
+        a copy of ``state["seen"]`` that advances round by round through
+        the block) and SCAFFOLD's float32-rounded ``K_i * lr`` divisors
+        ``kl``, mean weights ``mw`` and participation fractions ``frac``.
+        Byte-identical to the reference's arrays."""
+        K = self.fl.num_devices
         groups = [p.groups[0] for p in plans]
         n = len(groups)
         Cp, H, S, B = self._schedule_dims(groups)
@@ -86,6 +110,7 @@ class FusedEngine(BatchedEngine):
         idx = np.zeros((n, H, Cp, S, B), np.int32)
         valid = np.zeros((n, H, Cp, S), bool)
         aggv = np.zeros((n, Cp), np.float32)
+        ids = np.full((n, Cp), K, np.int32)
         for r, g in enumerate(groups):
             for h, hop in enumerate(g.hops):
                 rw, ix, vl = stack_plan_indices(
@@ -95,8 +120,35 @@ class FusedEngine(BatchedEngine):
             # hops past len(g.hops) stay all-invalid: every lane carried
             # unchanged, exactly the ring-tail rule
             aggv[r] = g.agg.matrix(Cp)
-        return {"rows": rows, "plans": idx, "valid": valid,
-                "lr": np.asarray(lrs, np.float32), "aggv": aggv}
+            live = np.asarray(g.lane_steps()) > 0
+            ids[r, :g.lanes] = np.where(live, np.asarray(g.hops[0].ids), K)
+        xs = {"rows": rows, "plans": idx, "valid": valid,
+              "lr": np.asarray(lrs, np.float32), "aggv": aggv}
+        if variant == "moon":
+            seen = np.asarray(state["seen"]).copy()
+            use_prev = np.zeros((n, Cp), bool)
+            for r, g in enumerate(groups):
+                lane_ids = np.asarray(g.hops[0].ids)
+                live = np.asarray(g.lane_steps()) > 0
+                use_prev[r, :g.lanes] = seen[lane_ids]
+                seen[lane_ids[live]] = True
+            xs.update(ids=ids, use_prev=use_prev)
+        elif variant == "scaffold":
+            kl = np.ones((n, Cp), np.float32)
+            mw = np.zeros((n, Cp), np.float32)
+            frac = np.zeros(n, np.float32)
+            for r, g in enumerate(groups):
+                steps = np.asarray(g.lane_steps())
+                live = steps > 0
+                n_live = int(live.sum())
+                # the product in float64, then rounded, as update_state
+                kl[r, :g.lanes] = np.asarray(
+                    [max(k, 1) * float(lrs[r]) for k in steps], np.float32)
+                mw[r, :g.lanes] = np.where(live, np.float32(1.0 / n_live),
+                                           np.float32(0.0))
+                frac[r] = np.float32(n_live / K)
+            xs.update(ids=ids, kl=kl, mw=mw, frac=frac)
+        return xs
 
     def _stack_hier_schedule(self, plans, lrs):
         """Stack a block of HierFAVG plans: each round's R chained edge

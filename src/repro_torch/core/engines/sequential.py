@@ -2,7 +2,8 @@
 twin of the JAX package's ``core/engines/sequential.py``).
 
 Interprets a RoundPlan literally — every lane of a group is an independent
-chain of ``LocalTrainer.train`` calls over the pre-drawn batch plans,
+chain of ``LocalTrainer.train`` calls over the pre-drawn batch plans, with
+its own per-lane extras (MOON's ``w_prev``, SCAFFOLD's ``c_local``),
 aggregated in the reference's order by ``utils.tree.weighted_sum`` (the
 paper-faithful semantics every other engine must reproduce). Lanes are
 independent given their plans, so training lane by lane is exactly
@@ -25,21 +26,23 @@ from repro_torch.utils.tree import weighted_sum
 
 class SequentialEngine(Engine):
 
-    def _run_group(self, grp, w_glob, prev, lr):
-        kw = self._loss_kwargs(grp, w_glob)
+    def _run_group(self, grp, w_glob, prev, lr, state):
+        kw = self._loss_kwargs(grp, w_glob, state)
         lanes = []
         for c in range(grp.lanes):
+            lane_kw = dict(kw, **{k: self._resolve(refs[c], w_glob, state)
+                                  for k, refs in grp.stacked_extras.items()})
             w = w_glob if grp.seed is None else prev[grp.seed[c]]
             for hop in grp.hops:
                 if hop.plans[c] is None:        # ring tail: carried unchanged
                     continue
                 w = self.trainer.train(w, self.clients[hop.ids[c]], lr=lr,
-                                       plan=hop.plans[c], **kw)
+                                       plan=hop.plans[c], **lane_kw)
             lanes.append(w)
         agg = grp.agg
         groups = [weighted_sum([lanes[la] for la in members],
                                [agg.lane_weights[la] for la in members])
                   for members in agg.groups]
         if not agg.collapsed:
-            return groups
-        return weighted_sum(groups, agg.group_weights)
+            return groups, lanes
+        return weighted_sum(groups, agg.group_weights), lanes

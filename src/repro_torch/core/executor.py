@@ -13,12 +13,18 @@ package draws its initial weights from ``jax.random``, which torch cannot
 replay, so a parity run passes the reference's ``w_glob`` in, as numpy
 arrays or tensors) and ``device`` (the GPU unless the caller asks for
 another; there is no silent CPU fallback). ``on_block(t0, schedule)`` is
-called with every block's pre-drawn plans before the block runs.
+called with every block's pre-drawn plans before the block runs; an
+algorithm that bypasses the plan IR (Centralized, ``pipelinable =
+False``) has none, so it is called with ``schedule=None`` and the block
+runs through the algorithm's own ``run_schedule``, as the reference's
+serial driver runs it.
 
 Checkpoints (``checkpoint_dir``, ``checkpoint_every``, ``resume``) keep the
 reference's files and layout — ``model.msgpack``, ``algo_state.msgpack``
-and ``state.json`` — so a run saved by either package resumes in the
-other; on resume the checkpoint's weights replace ``init_params``. Only
+(MOON's and SCAFFOLD's state as per-client-id dicts, the ids tagged
+``"i:<id>"``) and ``state.json`` — so a run saved by either package
+resumes in the other; on resume the checkpoint's weights replace
+``init_params``. Only
 the serial block driver exists (the prefetch pipeline is ROADMAP A6), so
 the saved RNG state is the generator's state after the block, as the
 reference's serial driver saves it. The prefetch pipeline and
@@ -195,11 +201,18 @@ def run_experiment(
         stop = next_boundary(t)
         lrs = np.asarray([float(lr_fn(i)) for i in range(t, stop)])
         dispatch_t0 = time.perf_counter()
-        sched = algo.plan_schedule(t, len(lrs), rng, state)
-        if on_block is not None:
-            on_block(t, sched)
-        w_glob = algo.dispatch_block(sched, w_glob, lrs, state)
-        algo.finish_block(sched, state, meter)
+        if not algo.pipelinable:
+            # no plan IR (Centralized): the algorithm's own block loop
+            if on_block is not None:
+                on_block(t, None)
+            w_glob, state = algo.run_schedule(w_glob, t, lrs, rng, meter,
+                                              state)
+        else:
+            sched = algo.plan_schedule(t, len(lrs), rng, state)
+            if on_block is not None:
+                on_block(t, sched)
+            w_glob = algo.dispatch_block(sched, w_glob, lrs, state)
+            algo.finish_block(sched, state, meter)
         t = stop
         # `t == end`: a stop_after/rounds not aligned to eval_every still
         # gets its final partial block evaluated
@@ -247,6 +260,24 @@ _COMM_FIELDS = ("model_bytes", "cloud_up", "cloud_down", "edge_up",
                 "edge_down", "p2p")
 
 
+def _pack_state(state):
+    """Algorithm state as a msgpack-able tree: client-id keys (ints) become
+    the tagged strings ``"i:<id>"`` the reference writes."""
+    if isinstance(state, dict):
+        return {(f"i:{k}" if isinstance(k, int) else str(k)): _pack_state(v)
+                for k, v in state.items()}
+    return state
+
+
+def _unpack_state(obj):
+    """Inverse of ``_pack_state`` over a restored tree."""
+    if isinstance(obj, dict):
+        return {(int(k[2:]) if isinstance(k, str) and k.startswith("i:")
+                 else k): _unpack_state(v)
+                for k, v in obj.items()}
+    return obj
+
+
 def _save_checkpoint(ckdir: str, params: Mapping[str, torch.Tensor],
                      round_: int, rng_state: Dict, meter: CommMeter,
                      history: List[RoundRecord] = (),
@@ -255,7 +286,7 @@ def _save_checkpoint(ckdir: str, params: Mapping[str, torch.Tensor],
     serial driver's, after the block that ends at ``round_``."""
     os.makedirs(ckdir, exist_ok=True)
     save(f"{ckdir}/model.msgpack", params)
-    save(f"{ckdir}/algo_state.msgpack", state or {})
+    save(f"{ckdir}/algo_state.msgpack", _pack_state(state or {}))
     comm = {f: int(getattr(meter, f)) for f in _COMM_FIELDS}
     comm["sim_seconds"] = float(meter.sim_seconds)
     with open(f"{ckdir}/state.json", "w") as f:
@@ -272,5 +303,5 @@ def _restore_checkpoint(ckdir: str) -> Optional[Dict]:
         meta = json.load(f)
     out = {"w_glob": restore(f"{ckdir}/model.msgpack"), **meta}
     if os.path.exists(f"{ckdir}/algo_state.msgpack"):
-        out["state"] = restore(f"{ckdir}/algo_state.msgpack")
+        out["state"] = _unpack_state(restore(f"{ckdir}/algo_state.msgpack"))
     return out

@@ -1,7 +1,6 @@
 """Local training of the port — the twin of the JAX package's
-``core/local.py`` for the three ported engines (the ``"plain"`` loss and
-FedProx's ``"prox"``, weighted-mean reduce), for either small model (the
-paper's MLP or CNN).
+``core/local.py`` for the three ported engines (the four loss variants,
+weighted-mean reduce), for either small model (the paper's MLP or CNN).
 
 Parameters and momentum of C lanes each live in ONE contiguous ``(C, P)``
 buffer, in the sorted-leaf layout of ``utils.tree``; the model reads
@@ -19,9 +18,24 @@ engine has its entry point:
   and, inside a round, over the flat H*S steps of ``_run_hops`` (for
   HierFAVG over R chained edge iterations of one hop each).
 
-FedProx's ``"prox"`` loss adds ``mu/2 ||w - anchor||^2`` per lane to the
-classifier loss, the anchor being the round's global model; its gradient
-reaches the update through the same leaves, so the update is unchanged.
+The variants (``variant=`` and its extras, as in the reference):
+
+* ``"plain"`` — the classifier loss;
+* ``"prox"`` (FedProx) — plus ``mu/2 ||w - anchor||^2`` per lane, the
+  anchor the round's (P,) global model;
+* ``"moon"`` (MOON) — plus ``mu`` times the model-contrastive loss of each
+  lane's features against those of the (P,) global model ``w_glob``
+  (positive) and of its (C, P) previous local model ``w_prev``
+  (negative);
+* ``"scaffold"`` (SCAFFOLD) — the plain loss, and the momentum-free
+  drift-corrected update ``p - lr*(g + c_glob - c_local)`` with the (P,)
+  server variate and the (C, P) client variates. It never goes through
+  ``fused_sgd``, whatever ``use_fused_sgd`` says, as in the reference.
+
+The ``"prox"`` and ``"moon"`` gradients reach the momentum update through
+the same leaves, so ``fused_sgd``'s contract is unchanged. The fused
+block carries MOON's and SCAFFOLD's device-resident state
+(``core.state``) from round to round.
 
 A lane-stacked step (``_sgd_steps``, shared by ``train_many`` and
 ``_run_hops``; only the batch source differs) takes every lane's gradient
@@ -62,11 +76,15 @@ import torch
 
 from repro_torch.configs.base import FLConfig, ModelConfig
 from repro_torch.core.plan import GLOBAL
+from repro_torch.core.state import gather_rows, scaffold_step, scatter_rows
 from repro_torch.kernels.fused_sgd.ops import fused_sgd_lanes
 from repro_torch.kernels.fused_sgd.ref import flat_grads
 from repro_torch.models.registry import specs_for
 from repro_torch.data.pipeline import plan_epoch_indices
-from repro_torch.models.small import classifier_loss_lanes
+from repro_torch.models.small import (
+    classifier_loss_and_features_lanes, classifier_loss_lanes,
+    small_model_features_lanes,
+)
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.tree import unravel
 
@@ -78,17 +96,35 @@ def _h2d_nbytes(a) -> int:
     return a.size * min(a.dtype.itemsize, 4)
 
 
-def _loss_anchor(variant: str, anchor=None):
-    """The anchor that ``variant``'s loss reads: none for ``"plain"``, the
-    (P,) global model for FedProx's ``"prox"``."""
-    if variant == "plain":
-        return None
-    if variant != "prox":
-        raise NotImplementedError(
-            f"loss variant {variant!r} is not ported yet (ROADMAP A4)")
-    if anchor is None:
-        raise ValueError("the 'prox' loss needs anchor=")
-    return anchor
+# the extras each loss variant reads, in the reference's order; the
+# per-lane ones (MOON's w_prev, SCAFFOLD's c_local) are (C, P) stacks.
+# SCAFFOLD's feed its update; the others feed the loss (``lane_grads``).
+_EXTRAS = {"plain": (), "prox": ("anchor",), "moon": ("w_glob", "w_prev"),
+           "scaffold": ("c_glob", "c_local")}
+_PER_LANE = ("w_prev", "c_local")
+_LOSS_EXTRAS = ("anchor", "w_glob", "w_prev")
+
+
+def _variant_extras(variant: str, **extras) -> Dict[str, torch.Tensor]:
+    """The extras that ``variant`` reads, each required; the others are
+    ignored."""
+    if variant not in _EXTRAS:
+        raise ValueError(f"unknown loss variant {variant!r}")
+    out = {}
+    for k in _EXTRAS[variant]:
+        if extras.get(k) is None:
+            raise ValueError(f"the {variant!r} loss needs {k}=")
+        out[k] = extras[k]
+    return out
+
+
+def _cos(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The reference's cosine over the last axis: each side divided by its
+    norm plus 1e-8 (the norm as ``sqrt(sum(x*x))``, as ``jnp.linalg.norm``
+    computes it and differentiates it)."""
+    a = a / (torch.sqrt(torch.sum(a * a, -1, keepdim=True)) + 1e-8)
+    b = b / (torch.sqrt(torch.sum(b * b, -1, keepdim=True)) + 1e-8)
+    return torch.sum(a * b, -1)
 
 
 def masked_momentum_update(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
@@ -124,18 +160,29 @@ class LocalTrainer:
 
     # ------------------------------------------------------------------
     def lane_grads(self, params: torch.Tensor, batch: Dict[str, torch.Tensor],
-                   anchor: Optional[torch.Tensor] = None):
+                   anchor: Optional[torch.Tensor] = None, *,
+                   w_glob: Optional[torch.Tensor] = None,
+                   w_prev: Optional[torch.Tensor] = None):
         """Per-lane losses (C,) and the gradient as autograd's leaves, one
         contiguous (C, *shape) tensor per leaf in ``self.layout`` order,
         for the (C, P) flat lane stack ``params``. ``.contiguous()`` is a
         no-op on every leaf but the CNN's conv weights. With ``anchor`` (a
         (P,) model, never differentiated) each lane's loss is FedProx's,
         the reference's ``prox_loss``: the classifier loss plus
-        ``0.5 * mu * sum_k ||w_k - anchor_k||^2`` over the leaves."""
+        ``0.5 * mu * sum_k ||w_k - anchor_k||^2`` over the leaves. With
+        ``w_glob`` (P,) and ``w_prev`` (C, P) it is MOON's, the reference's
+        ``moon_loss``: the classifier loss plus ``mu`` times
+        ``-mean_b(pos - logaddexp(pos, neg))``, where ``pos`` and ``neg``
+        are the cosines (over ``moon_tau``) of each sample's features under
+        the lane's weights with those under ``w_glob`` and under the lane's
+        ``w_prev``; those two feature sets carry no gradient."""
         leaves = {k: v.detach().requires_grad_()
                   for k, v in unravel(params, self.layout).items()}
         with torch.enable_grad():
-            losses = classifier_loss_lanes(leaves, batch, self.cfg)
+            if w_glob is None:
+                losses = classifier_loss_lanes(leaves, batch, self.cfg)
+            else:
+                losses = self._moon_losses(leaves, batch, w_glob, w_prev)
             if anchor is not None:
                 anc = unravel(anchor, self.layout)
                 sq = sum(torch.square(leaves[k] - anc[k]).flatten(1).sum(1)
@@ -144,6 +191,26 @@ class LocalTrainer:
             grads = torch.autograd.grad(
                 losses.sum(), [leaves[k] for k, _ in self.layout])
         return losses.detach(), tuple(g.contiguous() for g in grads)
+
+    def _moon_losses(self, leaves, batch, w_glob: torch.Tensor,
+                     w_prev: torch.Tensor) -> torch.Tensor:
+        """MOON's per-lane loss (see ``lane_grads``): ``z_g`` is the one
+        global model's features on every lane's batch, ``z_p`` each lane's
+        previous local model's on its own."""
+        ce, z = classifier_loss_and_features_lanes(leaves, batch, self.cfg)
+        images = batch["images"]
+        C, B = images.shape[:2]
+        with torch.no_grad():
+            z_g = small_model_features_lanes(
+                unravel(w_glob.unsqueeze(0), self.layout),
+                images.reshape(1, C * B, *images.shape[2:]),
+                self.cfg).reshape(C, B, -1)
+            z_p = small_model_features_lanes(unravel(w_prev, self.layout),
+                                             images, self.cfg)
+        pos = _cos(z, z_g) / self.fl.moon_tau
+        neg = _cos(z, z_p) / self.fl.moon_tau
+        con = -torch.mean(pos - torch.logaddexp(pos, neg), dim=-1)
+        return ce + self.fl.mu * con
 
     def _update(self, p, grads, m, ok, lr, reset: bool) -> None:
         """The masked momentum step on the (C, P) stack ``p`` from the
@@ -156,27 +223,49 @@ class LocalTrainer:
             masked_momentum_update(p, flat_grads(grads, p.shape[0]), m, ok,
                                    lr, reset=reset, momentum=self.fl.momentum)
 
+    def _scaffold_update(self, p, grads, lr, c_glob, c_local,
+                         ok: Optional[torch.Tensor] = None) -> None:
+        """SCAFFOLD's momentum-free step, in place on the (C, P) stack
+        ``p``, leaf by leaf on views (no gradient is concatenated): the
+        reference's ``scaffold_update``, ``p - lr*(g + c - ci)``, or with
+        the (C,) step mask ``ok`` its ``masked_scaffold_update``,
+        ``p - (ok*lr)*(g + c - ci)``. Never ``fused_sgd``."""
+        rate = lr if ok is None else ok.to(p.dtype).view(-1, 1) * lr
+        for pk, ck, cik, g in zip(unravel(p, self.layout).values(),
+                                  unravel(c_glob, self.layout).values(),
+                                  unravel(c_local, self.layout).values(),
+                                  grads):
+            scale = rate if ok is None else rate.view(-1, *[1] * (g.dim() - 1))
+            pk.sub_(scale * (g + ck - cik))
+
     def _sgd_steps(self, params: torch.Tensor,
                    batch_at: Callable[[int], Dict[str, torch.Tensor]],
                    ok: torch.Tensor, lr: torch.Tensor, S: int,
-                   anchor: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   extras: Dict[str, torch.Tensor]) -> torch.Tensor:
         """The flat loop of masked SGD steps, in place on the (C, P) lane
         stack ``params``: step t trains on ``batch_at(t)`` (a (C, B, ...)
         batch), lanes where ``ok[t]`` (T, C) is False are left unchanged,
         and a client visit starts — the momentum is zeroed — when
-        t % S == 0 (the reference's per-step reset flag). ``anchor``:
-        FedProx's loss (``lane_grads``)."""
-        m = torch.zeros_like(params)
+        t % S == 0 (the reference's per-step reset flag). ``extras``: the
+        loss variant's (``_variant_extras``); SCAFFOLD's take its update
+        instead of the momentum step."""
+        scaffold = "c_glob" in extras
+        loss_kw = {k: v for k, v in extras.items() if k in _LOSS_EXTRAS}
+        m = None if scaffold else torch.zeros_like(params)
         for t in range(ok.shape[0]):
-            _, grads = self.lane_grads(params, batch_at(t), anchor)
-            self._update(params, grads, m, ok[t], lr, reset=t % S == 0)
+            _, grads = self.lane_grads(params, batch_at(t), **loss_kw)
+            if scaffold:
+                self._scaffold_update(params, grads, lr, extras["c_glob"],
+                                      extras["c_local"], ok[t])
+            else:
+                self._update(params, grads, m, ok[t], lr, reset=t % S == 0)
         return params
 
     @torch.no_grad()
     def _run_hops(self, params: torch.Tensor, plane, rows: torch.Tensor,
                   plans: torch.Tensor, valid: torch.Tensor,
                   lr: torch.Tensor,
-                  anchor: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  extras: Dict[str, torch.Tensor]) -> torch.Tensor:
         """The flat H*S-step gathered-SGD loop over one visit group, in
         place on the (C, P) lane stack ``params``; ``rows`` (H, C),
         ``plans`` (H, C, S, B) and ``valid`` (H, C, S) index the
@@ -196,7 +285,7 @@ class LocalTrainer:
                 "labels": torch.index_select(plane.labels, 0, gidx)
                 .reshape(C, -1),
             }
-        return self._sgd_steps(params, gather, flat_ok, lr, S, anchor)
+        return self._sgd_steps(params, gather, flat_ok, lr, S, extras)
 
     def _device_lr(self, lr: float) -> torch.Tensor:
         """A python learning rate as the (1,) float32 device tensor the
@@ -208,7 +297,11 @@ class LocalTrainer:
               epochs: Optional[int] = None,
               rng: Optional[np.random.Generator] = None,
               plan: Optional[np.ndarray] = None, variant: str = "plain",
-              anchor: Optional[torch.Tensor] = None) -> torch.Tensor:
+              anchor: Optional[torch.Tensor] = None,
+              w_glob: Optional[torch.Tensor] = None,
+              w_prev: Optional[torch.Tensor] = None,
+              c_glob: Optional[torch.Tensor] = None,
+              c_local: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One client visit (the sequential engine's unit): from the flat
         (P,) model ``params``, one step per row of the pre-drawn ``plan``
         (a (steps, batch) index array), or of one drawn from ``rng`` with
@@ -217,17 +310,23 @@ class LocalTrainer:
         stack; each step's batch moves H2D from the client's numpy shard
         and is metered into ``h2d_bytes``, and each step is one dispatch.
         The update is unmasked (see the module docstring). ``variant``
-        picks the loss: ``"prox"`` reads the (P,) ``anchor``. Returns the
-        trained (P,) model; ``params`` is left as it was."""
-        anchor = _loss_anchor(variant, anchor)
+        picks the loss and its extras, each a (P,) model here (the
+        client's own ``w_prev``/``c_local`` too). Returns the trained (P,)
+        model; ``params`` is left as it was."""
+        extras = {k: v.reshape(1, -1) if k in _PER_LANE else v
+                  for k, v in _variant_extras(
+                      variant, anchor=anchor, w_glob=w_glob, w_prev=w_prev,
+                      c_glob=c_glob, c_local=c_local).items()}
         if plan is None:
             if epochs is None or rng is None:
                 raise ValueError(
                     "train() needs a pre-drawn plan= or epochs= and rng= "
                     "to draw one")
             plan = plan_epoch_indices(client, self.fl.batch_size, epochs, rng)
+        scaffold = "c_glob" in extras
+        loss_kw = {k: v for k, v in extras.items() if k in _LOSS_EXTRAS}
         p = params.reshape(1, -1).clone()
-        m = torch.zeros_like(p)
+        m = None if scaffold else torch.zeros_like(p)
         lr = self._device_lr(lr)
         ok = torch.ones(1, dtype=torch.bool, device=p.device)
         mom = self.fl.momentum
@@ -237,8 +336,11 @@ class LocalTrainer:
             self.dispatches += 1
             _, grads = self.lane_grads(p, {
                 k: torch.from_numpy(v).to(self.device).unsqueeze(0)
-                for k, v in batch.items()}, anchor)
-            if self.fl.use_fused_sgd:
+                for k, v in batch.items()}, **loss_kw)
+            if scaffold:
+                self._scaffold_update(p, grads, lr, extras["c_glob"],
+                                      extras["c_local"])
+            elif self.fl.use_fused_sgd:
                 fused_sgd_lanes(p, grads, m, ok, lr, reset=s == 0,
                                 momentum=mom)
             else:
@@ -251,8 +353,13 @@ class LocalTrainer:
     @torch.no_grad()
     def train_many(self, params: torch.Tensor, batches: Dict[str, np.ndarray],
                    valid: np.ndarray, *, lr: float, broadcast: bool = False,
-                   agg: Optional[np.ndarray] = None, variant: str = "plain",
-                   anchor: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   agg: Optional[np.ndarray] = None, keep_locals: bool = False,
+                   variant: str = "plain",
+                   anchor: Optional[torch.Tensor] = None,
+                   w_glob: Optional[torch.Tensor] = None,
+                   w_prev: Optional[torch.Tensor] = None,
+                   c_glob: Optional[torch.Tensor] = None,
+                   c_local: Optional[torch.Tensor] = None):
         """One hop of C concurrent client visits as one call (the batched
         engine's unit). ``batches`` (``images`` (C, S, B, ...), ``labels``
         (C, S, B)) and the (C, S) step mask ``valid`` are host arrays
@@ -263,9 +370,12 @@ class LocalTrainer:
         steps leave their lane unchanged. ``agg`` (``AggSpec.matrix``) folds
         the reduce into the call: a (C,) weight vector returns the (P,)
         aggregate, a (G, C) matrix the (G, P) per-group stack; without it
-        the trained (C, P) stack is returned. ``variant``/``anchor``: the
-        loss, as in ``train``."""
-        anchor = _loss_anchor(variant, anchor)
+        the trained (C, P) stack is returned, and with ``keep_locals`` the
+        pair (aggregate, trained stack). ``variant`` and its extras: the
+        loss, as in ``train``, the per-lane ones (C, P) stacks."""
+        extras = _variant_extras(variant, anchor=anchor, w_glob=w_glob,
+                                 w_prev=w_prev, c_glob=c_glob,
+                                 c_local=c_local)
         self.h2d_bytes += (sum(_h2d_nbytes(v) for v in batches.values())
                            + _h2d_nbytes(valid))
         self.dispatches += 1
@@ -278,16 +388,20 @@ class LocalTrainer:
         lanes = (params.unsqueeze(0).expand(C, -1).contiguous() if broadcast
                  else params)
         self._sgd_steps(lanes, lambda s: {k: v[s] for k, v in dev.items()},
-                        ok, self._device_lr(lr), S, anchor)
+                        ok, self._device_lr(lr), S, extras)
         if agg is None:
             return lanes
-        return torch.from_numpy(np.asarray(agg, np.float32)).to(
+        out = torch.from_numpy(np.asarray(agg, np.float32)).to(
             self.device) @ lanes
+        return (out, lanes) if keep_locals else out
 
     @torch.no_grad()
     def train_schedule(self, w_glob: torch.Tensor, plane,
-                       xs: Dict[str, np.ndarray], *, variant: str = "plain",
-                       shared_extras: Optional[Dict] = None) -> torch.Tensor:
+                       xs: Dict[str, np.ndarray],
+                       carry: Optional[Dict[str, torch.Tensor]] = None, *,
+                       variant: str = "plain",
+                       shared_extras: Optional[Dict] = None,
+                       stacked_extras: Optional[Dict] = None):
         """An entire block of rounds as ONE call (one dispatch).
 
         ``w_glob`` is the global model as a flat (P,) vector. ``xs`` stacks
@@ -295,40 +409,73 @@ class LocalTrainer:
         ``engines.fused.FusedEngine``): ``rows`` (n, H, C), ``plans``
         (n, H, C, S, B), ``valid`` (n, H, C, S), ``lr`` (n,) and the
         collapsed eq.-11 weights ``aggv`` (n, C) — the block's whole H2D
-        payload. Each round broadcasts the carried global to the C lanes,
-        runs the hop loop and contracts ``aggv`` against the trained stack.
-        ``variant`` and ``shared_extras`` are the plans' loss inputs, a
-        ``GLOBAL`` extra read as each round's carried global (FedProx's
-        anchor). With ``wg`` in ``xs`` (HierFAVG) the H axis is the round's
+        payload — plus the state lanes of MOON and SCAFFOLD: each lane's
+        client row ``ids`` (n, C), MOON's ``use_prev`` (n, C), SCAFFOLD's
+        ``kl`` (n, C), ``mw`` (n, C) and ``frac`` (n,). Each round
+        broadcasts the carried global to the C lanes, runs the hop loop,
+        contracts ``aggv`` against the trained stack and updates the state
+        ``carry`` (``core.state``): MOON scatters the trained lanes into
+        its ``prev`` rows, SCAFFOLD applies ``scaffold_step`` to ``c`` and
+        ``ci``. ``variant`` and the plans' extras give the loss: ``GLOBAL``
+        reads the round's carried global; a ``StateRef`` reads ``carry``, a
+        per-lane one the rows ``ids`` of its client stack (with
+        ``fallback_global`` the carried global where ``use_prev`` is
+        False). With ``wg`` in ``xs`` (HierFAVG) the H axis is the round's
         R edge iterations of one hop each: each lane starts from its edge's
         row ``seed`` (n, C) of the (G, P) edge models (the carried global in
         iteration 0), and after every iteration but the last the per-edge
         reduce ``wg`` (n, G, C) gives the next edge models; the last applies
-        ``aggv``. Returns the new (P,) global model."""
+        ``aggv``. Returns the new (P,) global model and the new carry."""
         self.h2d_bytes += sum(_h2d_nbytes(v) for v in xs.values())
         self.dispatches += 1
         dev = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
                for k, v in xs.items()}
+        carry = dict(carry or {})
         n, H, C = xs["rows"].shape
         w = w_glob
         for r in range(n):
             x = {k: v[r] for k, v in dev.items()}
             lr = dev["lr"][r:r + 1]
-            anchor = _loss_anchor(variant, **{
-                k: w if v is GLOBAL else v
-                for k, v in (shared_extras or {}).items()})
+            ids = x["ids"].long() if "ids" in x else None
+            extras = self._block_extras(variant, shared_extras or {},
+                                        stacked_extras or {}, w, carry, x,
+                                        ids)
             if "wg" in x:
                 edges = w.unsqueeze(0).expand(x["wg"].shape[0], -1)
                 for it in range(H):
                     lanes = self._run_hops(
                         torch.index_select(edges, 0, x["seed"]), plane,
                         x["rows"][it:it + 1], x["plans"][it:it + 1],
-                        x["valid"][it:it + 1], lr, anchor)
+                        x["valid"][it:it + 1], lr, extras)
                     if it < H - 1:
                         edges = x["wg"] @ lanes
             else:
                 lanes = self._run_hops(
                     w.unsqueeze(0).expand(C, -1).contiguous(), plane,
-                    x["rows"], x["plans"], x["valid"], lr, anchor)
+                    x["rows"], x["plans"], x["valid"], lr, extras)
+            if variant == "moon":
+                carry["prev"] = scatter_rows(carry["prev"], ids, lanes)
+            elif variant == "scaffold":
+                carry["c"], carry["ci"] = scaffold_step(
+                    carry["c"], carry["ci"], ids, lanes, w, x["kl"],
+                    x["mw"], x["frac"])
             w = x["aggv"] @ lanes
-        return w
+        return w, carry
+
+    @staticmethod
+    def _block_extras(variant, shared, stacked, w, carry, x, ids):
+        """One round's loss extras inside the fused block, resolved from
+        the carried global ``w`` and the state ``carry``: ``GLOBAL`` is
+        ``w``, a shared ``StateRef`` its ``carry`` entry; a per-lane entry
+        (a ``StateRef`` a lane, all on one field) gathers the lanes' rows
+        ``ids`` of that client stack, and with ``fallback_global`` takes
+        ``w`` where ``use_prev`` is False (the client had no row yet)."""
+        out = {k: w if v is GLOBAL else carry[v.field]
+               for k, v in shared.items()}
+        for k, refs in stacked.items():
+            rows = gather_rows(carry[refs[0].field], ids)
+            if refs[0].fallback_global:
+                rows = torch.where(x["use_prev"].unsqueeze(1), rows,
+                                   w.unsqueeze(0))
+            out[k] = rows
+        return _variant_extras(variant, **out)

@@ -12,17 +12,18 @@ sequence, closed by the eq.-11 weighted cloud reduce (``AggSpec``). A
 HierFAVG round is R chained groups: each lane restarts from its edge's
 model, the previous group's uncollapsed per-edge aggregate (``seed``).
 
-Plans never hold the global model: ``GLOBAL`` marks "the current global
-model" where a group's extras refer to it (FedProx's anchor), and the
-engine resolves it at run time, so a whole block of rounds can be planned
-before any of them runs. The per-lane extras, ``StateRef``, ``keep_locals``
-and adversarial lane scales come with the algorithms that use them
-(ROADMAP A4, A7).
+Plans never hold the global model or the algorithms' state: ``GLOBAL``
+marks "the current global model" where a group's extras refer to it
+(FedProx's anchor, MOON's positive), ``StateRef`` a row or entry of the
+algorithm's device-resident state (``core.state``: MOON's previous locals,
+SCAFFOLD's variates), and the engine resolves both at run time, so a whole
+block of rounds can be planned before any of them runs. Adversarial lane
+scales are ROADMAP A7.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -38,6 +39,21 @@ class _Symbol:
 
 
 GLOBAL = _Symbol("GLOBAL")      # the current global model
+
+
+@dataclasses.dataclass(frozen=True)
+class StateRef:
+    """A reference into the algorithm's device-resident state, resolved by
+    the engine at run time: entry ``field`` of the state, row ``client`` of
+    its (K + 1, P) client stack (``-1``: the entry is one unstacked (P,)
+    model, SCAFFOLD's server variate). With ``fallback_global`` it resolves
+    to the current global model until the client's row has been written
+    (MOON's "the previous local defaults to the global model"); the state's
+    host ``seen`` mask decides, so resolving never reads the device."""
+
+    field: str
+    client: int = -1
+    fallback_global: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,18 +124,32 @@ class VisitGroup:
     ``seed`` is where each lane's model comes from: ``None`` broadcasts the
     global model to every lane; otherwise ``seed[c]`` indexes the previous
     group's (G, ...) aggregate stack. ``shared_extras`` are the loss
-    variant's cohort-shared inputs, each ``GLOBAL`` (FedProx's
-    ``{"anchor": GLOBAL}``)."""
+    variant's cohort-shared inputs (FedProx's ``{"anchor": GLOBAL}``,
+    SCAFFOLD's ``{"c_glob": StateRef("c")}``), ``stacked_extras`` hold one
+    entry a lane (MOON's ``w_prev``, SCAFFOLD's ``c_local``: a
+    ``StateRef`` into a client stack each). ``keep_locals`` asks the engine
+    to return the final group's trained lanes too (MOON's and SCAFFOLD's
+    state updates read them)."""
 
     hops: Tuple[Hop, ...]
     variant: str = "plain"
     shared_extras: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    stacked_extras: Dict[str, Tuple[Any, ...]] = dataclasses.field(
+        default_factory=dict)
     seed: Optional[Tuple[int, ...]] = None
     agg: Optional[AggSpec] = None
+    keep_locals: bool = False
 
     @property
     def lanes(self) -> int:
         return len(self.hops[0].ids)
+
+    def lane_steps(self) -> List[int]:
+        """Each lane's executed SGD steps, from the plans (engines need not
+        report them back from the device)."""
+        return [sum(h.plans[c].shape[0] for h in self.hops
+                    if h.plans[c] is not None)
+                for c in range(self.lanes)]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -170,3 +200,13 @@ class Schedule:
         ids = {i for p in self.plans for g in p.groups for h in g.hops
                for i in h.ids}
         return np.asarray(sorted(ids), np.int64)
+
+
+@dataclasses.dataclass
+class RoundResult:
+    """What an engine hands back after one round: the round's (P,) global
+    model and, when the final group has ``keep_locals``, its trained lanes
+    as one (C, P) stack."""
+
+    w_glob: Any
+    locals_: Optional[Any] = None

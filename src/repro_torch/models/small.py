@@ -22,7 +22,7 @@ rows the reference orders (h, w, c).
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -174,8 +174,15 @@ def small_model_features(params: Params, images: torch.Tensor,
                          cfg: ModelConfig) -> torch.Tensor:
     """Penultimate-layer representation of ONE model (MOON's contrastive
     loss reads it)."""
-    return _FEATURES_LANES[cfg.family](_one_lane(params),
-                                       images.unsqueeze(0), cfg)[0]
+    return small_model_features_lanes(_one_lane(params), images.unsqueeze(0),
+                                      cfg)[0]
+
+
+def small_model_features_lanes(params: Params, images: torch.Tensor,
+                               cfg: ModelConfig) -> torch.Tensor:
+    """Penultimate-layer representations of C lanes: leaves (C, ...),
+    images (C, B, ...) -> (C, B, features)."""
+    return _FEATURES_LANES[cfg.family](params, images, cfg)
 
 
 def init_small_model(gen: torch.Generator, cfg: ModelConfig,
@@ -225,6 +232,21 @@ def classifier_loss_lanes(params: Params, batch: Mapping[str, torch.Tensor],
     return _cross_entropy(
         small_model_apply_lanes(params, batch["images"], cfg),
         batch["labels"].long())
+
+
+def classifier_loss_and_features_lanes(
+        params: Params, batch: Mapping[str, torch.Tensor],
+        cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``classifier_loss_lanes`` and the penultimate features it read,
+    (C,) and (C, B, features), from one forward (MOON's loss reads
+    both)."""
+    z = small_model_features_lanes(params, batch["images"], cfg)
+    if cfg.family == "mlp":
+        w, b = (f"w{len(cfg.mlp_hidden)}", f"b{len(cfg.mlp_hidden)}")
+    else:
+        w, b = "fc1_w", "fc1_b"
+    logits = torch.bmm(z, params[w]) + params[b].unsqueeze(1)
+    return _cross_entropy(logits, batch["labels"].long()), z
 
 
 def classifier_accuracy(params: Params, images: torch.Tensor,

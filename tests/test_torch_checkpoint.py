@@ -6,9 +6,10 @@
   fused engine): a run interrupted after round 2 and resumed to round 4
   equals the uninterrupted run bit for bit, with its history, comm meters
   and ``rounds_to_accuracy``/``comm_to_accuracy`` answers — for FedSR,
-  FedAvg, FedProx, Ring and HierFAVG on a narrow MLP and FedSR on a narrow
-  CNN.
-* Across packages, both ways, for FedSR (MLP and CNN) and HierFAVG (MLP):
+  FedAvg, FedProx, Ring, HierFAVG, MOON, SCAFFOLD and Centralized on a
+  narrow MLP and FedSR on a narrow CNN.
+* Across packages, both ways, for FedSR (MLP and CNN), HierFAVG, MOON and
+  SCAFFOLD (MLP), the last two with their state:
   a run checkpointed by one package resumes in the other and matches the
   reference's uninterrupted run — eval rounds,
   comm meters and learning rates exactly, the restored history records
@@ -118,7 +119,8 @@ def test_checkpoint_files_are_the_reference_bytes(tmp_path):
 
 @pytest.mark.parametrize("family,algorithm", [
     ("mlp", "fedsr"), ("mlp", "fedavg"), ("mlp", "ring"), ("cnn", "fedsr"),
-    ("mlp", "fedprox"), ("mlp", "hieravg")])
+    ("mlp", "fedprox"), ("mlp", "hieravg"), ("mlp", "moon"),
+    ("mlp", "scaffold"), ("mlp", "centralized")])
 def test_resume_is_exact(tmp_path, family, algorithm):
     from repro_torch.core.executor import run_experiment
 
@@ -195,3 +197,74 @@ def test_checkpoint_resumes_across_packages(tmp_path, family, direction,
     final = (resumed.final_model if direction == "reference_to_port"
              else {k: jnp.asarray(v) for k, v in resumed.final_model.items()})
     assert_trees_close(to_numpy(final), full.final_model, atol=atol)
+
+
+def _state_file(ckdir):
+    from repro_torch.checkpoint.io import restore
+    from repro_torch.core.executor import _unpack_state
+
+    return _unpack_state(restore(os.path.join(ckdir, "algo_state.msgpack")))
+
+
+# the round-4 state of a run resumed in the other package against the
+# reference's uninterrupted run: MOON's previous local models are models,
+# held as the final weights are; SCAFFOLD's variates divide a model's
+# difference by K_i * lr (4 steps x 0.01 here), so they are held 1/0.04
+# times looser (measured on a CPU: 6.0e-8 for MOON's rows, 1.7e-5 for
+# SCAFFOLD's)
+STATE_ATOL = {"prev": 1e-4, "c": 1e-4 / 0.04, "ci": 1e-4 / 0.04}
+
+
+@pytest.mark.parametrize("algorithm", ["moon", "scaffold"])
+@pytest.mark.parametrize("direction", ["reference_to_port",
+                                       "port_to_reference"])
+def test_state_checkpoint_resumes_across_packages(tmp_path, direction,
+                                                  algorithm):
+    """MOON and SCAFFOLD: a run checkpointed after round 2 by one package
+    resumes in the other (its ``algo_state.msgpack`` holds MOON's previous
+    local models, or SCAFFOLD's server and client variates, by client id)
+    and matches the reference's uninterrupted run: eval rounds, comm and
+    learning rates exactly, accuracies within one test sample (ROADMAP
+    C6: never ``rounds`` or ``seconds``), final weights within 1e-4; the
+    round-4 checkpoints hold the same clients and leaves, their values
+    within ``STATE_ATOL``."""
+    from repro.core.executor import run_experiment as ref_run
+    from repro_torch.core.executor import run_experiment
+
+    ref, port, atol = _setup("mlp", algorithm=algorithm)
+    full_dir, ckdir = str(tmp_path / "full"), str(tmp_path / "ck")
+    full = _run(ref_run, ref, checkpoint_dir=full_dir, checkpoint_every=2)
+    if direction == "reference_to_port":
+        _run(ref_run, ref, checkpoint_dir=ckdir, checkpoint_every=2,
+             stop_after=2)
+        resumed = _run(run_experiment, port, device="cpu",
+                       checkpoint_dir=ckdir, checkpoint_every=2, resume=True)
+    else:
+        _run(run_experiment, port, device="cpu",
+             init_params=jax_init(ref[1], seed=11), checkpoint_dir=ckdir,
+             checkpoint_every=2, stop_after=2)
+        resumed = _run(ref_run, ref, checkpoint_dir=ckdir,
+                       checkpoint_every=2, resume=True)
+
+    test = ref[4]
+    assert [r.round for r in resumed.history] == [1, 2, 3, 4]
+    for a, b in zip(full.history, resumed.history):
+        assert b.comm == a.comm
+        assert np.float32(b.lr) == np.float32(a.lr)
+        assert abs(a.accuracy - b.accuracy) <= 1.0 / len(test) + 1e-6
+    final = (resumed.final_model if direction == "reference_to_port"
+             else {k: jnp.asarray(v) for k, v in resumed.final_model.items()})
+    assert_trees_close(to_numpy(final), full.final_model, atol=atol)
+
+    want, got = _state_file(full_dir), _state_file(ckdir)
+    fields = {"moon": ["prev"], "scaffold": ["c", "ci"]}[algorithm]
+    assert sorted(got) == sorted(want) == fields
+    for f in fields:
+        rows = {None: want[f]} if f == "c" else want[f]
+        got_rows = {None: got[f]} if f == "c" else got[f]
+        assert sorted(got_rows, key=str) == sorted(rows, key=str)
+        if f != "c":
+            assert sorted(rows) == [0, 1, 2, 3]    # K=4, every client seen
+        for i in rows:
+            assert sorted(got_rows[i]) == sorted(rows[i])
+            assert_trees_close(got_rows[i], rows[i], atol=STATE_ATOL[f])

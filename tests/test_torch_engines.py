@@ -21,7 +21,7 @@ package's, and against the port's own fused engine.
   otherwise, as the reference's own sequential engine does against its
   fused one), HierFAVG's seeded edge iterations included; the block size
   changes no bit of either engine's result.
-* The plan IR's seeding rules, and which plans the engines accept.
+* The plan IR's seeding rules.
 * A run checkpointed by the reference's sequential engine resumes in the
   port's; ``FLConfig()`` as it stands runs and matches the reference.
 """
@@ -39,27 +39,11 @@ from torch_parity import (
     CNN_RUN_ATOL, SMALL, assert_trees_close, configs, fl_kwargs, jax_init,
     mnist_tasks,
 )
+from torch_parity import assert_histories_equal as _assert_histories_equal
+from torch_parity import ref_run_recorded as _ref_run
 
 CPU = torch.device("cpu")
 ENGINES = ("sequential", "batched")
-
-
-def _ref_run(monkeypatch, **kw):
-    """The reference's ``run_experiment`` and the ``LocalTrainer`` it made
-    (its meters are not in the reference's ``ExperimentResult``)."""
-    import repro.core.executor as ref_executor
-
-    made = []
-
-    class Recorded(ref_executor.LocalTrainer):
-        def __init__(self, *a, **k):
-            super().__init__(*a, **k)
-            made.append(self)
-
-    with monkeypatch.context() as m:
-        m.setattr(ref_executor, "LocalTrainer", Recorded)
-        res = ref_executor.run_experiment(**kw)
-    return res, made[0]
 
 
 def _port_run(pm, pfl, ptr, pte, init, **kw):
@@ -72,19 +56,6 @@ def _port_run(pm, pfl, ptr, pte, init, **kw):
 
 def _flat(model) -> torch.Tensor:
     return torch.cat([v.reshape(-1) for _, v in sorted(model.items())])
-
-
-def _assert_histories_equal(ref, port, n_test: int) -> None:
-    """Eval rounds, comm meters and learning rates equal; every accuracy
-    the same count of correct test images (the two packages round the
-    float32 mean differently, so one count can read an ulp apart)."""
-    assert [r.round for r in ref.history] == [r.round for r in port.history]
-    for a, b in zip(ref.history, port.history):
-        assert round(a.accuracy * n_test) == round(b.accuracy * n_test), (
-            a.round, a.accuracy, b.accuracy)
-        assert a.comm == b.comm
-        assert a.rounds == b.rounds
-        assert np.float32(a.lr) == np.float32(b.lr)
 
 
 # ---------------------------------------------------------------------------
@@ -216,7 +187,8 @@ def test_one_prox_visit_matches_reference(use_fused_sgd):
     assert float((got - plain).abs().max()) > 100 * 1e-5
     with pytest.raises(ValueError, match="anchor="):
         tr.train(w, pclient, lr=0.05, plan=plan, variant="prox")
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+    # MOON's loss reads the global model and the client's previous one
+    with pytest.raises(ValueError, match="w_glob="):
         tr.train(w, pclient, lr=0.05, plan=plan, variant="moon")
 
 
@@ -420,38 +392,14 @@ def test_the_default_config_runs(monkeypatch):
 
 @pytest.mark.parametrize("engine", ENGINES)
 @pytest.mark.parametrize("override", [
-    {"algorithm": "moon"}, {"algorithm": "scaffold"},
-    {"algorithm": "centralized"}, {"store": "host"}, {"store": "stream"},
+    {"store": "host"}, {"store": "stream"},
     {"prefetch": 1}, {"reducer": "median"}, {"dp_clip": 1.0},
     {"mesh_data_axis": "data"}])
 def test_unported_options_raise_under_the_new_engines(engine, override):
     _, (pm, pfl) = configs(SMALL, **fl_kwargs(engine=engine, **override))
     _, (ptr, pte) = mnist_tasks(train_per_class=4, test_per_class=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP A[4-7]"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A[5-7]"):
         _port_run(pm, pfl, ptr, pte, None)
-
-
-def test_multi_group_and_variant_plans_raise():
-    """The engines run HierFAVG's seeded multi-group plans and FedProx's
-    ``"prox"`` variant; MOON's and SCAFFOLD's variants still name A4 under
-    every engine, before any training."""
-    from repro_torch.core.engines.base import check_ported_plans
-    from repro_torch.core.plan import GLOBAL, AggSpec, Hop, RoundPlan, VisitGroup
-
-    hop = Hop(ids=(0,), plans=(np.zeros((1, 2), np.int64),))
-    grp = VisitGroup(hops=(hop,), agg=AggSpec.flat([1.0]))
-    edge = VisitGroup(hops=(hop,), agg=AggSpec(groups=((0,),),
-                                               lane_weights=(1.0,)))
-    prox = dataclasses.replace(grp, variant="prox",
-                               shared_extras={"anchor": GLOBAL})
-    check_ported_plans([RoundPlan(groups=()), RoundPlan(groups=(grp,))])
-    check_ported_plans([RoundPlan(groups=(
-        edge, dataclasses.replace(grp, seed=(0,))))])
-    check_ported_plans([RoundPlan(groups=(prox,))])
-    for variant in ("moon", "scaffold"):
-        plan = RoundPlan(groups=(dataclasses.replace(grp, variant=variant),))
-        with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-            check_ported_plans([plan])
 
 
 def test_round_plan_refuses_a_seed_without_a_previous_aggregate():

@@ -4,8 +4,9 @@ baselines, against the JAX package's.
 * Host side, exactly: configs, ``make_task``, the partitions,
   ``plan_epoch_indices``/``stack_plan_indices``, the data plane's bytes,
   every ported planner's ``plan_schedule`` and the fused engine's stacked
-  block arrays (HierFAVG's ``_stack_hier_schedule`` too), comm meters,
-  ``h2d_bytes`` and ``dispatches``.
+  block arrays (HierFAVG's ``_stack_hier_schedule`` and MOON's and
+  SCAFFOLD's state lanes too), comm meters, ``h2d_bytes`` and
+  ``dispatches``.
 * One SGD step of the full-width paper MLP: per-lane loss and gradients
   within 1e-5 (f32, different summation orders), with the plain loss and
   with FedProx's.
@@ -252,6 +253,62 @@ def test_hieravg_schedule_and_block_arrays_are_identical(participation):
     assert pxs["wg"].shape == (3, 2, lanes)
 
 
+@pytest.mark.parametrize("participation", [1.0, 0.5])
+@pytest.mark.parametrize("algorithm", ["moon", "scaffold"])
+def test_state_schedule_and_block_arrays_are_identical(algorithm,
+                                                       participation):
+    """MOON and SCAFFOLD at K=8: FedAvg's cohort draws, MOON's
+    ``{"w_glob": GLOBAL}`` and per-lane ``StateRef("prev", i,
+    fallback_global=True)``, SCAFFOLD's ``StateRef("c")``/``("ci", i)`` and
+    its two transfers a client each way, ``keep_locals`` on. Same seed ->
+    identical plans, comm and RNG state, and every array of the fused
+    block byte for byte: the state lanes ``ids``, MOON's ``use_prev``
+    (from a ``seen`` mask that already holds clients 0, 2 and 5 and
+    advances round by round inside the block, so later rounds of a
+    participation-0.5 block mix seen and unseen lanes), SCAFFOLD's ``kl``
+    (products rounded from float64), ``mw`` and ``frac``."""
+    ref, port = _planners(participation, algorithm)
+    rr, pr = np.random.default_rng(7), np.random.default_rng(7)
+    # learning rates of the cosine schedule, whose K_i * lr products
+    # round differently in float32 and float64
+    lrs = np.asarray([0.01, 0.0099862953475457, 0.009945218953682733])
+    rs = ref.plan_schedule(0, 3, rr, {})
+    ps = port.plan_schedule(0, 3, pr, {})
+    assert_schedules_equal(rs, ps)
+    assert rr.bit_generator.state == pr.bit_generator.state
+    n_lanes = max(1, round(8 * participation))
+    for plan in ps.plans:
+        (grp,) = plan.groups
+        assert grp.keep_locals and grp.variant == algorithm
+        assert len(grp.hops) == 1 and grp.lanes == n_lanes
+        per = 2 if algorithm == "scaffold" else 1
+        assert plan.comm == (("cloud_down", per * n_lanes),
+                             ("cloud_up", per * n_lanes))
+    seen = np.zeros(9, bool)
+    seen[[0, 2, 5]] = True
+    rxs = ref.engine._stack_cohort_schedule(rs.plans, lrs, algorithm,
+                                            {"seen": seen.copy()})
+    pxs = port.engine._stack_cohort_schedule(ps.plans, lrs, algorithm,
+                                             {"seen": seen.copy()})
+    want = {"moon": ["use_prev"], "scaffold": ["frac", "kl", "mw"]}
+    assert sorted(rxs) == sorted(pxs) == sorted(
+        ["aggv", "ids", "lr", "plans", "rows", "valid"] + want[algorithm])
+    for k in pxs:
+        assert rxs[k].dtype == pxs[k].dtype, k
+        assert rxs[k].shape == pxs[k].shape, k
+        assert rxs[k].tobytes() == pxs[k].tobytes(), k
+    if algorithm == "moon" and participation < 1.0:
+        # round 0 reads the mask as given; later rounds see the block's
+        # own earlier clients
+        assert pxs["use_prev"][0].tolist() == seen[
+            list(ps.plans[0].groups[0].hops[0].ids)].tolist()
+        assert pxs["use_prev"][1:].any() and not pxs["use_prev"].all()
+    if algorithm == "scaffold":
+        steps = np.asarray(ps.plans[0].groups[0].lane_steps())
+        assert pxs["kl"][0].tolist() == [np.float32(k * lrs[0])
+                                         for k in steps]
+
+
 def test_blocks_meter_identically_and_train_alike():
     """Two blocks through ``run_schedule`` in both packages from the same
     weights: identical comm meters, ``h2d_bytes``, ``dispatches`` (one per
@@ -440,7 +497,8 @@ def test_importing_the_port_leaves_jax_unloaded():
             "repro_torch.core.algorithms", "repro_torch.core.local",
             "repro_torch.core.engines.fused",
             "repro_torch.core.engines.sequential",
-            "repro_torch.core.engines.batched", "repro_torch.data",
+            "repro_torch.core.engines.batched", "repro_torch.core.state",
+            "repro_torch.data",
             "repro_torch.data.store", "repro_torch.kernels.fused_sgd",
             "repro_torch.kernels.fused_sgd.kernel",
             "repro_torch.models.small", "repro_torch.configs.fedsr_mlp",
@@ -449,11 +507,15 @@ def test_importing_the_port_leaves_jax_unloaded():
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "from repro_torch.core.algorithms import (\n"
-            "    ALGORITHMS, FedAvg, FedProx, HierFAVG, RingOptimization)\n"
+            "    ALGORITHMS, Centralized, FedAvg, FedProx, HierFAVG, Moon,\n"
+            "    RingOptimization, Scaffold)\n"
             "assert ALGORITHMS['fedavg'] is FedAvg\n"
             "assert ALGORITHMS['fedprox'] is FedProx\n"
             "assert ALGORITHMS['ring'] is RingOptimization\n"
             "assert ALGORITHMS['hieravg'] is HierFAVG\n"
+            "assert ALGORITHMS['moon'] is Moon\n"
+            "assert ALGORITHMS['scaffold'] is Scaffold\n"
+            "assert ALGORITHMS['centralized'] is Centralized\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
             "print(bad)\n")
@@ -471,8 +533,6 @@ def test_importing_the_port_leaves_jax_unloaded():
     {"dp_clip": 1.0}, {"mesh_data_axis": "data"},
     {"scenario": "drop"}, {"adversary": "sign_flip"},
     {"personalize": "full"},
-    {"algorithm": "moon"}, {"algorithm": "scaffold"},
-    {"algorithm": "centralized"},
 ])
 def test_unported_options_raise(override):
     from repro_torch.configs.base import (

@@ -87,10 +87,43 @@ def assert_trees_close(a, b, *, atol: float, rtol: float = 0.0) -> None:
                                    err_msg=f"leaf {k}")
 
 
+def ref_run_recorded(monkeypatch, **kw):
+    """The reference's ``run_experiment`` and the ``LocalTrainer`` it made
+    (its meters are not in the reference's ``ExperimentResult``)."""
+    import repro.core.executor as ref_executor
+
+    made = []
+
+    class Recorded(ref_executor.LocalTrainer):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            made.append(self)
+
+    with monkeypatch.context() as m:
+        m.setattr(ref_executor, "LocalTrainer", Recorded)
+        res = ref_executor.run_experiment(**kw)
+    return res, made[0]
+
+
+def assert_histories_equal(ref, port, n_test: int) -> None:
+    """Eval rounds, comm meters and learning rates equal; every accuracy
+    the same count of correct test images (the two packages round the
+    float32 mean differently, so one count can read an ulp apart)."""
+    assert [r.round for r in ref.history] == [r.round for r in port.history]
+    for a, b in zip(ref.history, port.history):
+        assert round(a.accuracy * n_test) == round(b.accuracy * n_test), (
+            a.round, a.accuracy, b.accuracy)
+        assert a.comm == b.comm
+        assert a.rounds == b.rounds
+        assert np.float32(a.lr) == np.float32(b.lr)
+
+
 def assert_schedules_equal(ref_sched, port_sched) -> None:
     """Two Schedules (one per package) hold identical plans: same ids,
-    same batch-index arrays, same loss variants, shared extras and seeds,
-    same aggregation weights, comm records and simulated seconds."""
+    same batch-index arrays, same loss variants, shared and per-lane
+    extras (``GLOBAL``/``StateRef`` sentinels by name), seeds and
+    ``keep_locals``, same aggregation weights, comm records and simulated
+    seconds."""
     assert ref_sched.comm == port_sched.comm
     assert len(ref_sched.plans) == len(port_sched.plans)
     for rp, pp in zip(ref_sched.plans, port_sched.plans):
@@ -103,6 +136,9 @@ def assert_schedules_equal(ref_sched, port_sched) -> None:
             # the sentinels are each package's own objects: compare names
             assert ({k: repr(v) for k, v in rg.shared_extras.items()}
                     == {k: repr(v) for k, v in pg.shared_extras.items()})
+            assert ({k: repr(v) for k, v in rg.stacked_extras.items()}
+                    == {k: repr(v) for k, v in pg.stacked_extras.items()})
+            assert rg.keep_locals == pg.keep_locals
             assert rg.agg.groups == pg.agg.groups
             assert rg.agg.lane_weights == pg.agg.lane_weights
             assert rg.agg.group_weights == pg.agg.group_weights
