@@ -120,7 +120,33 @@ non-zero at the end, before any result line is printed):
    round 1 and resumed from their checkpoint (state included), bit-equal
    to the uninterrupted GPU run. Then one steady round of each on the
    fused engine timed without the profiler and profiled.
-4. The yi-9b serving path at full width and 2 layers, GPU against CPU
+3f. Table IV's K=100 fleet under the staged stores and the prefetch
+   pipeline (``benchmarks/fl_tables.py::table4_scalability`` at
+   participation 0.2: a cohort of 20 clients; ``mnist_like`` at
+   2,000/400, the paper MLP at full width, ``num_edges=25``, pathological
+   xi=2, fused, ``use_fused_sgd=True``, an eval every round, so every round
+   is a block staged again): FedSR (E=1, R=5) and MOON (E=5, R=1), three
+   rounds each under ``store`` and ``prefetch`` (device, 0), (host, 0),
+   (host, 1), (stream, 0) and (stream, 1) on the GPU, (host, 1) also on
+   the CPU with phase 3's checks. Every GPU run bit-equal to the (device,
+   0) run (final model, accuracies, comm); ``fused_sgd`` launches and
+   dispatches as the plans imply and as the literals say;
+   ``peak_device_bytes`` and ``h2d_bytes`` equal to the literals that the
+   JAX package and the port give on a CPU (``TABLE4_PEAK``,
+   ``TABLE4_H2D``), the host store's below the device store's, the
+   pipeline's at most twice the serial one; staging measured, and part of
+   it hidden under ``prefetch=1``; the (host, 1) model GPU against CPU
+   within ``ENGINE_ROUND1_TOL`` with the 1.03x learning rate outside. Then
+   the allocator hazard of the side stream, through the store's API: an
+   arena dropped while a spin holds the current stream must keep the
+   values a queued read sees while the next prefetch stages (the same
+   sequence without ``record_stream`` is logged as a control). Logged:
+   each run's steady rounds, staging wall and ``overlap_fraction``, the
+   H2D rate of one cohort arena and of MOON's staged carry from
+   page-locked and from pageable memory, and the host time of a staged
+   block's pieces (the cohort arena's build, ``stage_rows`` and
+   ``unstage_rows`` of MOON's carry).
+4.The yi-9b serving path at full width and 2 layers, GPU against CPU
    from the same CPU-drawn weights, in float32 and in bfloat16:
    ``prefill_step`` at B=1, S=256 and ``prefill_and_decode`` at B=4,
    prompt 16, 8 new tokens; logits within stated bounds of the logit
@@ -1096,6 +1122,309 @@ def resume_check(run_experiment, fl, run, full, ckdir, tag) -> None:
     check(same and [(r.round, r.accuracy, r.comm) for r in full.history]
           == [(r.round, r.accuracy, r.comm) for r in resumed.history],
           f"{tag}: the resumed GPU run is not the uninterrupted one")
+
+
+# Phase 3f, Table IV's K=100 fleet (fl_tables.py::table4_scalability at
+# participation 0.2: a cohort of 20 clients a round) under the staged
+# stores and the prefetch pipeline, on the fused engine with an eval every
+# round, so every round is its own block and is staged again. Each client
+# holds 20 images, one batch of 32: FedSR (E=1, R=5) runs rings of four,
+# 20 hops of one step at 5 lanes a round; MOON (E=5, R=1) 5 steps at 20
+# lanes, its (K + 1, P) state stack 80.5 MB resident against a (V + 1, P)
+# staged carry of 16.7 MB.
+TABLE4_KW = {"num_devices": 100, "num_edges": 25, "partition": "pathological",
+             "xi": 2, "participation": 0.2, "rounds": 3}
+TABLE4 = {"fedsr": {"local_epochs": 1, "ring_rounds": 5},
+          "moon": {"local_epochs": 5, "ring_rounds": 1}}
+TABLE4_RUNS = (("device", 0), ("host", 0), ("host", 1), ("stream", 0),
+               ("stream", 1))
+# fused_sgd launches of a 3-round run (one dispatch a round), and each
+# run's peak_device_bytes and the trainer's h2d_bytes: the JAX package's
+# and the port's on a CPU (scripts/table4_literals.py, which checks that
+# the two agree). Device store: the fleet plane (6,280,400 bytes) and
+# MOON's 101-row stack; host and stream: a 20-client cohort arena
+# (1,256,400) and MOON's 21-row carry, two arenas at a prefetch's
+# hand-over; their h2d_bytes add the three staged cohorts.
+TABLE4_STEPS = {"fedsr": 60, "moon": 15}
+TABLE4_PEAK = {("fedsr", "device", 0): 6_280_400,
+               ("fedsr", "host", 0): 1_256_400,
+               ("fedsr", "host", 1): 2_512_800,
+               ("fedsr", "stream", 0): 1_256_400,
+               ("fedsr", "stream", 1): 2_512_800,
+               ("moon", "device", 0): 86_761_240,
+               ("moon", "host", 0): 17_990_040,
+               ("moon", "host", 1): 19_246_440,
+               ("moon", "stream", 0): 17_990_040,
+               ("moon", "stream", 1): 19_246_440}
+TABLE4_H2D = {("fedsr", "device"): 39_972, ("fedsr", "host"): 3_809_172,
+              ("fedsr", "stream"): 3_809_172, ("moon", "device"): 39_492,
+              ("moon", "host"): 3_808_692, ("moon", "stream"): 3_808_692}
+# The (host, 1) run's 3-round model GPU against CPU is held at
+# ENGINE_ROUND1_TOL. On a CPU (scripts/table4_literals.py --gaps, initial
+# seeds 0 and 1, three draws each) a relative 1e-7 change of the initial
+# weights moves it by 8.9e-8 to 1.7e-5 (FedSR: two draws of seed 1 land on
+# another of a round's few outcomes, ROADMAP C8) and 1.5e-7 to 1.2e-6
+# (MOON), the 1.03x learning rate by 3.2e-4 to 5.6e-4 and 1.8e-4 to
+# 2.9e-4.
+# The allocator check's spin holds the current stream for about 0.5 s
+# while the side stream stages two cohorts.
+HAZARD_SPIN_CYCLES = 1_000_000_000
+
+
+def table4_path(run_experiment, fused_sgd_lanes, cfg, fl, init) -> int:
+    """Phase 3f: FedSR and MOON at Table IV's K=100 on the fused engine
+    under each (store, prefetch) of ``TABLE4_RUNS``, three rounds each on
+    the GPU; the (host, 1) run also on the CPU with phase 3's checks.
+    Every GPU run must equal the (device, 0) run bit for bit (final model,
+    accuracies, comm), launch ``fused_sgd`` ``TABLE4_STEPS`` times, as its
+    plans imply, and meter the literal ``peak_device_bytes`` and
+    ``h2d_bytes``; the staged runs must have staged, and the pipelined ones
+    hidden some of it. The (host, 1) model GPU against CPU within
+    ``ENGINE_ROUND1_TOL``, the 1.03x learning rate outside. Logs each run's
+    steady rounds (rounds 2 and 3 of its history) and its staging wall.
+    Returns the ``fused_sgd`` launches of its GPU runs."""
+    launches = 0
+    for algorithm, kw in TABLE4.items():
+        base = None
+        for store, prefetch in TABLE4_RUNS:
+            tag = f"{algorithm}/{store}/{prefetch}"
+            tfl = dataclasses.replace(fl, algorithm=algorithm, store=store,
+                                      prefetch=prefetch, **TABLE4_KW, **kw)
+            if (store, prefetch) == ("host", 1):
+                runs = main_path(run_experiment, fused_sgd_lanes, cfg, tfl,
+                                 init, eval_every=1, tag=tag)
+                check_main_path(runs, 199_210, min_final_acc=None, tag=tag)
+                gpu, blocks, n, _ = runs["cuda"]
+                cpu = runs["cpu"][0]
+            else:
+                blocks = []
+                fused_sgd_lanes.launches = 0
+                gpu = run_experiment(
+                    task="mnist_like", model_cfg=cfg, fl=tfl, eval_every=1,
+                    init_params=init, device="cuda",
+                    on_block=lambda t, s, b=blocks: b.append((t, s)))
+                n = fused_sgd_lanes.launches
+            launches += n
+            derived = engine_counts(blocks, "fused")
+            want = (TABLE4_STEPS[algorithm], tfl.rounds)
+            peak = TABLE4_PEAK[algorithm, store, prefetch]
+            h2d = TABLE4_H2D[algorithm, store]
+            log(f"[{tag}] fused_sgd launches {n}, dispatches "
+                f"{gpu.dispatches}; the plans imply {derived}, the literals "
+                f"{want}; peak_device_bytes {gpu.peak_device_bytes} "
+                f"(literal {peak}), h2d_bytes {gpu.h2d_bytes} (literal "
+                f"{h2d}); accuracies "
+                f"{[round(r.accuracy, 4) for r in gpu.history]}")
+            check((n, gpu.dispatches) == derived == want,
+                  f"{tag}: launches and dispatches {(n, gpu.dispatches)}, "
+                  f"plans {derived}, literals {want}")
+            check(gpu.peak_device_bytes == peak,
+                  f"{tag}: peak_device_bytes {gpu.peak_device_bytes}, "
+                  f"expected {peak}")
+            check(gpu.h2d_bytes == h2d,
+                  f"{tag}: h2d_bytes {gpu.h2d_bytes}, expected {h2d}")
+            steady = [r.seconds * 1e3 / r.rounds for r in gpu.history[1:]]
+            log(f"[{tag}] steady rounds (2 and 3) "
+                + ", ".join(f"{ms:.2f}" for ms in steady) + " ms; staging "
+                f"{gpu.stage_seconds * 1e3:.3f} ms, of it hidden by a "
+                f"prefetch {gpu.overlapped_stage_seconds * 1e3:.3f} ms "
+                f"(overlap_fraction {gpu.overlap_fraction:.3f}); dispatch "
+                f"to fence {gpu.dispatch_seconds * 1e3:.2f} ms")
+            check(gpu.stage_seconds > 0, f"{tag}: nothing was staged")
+            check((gpu.overlapped_stage_seconds > 0)
+                  == (prefetch == 1 and store != "device"),
+                  f"{tag}: overlapped_stage_seconds "
+                  f"{gpu.overlapped_stage_seconds} under prefetch={prefetch}")
+            if base is None:
+                base = gpu
+                continue
+            same = all(torch.equal(gpu.final_model[k], base.final_model[k])
+                       for k in base.final_model)
+            log(f"[{tag}] against (device, 0) on the GPU: final model "
+                f"{'bit-equal' if same else 'differs'} (max |diff| "
+                f"{max_abs_diff(gpu.final_model, base.final_model):.3e})")
+            check(same and [(r.round, r.accuracy, r.comm)
+                            for r in gpu.history]
+                  == [(r.round, r.accuracy, r.comm) for r in base.history],
+                  f"{tag}: the run is not the (device, 0) run bit for bit")
+            if (store, prefetch) != ("host", 1):
+                continue
+            check(gpu.peak_device_bytes <= 2 * TABLE4_PEAK[
+                algorithm, store, 0], f"{tag}: the prefetch peak is more "
+                f"than twice the serial one")
+            err = max_abs_diff(gpu.final_model, cpu.final_model)
+            control = run_experiment(
+                task="mnist_like", model_cfg=cfg, init_params=init,
+                eval_every=1, device="cuda",
+                fl=dataclasses.replace(tfl, init_lr=tfl.init_lr * LR_CONTROL))
+            err_c = max_abs_diff(control.final_model, cpu.final_model)
+            log(f"[{tag}] the 3-round model, GPU against CPU: max |diff| "
+                f"{err:.3e} (bound {ENGINE_ROUND1_TOL}; above 1e-6: "
+                f"{diff_spread(gpu.final_model, cpu.final_model)}); "
+                f"control, the GPU run at {LR_CONTROL}x the learning rate: "
+                f"{err_c:.3e} (must exceed the bound)")
+            check(err <= ENGINE_ROUND1_TOL,
+                  f"{tag}: 3-round GPU model {err} from the CPU's")
+            check(err_c > ENGINE_ROUND1_TOL,
+                  f"{tag}: the bound does not tell a {LR_CONTROL}x learning "
+                  f"rate from the CPU's run")
+    allocator_hazard_check()
+    h2d_rates()
+    staging_times()
+    return launches
+
+
+def _hazard_clients():
+    """100 clients of 20 images of the paper MLP's 784 inputs, every pixel
+    of client i equal to i + 1: cohorts of equal size and unlike sums."""
+    from repro_torch.data.pipeline import ClientData
+
+    return [ClientData(i, np.full((20, 28, 28, 1), i + 1.0, np.float32),
+                       np.full(20, i % 10, np.int64)) for i in range(100)]
+
+
+def hazard_sequence(st, a_ids, b_ids, c_ids):
+    """Stage cohort A, hold the current stream with a spin, queue a read
+    of A (its sum), then prefetch and take cohort B (which drops A) and
+    prefetch cohort C of A's size. Returns A's sum read after the spin,
+    its host sum, whether C landed at A's old address, and whether the
+    spin still held the stream when C's staging was done (else the
+    sequence proves nothing)."""
+    plane = st.arena(a_ids)
+    a_ptr = plane.images.data_ptr()
+    want = float(sum(20 * 784 * (i + 1.0) for i in a_ids))
+    torch.cuda.synchronize()
+    torch.cuda._sleep(HAZARD_SPIN_CYCLES)
+    got = plane.images.double().sum()
+    held = torch.cuda.Event()
+    held.record()
+    del plane
+    st.prefetch(b_ids)
+    st.arena(b_ids)                     # drops A's arena
+    st.prefetch(c_ids)
+    c_plane = st._pending[1].result()[0]
+    live = not held.query()
+    reused = c_plane.images.data_ptr() == a_ptr
+    del c_plane
+    got = float(got)                    # waits for the spin and the sum
+    torch.cuda.synchronize()
+    return got, want, reused, live
+
+
+def hazard_run(record_stream: bool = True):
+    """``hazard_sequence`` on a host store of ``_hazard_clients``, once to
+    warm the allocators (a first cudaMalloc or cudaHostAlloc may wait for
+    the device, and so for the spin) and once measured; returns both
+    readings. ``record_stream=False`` replaces the hand-over's
+    ``record_stream`` with nothing, as a control."""
+    from repro_torch.data import store as store_mod
+
+    st = store_mod.HostStore(_hazard_clients(), "cuda")
+    orig = store_mod._StagedStore._hand_over
+
+    def no_record(self, plane, event):
+        if event is not None:
+            torch.cuda.current_stream(self.device).wait_event(event)
+
+    if not record_stream:
+        store_mod._StagedStore._hand_over = no_record
+    try:
+        warm = hazard_sequence(st, *(np.arange(k, k + 20)
+                                     for k in (0, 20, 40)))
+        measured = hazard_sequence(st, *(np.arange(k, k + 20)
+                                         for k in (60, 80, 0)))
+    finally:
+        store_mod._StagedStore._hand_over = orig
+        st.close()
+    return warm, measured
+
+
+def allocator_hazard_check() -> None:
+    """Phase 3f's direct check of ``record_stream`` at the hand-over: A's
+    sum, read after the spin, must equal its host sum, with the spin still
+    holding the stream when C was staged. The same sequence without
+    ``record_stream`` is logged, not checked (whether the allocator reuses
+    A's block at once is its own choice)."""
+    for record_stream in (True, False):
+        what = ("with record_stream" if record_stream else
+                "control, the hand-over without record_stream")
+        for name, (got, want, reused, live) in zip(
+                ("warm-up", "measured"), hazard_run(record_stream)):
+            log(f"[table4] allocator hazard, {what}, {name}: cohort A's "
+                f"sum read after the spin {got:.1f}, its host sum "
+                f"{want:.1f} ({'intact' if got == want else 'corrupted'}); "
+                f"the spin {'still held' if live else 'no longer held'} "
+                f"the stream when C was staged; C "
+                f"{'took' if reused else 'did not take'} A's old address")
+        if record_stream:
+            check(live, "the allocator check's spin ended before the "
+                  "prefetch staged C: the check proves nothing")
+            check(got == want, f"the sum of a dropped arena, read on the "
+                  f"current stream, changed under a prefetch: {got} "
+                  f"against {want}")
+
+
+def staging_times(reps: int = 10) -> None:
+    """What one staged block costs the host, piece by piece, at phase 3f's
+    sizes (medians of ``reps`` calls, each fenced): a 20-client cohort
+    arena built by the host store (gather into page-locked buffers, copy
+    on the side stream), and MOON's (V + 1, P) state carry staged from a
+    (100, 199,210) host arena (``stage_rows``) and written back
+    (``unstage_rows``: the readback and the host scatter)."""
+    from repro_torch.core.state import stage_rows, unstage_rows
+    from repro_torch.data.store import HostStore
+
+    st = HostStore(_hazard_clients(), "cuda")
+    arena = np.random.default_rng(0).standard_normal((100, 199_210),
+                                                     dtype=np.float32)
+    visited = np.arange(0, 100, 5)
+    times = {"cohort arena": [], "stage_rows": [], "unstage_rows": []}
+    try:
+        for i in range(reps + 2):
+            times["cohort arena"].append(st._build(visited)[2])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            staged = stage_rows(arena, visited, "cuda")
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            unstage_rows(arena, visited, staged)
+            t2 = time.perf_counter()
+            times["stage_rows"].append(t1 - t0)
+            times["unstage_rows"].append(t2 - t1)
+    finally:
+        st.close()
+    log("[time] one staged block's pieces (medians of "
+        f"{reps}, after 2 warm-up calls): "
+        + ", ".join(f"{k} {1e3 * float(np.median(v[2:])):.3f} ms"
+                    for k, v in times.items()))
+
+
+def h2d_rates(reps: int = 20) -> None:
+    """The H2D rate of one 20-client cohort arena (1,256,400 bytes) and of
+    MOON's staged state carry (21 x 199,210 float32, 16,733,640 bytes),
+    from page-locked and from pageable memory, by CUDA events: the median
+    of ``reps`` copies."""
+    for what, nbytes in (("one cohort arena", 1_256_400),
+                         ("MOON's staged carry", 21 * 199_210 * 4)):
+        rates = {}
+        for kind in ("pinned", "pageable"):
+            host = torch.empty(nbytes // 4, dtype=torch.float32,
+                               pin_memory=kind == "pinned")
+            dev = torch.empty_like(host, device="cuda")
+            times = []
+            for _ in range(reps):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                dev.copy_(host, non_blocking=kind == "pinned")
+                end.record()
+                torch.cuda.synchronize()
+                times.append(start.elapsed_time(end))
+            ms = float(np.median(times))
+            rates[kind] = (ms, nbytes / ms / 1e6)
+        log(f"[time] H2D of {what} ({nbytes:,} bytes): "
+            + ", ".join(f"{k} {ms:.4f} ms ({gbs:.2f} GB/s)"
+                        for k, (ms, gbs) in rates.items()))
 
 
 def time_launch(fn, reps: int = 50) -> float:
@@ -2507,6 +2836,15 @@ def main() -> int:
             f"device busy {r['busy_ms']:.3f} ms "
             f"({100 * r['busy_ms'] / r['wall_ms']:.1f}% of the unprofiled "
             f"round)")
+
+    # phase 3f: Table IV's K=100 fleet under the host and stream stores and
+    # the prefetch pipeline
+    t0 = time.perf_counter()
+    table4_launches = table4_path(run_experiment, fused_sgd_lanes, CONFIG,
+                                  fl, init)
+    log(f"[table4] fused_sgd launches of phase 3f's GPU runs: "
+        f"{table4_launches}; its runs in {time.perf_counter() - t0:.1f}s")
+    launches["fused_sgd"] += table4_launches
 
     # phases 4-7: the yi-9b and the mamba2-2.7b serving paths
     yi = ServePath(

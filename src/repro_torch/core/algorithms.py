@@ -18,6 +18,16 @@ and ``update_state`` folds them back after each round, or the fused
 engine carries the state through its block with the same functions.
 Centralized trains on the pooled shards and bypasses the plan IR. The
 scenario, adversary and DP axes are ROADMAP A7.
+
+The block boundary is also the residency protocol's boundary
+(``FLConfig.store="host"`` or ``"stream"``): ``dispatch_block`` stages the
+block's visited clients' state rows as ``(V + 1, P)`` cohort carries, with
+the fleet→cohort ``_rowmap`` the engines read, asks the engine to stage
+the cohort's data, records the residency and runs the block;
+``finish_block`` writes the trained rows back into the host arenas. Under
+the prefetch pipeline ``prefetch_block`` stages the next block's data in
+the background while a block runs, and its state rows too when the two
+blocks' visited sets are disjoint.
 """
 from __future__ import annotations
 
@@ -38,8 +48,8 @@ from repro_torch.core.plan import (
 from repro_torch.core.ring import ring_lap_hops
 from repro_torch.core.scenario import ScenarioState
 from repro_torch.core.state import (
-    client_stack, pack_client_rows, scaffold_step, scatter_rows,
-    unpack_client_rows,
+    client_stack, host_stack, pack_client_rows, rowmap_for, scaffold_step,
+    scatter_rows, stage_rows, unpack_client_rows, unstage_rows,
 )
 from repro_torch.core.topology import assign_edges, clusters_of, sample_ring
 from repro_torch.data.pipeline import ClientData, plan_epoch_indices
@@ -53,9 +63,12 @@ class _Planner:
     keep_locals = False
     pipelinable = True              # False: the algorithm bypasses the
                                     # Schedule IR (Centralized); the
-                                    # executor calls its run_schedule
+                                    # executor calls its run_schedule, and
+                                    # the serial driver under prefetch=1
     _transfers_per_client = 1       # model each way (SCAFFOLD ships 2)
-    _client_fields: Tuple[str, ...] = ()    # (K + 1, P) client stacks
+    _client_fields: Tuple[str, ...] = ()    # (K + 1, P) client stacks (host
+                                            # arenas, staged per block, under
+                                            # the staged stores)
     _shared_fields: Tuple[str, ...] = ()    # unstacked (P,) device models
                                             # (SCAFFOLD's server variate)
 
@@ -71,6 +84,9 @@ class _Planner:
         self.edges = assign_edges(fl.num_devices, fl.num_edges)
         self.scenario = ScenarioState(fl.scenario, fl.num_devices)
         self.residency = ResidencyMeter()
+        self._transient_state_bytes = 0     # the running block's staged
+                                            # carries while the next
+                                            # block's are staged early
 
     # -- the block runner -------------------------------------------------
     def run_schedule(self, w_glob, t0, lrs, rng: np.random.Generator,
@@ -84,15 +100,82 @@ class _Planner:
         return w_glob, state
 
     def dispatch_block(self, sched: Schedule, w_glob, lrs, state: Dict):
-        """Make the algorithm's state, stage the block's data, record the
-        residency (data plane plus state bytes) and run the block, with the
-        algorithm's state update between rounds where the engine runs round
-        by round."""
+        """Make the algorithm's state, stage the block's state rows and data
+        (taking over what a matching ``prefetch_block`` staged), record the
+        residency (data plane plus state bytes, and the double buffer's
+        high-water mark) and run the block, with the algorithm's state
+        update between rounds where the engine runs round by round."""
         self.ensure_state(state, w_glob)
-        data_bytes = self.engine.stage_data(sched.visited())
+        visited = sched.visited()
+        self._stage_state(state, visited)
+        data_bytes = self.engine.stage_data(visited)
         self.residency.record(data_bytes, self._staged_state_bytes(state))
+        # both pipeline arenas at the hand-over, plus the previous block's
+        # staged carries if this block's were staged while they were live
+        self.residency.record_transient(
+            self.engine.stage_pair_nbytes()
+            + self._staged_state_bytes(state) + self._transient_state_bytes)
+        self._transient_state_bytes = 0
         return self.engine.run_schedule(sched, w_glob, lrs, state,
                                         self.update_state)
+
+    def prefetch_block(self, sched: Schedule, inflight_visited, state: Dict
+                       ) -> None:
+        """Overlap the next block's staging with the running block: its
+        cohort data goes to the store's staging thread whatever the sets
+        (an arena depends on no block), while its state rows are staged
+        now only when the two blocks' visited sets are disjoint — the
+        running block writes its own rows back when it retires, so rows it
+        shares with the next block wait for ``finish_block`` and are
+        staged by ``_stage_state``."""
+        visited = sched.visited()
+        self.engine.prefetch_data(visited)
+        if (not self._staged_store or "_host" not in state
+                or not self._client_fields or inflight_visited is None):
+            return
+        if np.intersect1d(inflight_visited, visited).size:
+            return      # rows the running block will write: wait for it
+        stash = {f: stage_rows(state["_host"][f], visited,
+                               self.trainer.device)
+                 for f in self._client_fields}
+        # the stash and the running block's carries are both live now
+        self._transient_state_bytes = self._staged_state_bytes(state)
+        state["_stash"] = {"visited": visited, "rows": stash}
+
+    @property
+    def _staged_store(self) -> bool:
+        """True for the stores that stage per block (host RAM or disk)."""
+        return self.fl.store in ("host", "stream")
+
+    def _stage_state(self, state: Dict, visited: np.ndarray) -> None:
+        """Staged stores: upload the block's visited state rows as
+        ``(V + 1, P)`` cohort carries and publish the fleet→cohort rowmap
+        the engines read. A stash for the same visited set (staged while
+        the previous block ran, from rows that block did not touch) is
+        taken over instead of uploading again."""
+        if not self._staged_store or "_host" not in state:
+            return
+        stash = state.pop("_stash", None)
+        state["_visited"] = visited
+        state["_rowmap"] = rowmap_for(visited, self.fl.num_devices)
+        if stash is not None and np.array_equal(stash["visited"], visited):
+            for f in self._client_fields:
+                state[f] = stash["rows"][f]
+        else:
+            for f in self._client_fields:
+                state[f] = stage_rows(state["_host"][f], visited,
+                                      self.trainer.device)
+
+    def _unstage_state(self, state: Dict) -> None:
+        """Write the block's trained cohort rows back into the host arenas
+        (one readback a field) and drop the staged carries."""
+        if "_visited" not in state:
+            return
+        visited = state.pop("_visited")
+        state.pop("_rowmap")
+        for f in self._client_fields:
+            state["_host"][f] = unstage_rows(state["_host"][f], visited,
+                                             state.pop(f))
 
     def update_state(self, plan: RoundPlan, w_before, result: RoundResult,
                      lr: float, state: Dict) -> None:
@@ -105,21 +188,31 @@ class _Planner:
 
     def _staged_state_bytes(self, state: Dict) -> int:
         """Device-resident algorithm-state bytes: the full (K + 1, P)
-        stacks and the shared models."""
+        stacks (the staged (V + 1, P) carries under a staged store) and
+        the shared models."""
         return sum(state[f].numel() * state[f].element_size()
                    for f in self._client_fields + self._shared_fields
                    if f in state)
 
-    def _state_rows(self, ids: np.ndarray, live: np.ndarray) -> torch.Tensor:
+    def _state_rows(self, state: Dict, ids: np.ndarray,
+                    live: np.ndarray) -> torch.Tensor:
         """Scatter targets of a round's state update, on the device: live
-        lanes write their client's row, dead lanes the dump row K."""
+        lanes write their client's row, dead lanes the dump row K —
+        cohort rows through ``state["_rowmap"]`` under a staged store."""
         rows = np.where(live, ids, self.fl.num_devices)
+        rowmap = state.get("_rowmap")
+        if rowmap is not None:
+            rows = rowmap[rows]
         return torch.as_tensor(rows, dtype=torch.int64,
                                device=self.trainer.device)
 
     def finish_block(self, sched: Schedule, state: Dict,
                      meter: CommMeter) -> None:
-        """Apply the block's closed-form comm records and simulated time."""
+        """Retire a block: write its trained state rows back into the host
+        arenas (the staged stores' one readback, where the pipeline waits
+        for the block) and apply its closed-form comm records and simulated
+        time."""
+        self._unstage_state(state)
         if meter is not None:
             for channel, count in sched.comm:
                 meter.record(channel, count)
@@ -231,9 +324,11 @@ class FedProx(FedAvg):
 
 class Moon(FedAvg):
     """Li et al. 2021 — model-contrastive loss. ``state["prev"]`` is the
-    (K + 1, P) stack of each client's previous local model; a client that
-    has not trained yet contrasts against the current global model
-    (``StateRef.fallback_global`` and the host ``seen`` mask)."""
+    (K + 1, P) stack of each client's previous local model (under a staged
+    store a host (K, P) arena, ``state["_host"]["prev"]``, staged per
+    block); a client that has not trained yet contrasts against the
+    current global model (``StateRef.fallback_global`` and the host
+    ``seen`` mask)."""
     variant = "moon"
     keep_locals = True
     _client_fields = ("prev",)
@@ -246,7 +341,11 @@ class Moon(FedAvg):
     def ensure_state(self, state, w_glob):
         if "seen" in state:
             return
-        state["prev"] = client_stack(w_glob, self.fl.num_devices)
+        if self._staged_store:
+            state["_host"] = {"prev": host_stack(w_glob,
+                                                 self.fl.num_devices)}
+        else:
+            state["prev"] = client_stack(w_glob, self.fl.num_devices)
         state["seen"] = np.zeros(self.fl.num_devices + 1, bool)
 
     def update_state(self, plan, w_before, result, lr, state):
@@ -255,22 +354,30 @@ class Moon(FedAvg):
         # a lane that ran no step scatters to the dump row and stays unseen
         live = np.asarray(grp.lane_steps()) > 0
         state["prev"] = scatter_rows(state["prev"],
-                                     self._state_rows(ids, live),
+                                     self._state_rows(state, ids, live),
                                      result.locals_)
         state["seen"][ids[live]] = True
 
     def state_to_ckpt(self, state):
-        if "prev" not in state:
+        stack = (state["_host"]["prev"] if "_host" in state
+                 else state.get("prev"))
+        if stack is None:
             return {}
-        return {"prev": pack_client_rows(state["prev"], state["seen"],
+        return {"prev": pack_client_rows(stack, state["seen"],
                                          self.trainer.layout)}
 
     def state_from_ckpt(self, ck, w_glob):
         state: Dict = {}
         if ck.get("prev"):
-            state["prev"], state["seen"] = unpack_client_rows(
-                ck["prev"], self.trainer.layout, self.fl.num_devices,
-                w_glob.device)
+            if self._staged_store:
+                arena, state["seen"] = unpack_client_rows(
+                    ck["prev"], self.trainer.layout, self.fl.num_devices,
+                    False)
+                state["_host"] = {"prev": arena}
+            else:
+                state["prev"], state["seen"] = unpack_client_rows(
+                    ck["prev"], self.trainer.layout, self.fl.num_devices,
+                    w_glob.device)
         return state
 
 
@@ -279,7 +386,8 @@ class Scaffold(_Planner):
 
     ``state["c"]`` is the (P,) server control variate and ``state["ci"]``
     the (K + 1, P) client-variate stack (rows never trained are the zeros
-    the algorithm starts c_i at). Option II update for c_i:
+    the algorithm starts c_i at; under a staged store a host (K, P)
+    arena, ``state["_host"]["ci"]``, staged per block). Option II update for c_i:
     c_i+ = c_i - c + (w_glob - w_i) / (K_i * lr)."""
     variant = "scaffold"
     keep_locals = True
@@ -304,7 +412,10 @@ class Scaffold(_Planner):
         if "c" in state:
             return
         state["c"] = torch.zeros_like(w_glob)
-        state["ci"] = client_stack(w_glob, self.fl.num_devices)
+        if self._staged_store:
+            state["_host"] = {"ci": host_stack(w_glob, self.fl.num_devices)}
+        else:
+            state["ci"] = client_stack(w_glob, self.fl.num_devices)
         state["seen"] = np.zeros(self.fl.num_devices + 1, bool)
 
     def update_state(self, plan, w_before, result, lr, state):
@@ -322,7 +433,7 @@ class Scaffold(_Planner):
         frac = np.float32(n_live / self.fl.num_devices)
         dev = self.trainer.device
         state["c"], state["ci"] = scaffold_step(
-            state["c"], state["ci"], self._state_rows(ids, live),
+            state["c"], state["ci"], self._state_rows(state, ids, live),
             result.locals_, w_before, torch.from_numpy(kl).to(dev),
             torch.from_numpy(mw).to(dev), torch.tensor(frac, device=dev))
         state["seen"][ids[live]] = True
@@ -330,8 +441,9 @@ class Scaffold(_Planner):
     def state_to_ckpt(self, state):
         if "c" not in state:
             return {}
+        stack = state["_host"]["ci"] if "_host" in state else state["ci"]
         return {"c": dict(unravel(state["c"], self.trainer.layout)),
-                "ci": pack_client_rows(state["ci"], state["seen"],
+                "ci": pack_client_rows(stack, state["seen"],
                                        self.trainer.layout)}
 
     def state_from_ckpt(self, ck, w_glob):
@@ -340,9 +452,15 @@ class Scaffold(_Planner):
             state["c"] = torch.from_numpy(np.concatenate(
                 [np.asarray(ck["c"][k], np.float32).reshape(-1)
                  for k, _ in self.trainer.layout])).to(w_glob.device)
-            state["ci"], state["seen"] = unpack_client_rows(
-                ck.get("ci") or {}, self.trainer.layout, self.fl.num_devices,
-                w_glob.device)
+            if self._staged_store:
+                arena, state["seen"] = unpack_client_rows(
+                    ck.get("ci") or {}, self.trainer.layout,
+                    self.fl.num_devices, False)
+                state["_host"] = {"ci": arena}
+            else:
+                state["ci"], state["seen"] = unpack_client_rows(
+                    ck.get("ci") or {}, self.trainer.layout,
+                    self.fl.num_devices, w_glob.device)
         return state
 
 

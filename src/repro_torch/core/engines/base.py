@@ -1,7 +1,8 @@
 """Shared engine plumbing (the port's twin of the JAX package's
 ``core/engines/base.py``): what every plan interpreter holds, the
-run-time resolution of ``GLOBAL`` and ``StateRef``, the residency hooks
-the block runner calls, and the per-round reference
+run-time resolution of ``GLOBAL`` and ``StateRef`` (through a staged
+block's fleet→cohort row map), the residency and prefetch hooks the
+block runner calls, and the per-round reference
 implementation of the Schedule block driver (``run``/``run_schedule``)
 that the sequential and batched engines use.
 """
@@ -39,14 +40,21 @@ class Engine:
         ``StateRef`` is the global model while its client is unseen and
         ``fallback_global`` is set, the state entry itself for
         ``client < 0`` (SCAFFOLD's server variate), else the client's row
-        of the stack."""
+        of the stack — under a staged store the row of the block's
+        ``(V + 1, P)`` cohort carry that ``state["_rowmap"]`` maps the
+        fleet id to."""
         if value is GLOBAL:
             return w_glob
         if isinstance(value, StateRef):
             if value.fallback_global and not state["seen"][value.client]:
                 return w_glob       # the client has no row yet
             entry = state[value.field]
-            return entry if value.client < 0 else entry[value.client]
+            if value.client < 0:
+                return entry
+            rowmap = state.get("_rowmap")
+            row = value.client if rowmap is None else int(
+                rowmap[value.client])
+            return entry[row]
         return value
 
     def stage_data(self, visited) -> int:
@@ -55,6 +63,17 @@ class Engine:
         Only the fused engine keeps a device plane; the host-fed engines
         move batches from the shards where they live, so they stage
         nothing and report no device residency."""
+        return 0
+
+    def prefetch_data(self, visited) -> None:
+        """Pipeline hook (``FLConfig.prefetch=1``): start staging the next
+        block's data while the current block runs. The host-fed engines
+        have nothing to stage."""
+
+    def stage_pair_nbytes(self) -> int:
+        """Arena bytes live at once at the last block hand-over (both
+        pipeline buffers under prefetch, one otherwise); 0 for engines
+        without a device arena."""
         return 0
 
     def staging_stats(self):

@@ -14,7 +14,10 @@ group; with ``keep_locals`` it returns the trained lanes too. Per-lane
 extras (MOON's ``w_prev``, SCAFFOLD's ``c_local``) are stacked along the
 lane axis on the device.
 
-The fused engine inherits ``_pad``. Its mesh-sharded form
+This engine is host-fed, so a staged store (``FLConfig.store="host"`` or
+``"stream"``) changes nothing of its data path; MOON's and SCAFFOLD's rows
+arrive as the block's staged cohort carry, read through ``_resolve``'s
+row map. The fused engine inherits ``_pad``. Its mesh-sharded form
 (``engine="sharded"``, ghost lanes up to a mesh multiple) is ROADMAP A5;
 on one GPU no mesh exists, so lane padding is the identity.
 """

@@ -1,7 +1,10 @@
 """Fused engine: a whole block of rounds as ONE call (the port's twin of
 the JAX package's ``core/engines/fused.py``, ``run_schedule`` path).
 
-Client shards upload once (``DeviceStore``). The plans of an eval-to-eval
+Client shards come from the engine's store (``data.store``): the fleet
+uploaded once, or under ``store="host"``/``"stream"`` the block's cohort
+arena, staged at the block boundary or prefetched while the previous
+block runs. The plans of an eval-to-eval
 block stack along a leading round axis — ghost lanes, all-invalid hops and
 invalid steps pad rounds whose participation drew different shapes — into
 int32/bool/f32 arrays that are the block's entire H2D payload, and
@@ -31,24 +34,47 @@ class FusedEngine(BatchedEngine):
 
     def __init__(self, trainer, clients, fl):
         super().__init__(trainer, clients, fl)
+        # where the fleet lives between blocks is the store's policy
+        # (FLConfig.store): the upload-once fleet plane, or per-block
+        # cohort arenas that keep device bytes O(cohort) (data.store)
         self.store = make_store(fl.store, clients, trainer.device)
         self._arena: DeviceDataPlane = None
 
     @property
     def plane(self) -> DeviceDataPlane:
-        """The data plane serving the current block."""
+        """The data plane serving the current block, staged by
+        ``stage_data``; before any staging the store serves the whole
+        fleet."""
         if self._arena is None:
             self._arena = self.store.arena(None)
         return self._arena
 
     def stage_data(self, visited) -> int:
-        """Block boundary of the residency protocol: the device store
-        serves the same fleet plane every block (its one-time upload is
-        ``plane.nbytes``, not metered as per-block H2D)."""
+        """Block boundary of the residency protocol: ask the store for the
+        arena covering ``visited`` and report its resident bytes. The
+        device store serves the same fleet plane every block (its one-time
+        upload is ``plane.nbytes``, not metered as per-block H2D); the
+        host and stream stores upload the cohort, which is real H2D
+        traffic and lands on the trainer's ``h2d_bytes``. A matching
+        ``prefetch_data`` makes this call consume the arena staged in the
+        background."""
         if visited is not None and len(visited) == 0:
             return 0        # ring_rounds=0: the block gathers nothing
+        fresh = self.store.arena_nbytes(visited)
+        if self.store.kind in ("host", "stream"):
+            self.trainer.h2d_bytes += fresh
         self._arena = self.store.arena(visited)
         return self._arena.nbytes
+
+    def prefetch_data(self, visited) -> None:
+        """Hand the next block's cohort gather and upload to the store's
+        staging thread while the current block runs."""
+        if visited is not None and len(visited) == 0:
+            return          # ring_rounds=0: nothing to stage
+        self.store.prefetch(visited)
+
+    def stage_pair_nbytes(self) -> int:
+        return self.store.last_pair_nbytes
 
     def staging_stats(self):
         return self.store.stage_seconds, self.store.overlapped_stage_seconds
@@ -100,7 +126,8 @@ class FusedEngine(BatchedEngine):
         ``ids`` (a dead lane's: the dump row K), MOON's ``use_prev`` (from
         a copy of ``state["seen"]`` that advances round by round through
         the block) and SCAFFOLD's float32-rounded ``K_i * lr`` divisors
-        ``kl``, mean weights ``mw`` and participation fractions ``frac``.
+        ``kl``, mean weights ``mw`` and participation fractions ``frac``;
+        under a staged store ``ids`` are cohort rows (``state["_rowmap"]``).
         Byte-identical to the reference's arrays."""
         K = self.fl.num_devices
         groups = [p.groups[0] for p in plans]
@@ -122,6 +149,12 @@ class FusedEngine(BatchedEngine):
             aggv[r] = g.agg.matrix(Cp)
             live = np.asarray(g.lane_steps()) > 0
             ids[r, :g.lanes] = np.where(live, np.asarray(g.hops[0].ids), K)
+        rowmap = state.get("_rowmap") if isinstance(state, dict) else None
+        if rowmap is not None:
+            # a staged store: the state carry is the block's (V + 1, P)
+            # cohort stack, so fleet ids (and the fleet dump K) go through
+            # the fleet->cohort table (the dump K to the staged dump V)
+            ids = rowmap[ids]
         xs = {"rows": rows, "plans": idx, "valid": valid,
               "lr": np.asarray(lrs, np.float32), "aggv": aggv}
         if variant == "moon":

@@ -1,6 +1,6 @@
 """FL experiment executor of the port: dataset -> partition -> blocks of
 rounds -> eval history (the twin of the JAX package's
-``core/executor.py::run_experiment``, serial block loop).
+``core/executor.py::run_experiment``, its serial and pipelined drivers).
 
 Rounds run in eval-to-eval blocks — plan block -> run block -> eval ->
 record — through ``algo.dispatch_block``; under the fused engine a block is
@@ -24,14 +24,27 @@ reference's files and layout — ``model.msgpack``, ``algo_state.msgpack``
 (MOON's and SCAFFOLD's state as per-client-id dicts, the ids tagged
 ``"i:<id>"``) and ``state.json`` — so a run saved by either package
 resumes in the other; on resume the checkpoint's weights replace
-``init_params``. Only
-the serial block driver exists (the prefetch pipeline is ROADMAP A6), so
-the saved RNG state is the generator's state after the block, as the
-reference's serial driver saves it. The prefetch pipeline and
-personalization are not ported yet (ROADMAP A6, A8) and raise.
+``init_params``.
+
+``FLConfig.prefetch=1`` runs the same blocks through the pipelined
+driver: while block ``t`` runs, the host plans block ``t + 1``, hands its
+cohort arena to the store's staging thread and stages its state rows
+early when the visited sets are disjoint (``algo.prefetch_block``); the
+eval of block ``t`` is queued before that plan and read only when it is
+recorded. Planning order is the serial driver's (block ``t`` wholly
+planned before block ``t + 1``), so the RNG stream and every result are
+bit-equal to ``prefetch=0``; a checkpoint saves the RNG state snapshotted
+between the two plans, so a resumed run plans the lookahead block again
+identically. On the GPU a block's steps are enqueued from a Python loop
+and return only once the last is enqueued, so the prefetch overlaps the
+device's tail of the block, the eval and the next plan, not the step
+loop. Algorithms that bypass the plan IR (Centralized,
+``pipelinable = False``) run through the serial driver.
+Personalization is not ported yet (ROADMAP A8) and raises.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import os
@@ -78,14 +91,28 @@ class ExperimentResult:
     partition: str
     history: List[RoundRecord]
     final_model: Optional[Dict[str, torch.Tensor]] = None
-    peak_device_bytes: int = 0              # data plane + staged state (0
-                                            # under the host-fed engines)
-    stage_seconds: float = 0.0              # the data plane's upload wall
-    overlapped_stage_seconds: float = 0.0   # 0: no prefetch pipeline yet
+    peak_device_bytes: int = 0              # max over blocks of the data
+                                            # plane + staged state (0 under
+                                            # the host-fed engines; O(cohort)
+                                            # under the staged stores; both
+                                            # pipeline buffers under
+                                            # prefetch=1)
+    stage_seconds: float = 0.0              # host->device staging wall
+                                            # (store gathers + uploads)
+    overlapped_stage_seconds: float = 0.0   # the part of it a prefetch hid
+                                            # behind a running block
     dispatch_seconds: float = 0.0           # per-block dispatch-to-sync wall
     h2d_bytes: int = 0                      # LocalTrainer.h2d_bytes at the end
     dispatches: int = 0                     # LocalTrainer.dispatches (steps,
                                             # hop calls or blocks)
+
+    @property
+    def overlap_fraction(self) -> float:
+        """The share of the staging wall the prefetch pipeline hid (0.0
+        when nothing was staged, or under prefetch=0)."""
+        if self.stage_seconds <= 0.0:
+            return 0.0
+        return self.overlapped_stage_seconds / self.stage_seconds
 
     @property
     def final_accuracy(self) -> float:
@@ -106,15 +133,6 @@ class ExperimentResult:
 
 
 def _check_ported(fl: FLConfig) -> None:
-    if fl.store in ("host", "stream"):
-        # the reference's planners stage algorithm state per block under
-        # these stores, whatever the engine
-        raise NotImplementedError(
-            f"FLConfig.store={fl.store!r} is not ported yet (ROADMAP A6)")
-    if fl.prefetch:
-        raise NotImplementedError(
-            "the prefetch pipeline (prefetch=1) is not ported yet "
-            "(ROADMAP A6)")
     if fl.personalize.active:
         raise NotImplementedError(
             "personalization is not ported yet (ROADMAP A8)")
@@ -194,58 +212,121 @@ def run_experiment(
             stop = min(stop, t - t % checkpoint_every + checkpoint_every)
         return stop
 
+    def block_lrs(t: int, stop: int) -> np.ndarray:
+        return np.asarray([float(lr_fn(i)) for i in range(t, stop)])
+
+    def accuracy(w) -> torch.Tensor:
+        """The eval, queued: a 0-dim device tensor, read when recorded."""
+        return classifier_accuracy(unravel(w, layout), test_images,
+                                   test_labels, model_cfg)
+
     t = start_round
     last_time = time.perf_counter()
     last_round = start_round
-    while t < end:
-        stop = next_boundary(t)
-        lrs = np.asarray([float(lr_fn(i)) for i in range(t, stop)])
-        dispatch_t0 = time.perf_counter()
-        if not algo.pipelinable:
-            # no plan IR (Centralized): the algorithm's own block loop
-            if on_block is not None:
-                on_block(t, None)
-            w_glob, state = algo.run_schedule(w_glob, t, lrs, rng, meter,
-                                              state)
-        else:
-            sched = algo.plan_schedule(t, len(lrs), rng, state)
-            if on_block is not None:
-                on_block(t, sched)
-            w_glob = algo.dispatch_block(sched, w_glob, lrs, state)
-            algo.finish_block(sched, state, meter)
-        t = stop
-        # `t == end`: a stop_after/rounds not aligned to eval_every still
-        # gets its final partial block evaluated
-        if t % eval_every == 0 or t == end:
-            acc = float(classifier_accuracy(unravel(w_glob, layout),
-                                            test_images, test_labels,
-                                            model_cfg))
-            sync()
-            now = time.perf_counter()
+    dispatch_t0: Optional[float] = None
+
+    def record_eval(t_now: int, acc_dev: torch.Tensor, lrs) -> None:
+        """Read a queued eval (the read fences the device, so the clock
+        covers the block) and record the eval point."""
+        nonlocal last_time, last_round, dispatch_t0
+        acc = float(acc_dev)
+        sync()
+        now = time.perf_counter()
+        if dispatch_t0 is not None:
             algo.residency.record_dispatch(now - dispatch_t0)
-            history.append(RoundRecord(
-                round=t, accuracy=acc, comm=meter.snapshot(),
-                lr=float(lrs[-1]), seconds=now - last_time,
-                rounds=t - last_round,
-            ))
-            last_time, last_round = now, t
-            if not quiet:
-                print(f"  [{fl.algorithm:>12}] round {t:>3} "
-                      f"acc={acc:.4f} lr={lrs[-1]:.5f} "
-                      f"transfers={meter.total_transfers}")
-        if (checkpoint_dir and checkpoint_every
-                and t % checkpoint_every == 0):
-            _save_checkpoint(checkpoint_dir, unravel(w_glob, layout), t,
-                             rng.bit_generator.state, meter, history,
+            dispatch_t0 = None
+        history.append(RoundRecord(
+            round=t_now, accuracy=acc, comm=meter.snapshot(),
+            lr=float(lrs[-1]), seconds=now - last_time,
+            rounds=t_now - last_round,
+        ))
+        last_time, last_round = now, t_now
+        if not quiet:
+            print(f"  [{fl.algorithm:>12}] round {t_now:>3} "
+                  f"acc={acc:.4f} lr={lrs[-1]:.5f} "
+                  f"transfers={meter.total_transfers}")
+
+    def maybe_checkpoint(t_now: int, rng_state: Dict) -> None:
+        if checkpoint_dir and checkpoint_every and t_now % checkpoint_every == 0:
+            _save_checkpoint(checkpoint_dir, unravel(w_glob, layout), t_now,
+                             rng_state, meter, history,
                              algo.state_to_ckpt(state))
 
+    def plan(t: int):
+        """Plan the block that starts at round ``t``: its end, its learning
+        rates and its schedule (None for an algorithm without plans)."""
+        stop = next_boundary(t)
+        lrs = block_lrs(t, stop)
+        sched = (algo.plan_schedule(t, len(lrs), rng, state)
+                 if algo.pipelinable else None)
+        if on_block is not None:
+            on_block(t, sched)
+        return stop, lrs, sched
+
+    store = getattr(algo.engine, "store", None)
+    try:
+        if not (fl.prefetch > 0 and algo.pipelinable):
+            # the serial driver: plan -> stage -> run -> eval, one block at
+            # a time
+            while t < end:
+                if dispatch_t0 is None:
+                    dispatch_t0 = time.perf_counter()
+                stop, lrs, sched = plan(t)
+                if sched is None:
+                    # no plan IR (Centralized): the algorithm's own loop
+                    w_glob, state = algo.run_schedule(w_glob, t, lrs, rng,
+                                                      meter, state)
+                else:
+                    w_glob = algo.dispatch_block(sched, w_glob, lrs, state)
+                    algo.finish_block(sched, state, meter)
+                t = stop
+                # `t == end`: a stop_after/rounds not aligned to eval_every
+                # still gets its final partial block evaluated
+                if t % eval_every == 0 or t == end:
+                    record_eval(t, accuracy(w_glob), lrs)
+                maybe_checkpoint(t, rng.bit_generator.state)
+        else:
+            # the pipelined driver: while block t runs, plan block t + 1
+            # and start staging it
+            nxt = plan(t) if t < end else None
+            while nxt is not None:
+                stop, lrs, sched = nxt
+                if dispatch_t0 is None:
+                    dispatch_t0 = time.perf_counter()
+                w_glob = algo.dispatch_block(sched, w_glob, lrs, state)
+                is_eval = stop % eval_every == 0 or stop == end
+                # queue the eval without reading it
+                acc_dev = accuracy(w_glob) if is_eval else None
+                # the RNG between the two plans: a checkpoint at this
+                # boundary resumes by planning the lookahead block again
+                rng_snap = copy.deepcopy(rng.bit_generator.state)
+                nxt = None
+                if stop < end:
+                    nxt = plan(stop)
+                    # data to the staging thread; state rows now when the
+                    # visited sets are disjoint
+                    algo.prefetch_block(nxt[2], sched.visited(), state)
+                # retire the running block (the state write-back waits
+                # for it)
+                algo.finish_block(sched, state, meter)
+                t = stop
+                if is_eval:
+                    record_eval(t, acc_dev, lrs)
+                maybe_checkpoint(t, rng_snap)
+    finally:
+        if store is not None:
+            store.close()
+
+    # the store's staging wall and the part of it a prefetch hid
     stage_s, overlap_s = algo.engine.staging_stats()
     res = algo.residency
+    res.stage_seconds, res.overlapped_stage_seconds = stage_s, overlap_s
     return ExperimentResult(fl.algorithm, task, fl.partition, history,
                             final_model=unravel(w_glob, layout),
                             peak_device_bytes=res.peak_bytes,
-                            stage_seconds=stage_s,
-                            overlapped_stage_seconds=overlap_s,
+                            stage_seconds=res.stage_seconds,
+                            overlapped_stage_seconds=(
+                                res.overlapped_stage_seconds),
                             dispatch_seconds=res.dispatch_seconds,
                             h2d_bytes=trainer.h2d_bytes,
                             dispatches=trainer.dispatches)
@@ -283,7 +364,8 @@ def _save_checkpoint(ckdir: str, params: Mapping[str, torch.Tensor],
                      history: List[RoundRecord] = (),
                      state: Optional[Dict] = None) -> None:
     """``rng_state`` is the numpy bit-generator state to persist: the
-    serial driver's, after the block that ends at ``round_``."""
+    serial driver's after the block that ends at ``round_``; the pipelined
+    driver's snapshot from before the lookahead block was planned."""
     os.makedirs(ckdir, exist_ok=True)
     save(f"{ckdir}/model.msgpack", params)
     save(f"{ckdir}/algo_state.msgpack", _pack_state(state or {}))

@@ -157,21 +157,58 @@ class DeviceDataPlane:
     sample ``i`` lives at ``offsets[r] + i``. ``nbytes`` is the upload's
     size (labels counted as the int32 they are stored as, like the
     reference's plane).
+
+    ``client_ids`` builds a cohort plane (``data.store``'s host and stream
+    stores): only the given fleet ids' shards upload, but ``offsets``
+    stays fleet-sized (``fleet_size``), each visited id mapped to its
+    cohort-local flat start and every other id to row 0 (real data, only
+    ever gathered under an all-invalid mask). The fleet-id ``rows`` of
+    ``stack_plan_indices`` and the block's gather are untouched by it. By
+    default the plane holds the whole fleet in id order.
+
+    ``pinned`` gathers the shards straight into page-locked host buffers
+    and copies them with ``non_blocking=True`` on the current CUDA stream
+    (the stores' side stream), so the copy overlaps work on other
+    streams; the caller fences it.
     """
 
     def __init__(self, clients: Sequence["ClientData"],
-                 device: torch.device):
+                 device: torch.device, client_ids=None,
+                 fleet_size: Optional[int] = None, pinned: bool = False):
         if not clients:
             raise ValueError("DeviceDataPlane needs at least one client shard")
         self.num_clients = len(clients)
+        if client_ids is None:
+            client_ids = np.arange(len(clients))
+        client_ids = np.asarray(client_ids, np.int64)
+        if fleet_size is None:
+            fleet_size = len(clients)
         sizes = [len(c) for c in clients]
-        imgs = np.concatenate([c.images for c in clients])
-        labs = np.concatenate([c.labels for c in clients]).astype(np.int32)
-        offs = np.cumsum([0] + sizes[:-1]).astype(np.int32)
-        self.nbytes = imgs.nbytes + labs.nbytes + offs.nbytes
-        self.images = torch.from_numpy(imgs).to(device)
-        self.labels = torch.from_numpy(labs).to(device)
-        self.offsets = torch.from_numpy(offs).to(device)
+        total = sum(sizes)
+        c0 = clients[0]
+        imgs = _host_buffer((total,) + c0.images.shape[1:], c0.images.dtype,
+                            pinned)
+        labs = _host_buffer((total,), np.int32, pinned)
+        np.concatenate([c.images for c in clients], out=imgs.numpy())
+        np.concatenate([c.labels for c in clients], out=labs.numpy())
+        offs = _host_buffer((fleet_size,), np.int32, pinned)
+        offs.zero_()
+        offs.numpy()[client_ids] = np.cumsum([0] + sizes[:-1])
+        host = (imgs, labs, offs)
+        self.nbytes = sum(t.numel() * t.element_size() for t in host)
+        self.images, self.labels, self.offsets = (
+            t.to(device, non_blocking=pinned) for t in host)
+
+    def tensors(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The plane's three device tensors."""
+        return self.images, self.labels, self.offsets
+
+
+def _host_buffer(shape, dtype, pinned: bool) -> torch.Tensor:
+    """An empty host tensor of numpy ``dtype`` to gather into, page-locked
+    when ``pinned``."""
+    return torch.empty(shape, dtype=torch.from_numpy(np.empty(0, dtype)).dtype,
+                       pin_memory=pinned)
 
 
 @dataclasses.dataclass

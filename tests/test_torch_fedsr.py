@@ -527,9 +527,7 @@ def test_importing_the_port_leaves_jax_unloaded():
 
 
 @pytest.mark.parametrize("override", [
-    {"engine": "sharded"},
-    {"engine": "sequential", "store": "host"},
-    {"store": "host"}, {"prefetch": 1}, {"reducer": "median"},
+    {"engine": "sharded"}, {"reducer": "median"},
     {"dp_clip": 1.0}, {"mesh_data_axis": "data"},
     {"scenario": "drop"}, {"adversary": "sign_flip"},
     {"personalize": "full"},

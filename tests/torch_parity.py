@@ -6,10 +6,24 @@ in both packages, data and weights made from a seed with numpy — and
 compares what they return, exactly for host-side integer/plan data and
 within a stated tolerance for float math. Data crosses between the two
 packages only as numpy arrays.
+
+Imported at collection time, so in every pytest-xdist worker, it sets
+torch's intra-op pool to one thread there: each worker would otherwise
+open a pool as wide as the machine, and the workers together
+oversubscribe the cores many times over.
 """
 import dataclasses
+import os
 
 import numpy as np
+
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    try:
+        import torch
+    except ImportError:     # the reference-only CI has no torch
+        pass
+    else:
+        torch.set_num_threads(1)
 
 # A CNN run crosses ReLU and max-pool kinks millions of times, so the last
 # bit of a forward value can switch which side of a kink an element lands
