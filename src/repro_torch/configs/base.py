@@ -75,9 +75,11 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ScenarioConfig:
-    """Straggler/dropout knobs. Only the simulated clock (``rate_min``,
-    ``rate_max``, ``transfer_seconds``, ``time_threshold``) runs in the
-    port; an ``active`` scenario raises (ROADMAP A7)."""
+    """Straggler/dropout knobs (``core.scenario``): per-round drops, a
+    train-slow subset whose visits are truncated, a send-slow subset whose
+    uploads arrive stale, and the simulated clock (``rate_min``,
+    ``rate_max``, ``transfer_seconds``, ``time_threshold``), which runs
+    whether or not the scenario is ``active``."""
     drop_rate: float = 0.0
     train_slow_frac: float = 0.0
     send_slow_frac: float = 0.0
@@ -123,7 +125,9 @@ class ScenarioConfig:
 
 @dataclasses.dataclass(frozen=True)
 class AdversaryConfig:
-    """Attacker-model knobs; an active adversary raises (ROADMAP A7)."""
+    """Attacker-model knobs (``core.adversary``): a ``frac`` of the fleet
+    flips its labels, or uploads a sign-flipped or ``scale``-amplified
+    delta."""
     frac: float = 0.0
     kind: str = "sign_flip"         # label_flip | sign_flip | scale
     scale: float = 10.0

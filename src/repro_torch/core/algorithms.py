@@ -16,8 +16,14 @@ server variate) plus the host ``seen`` mask. Plans name them through
 ``StateRef``; the final group keeps its trained lanes (``keep_locals``)
 and ``update_state`` folds them back after each round, or the fused
 engine carries the state through its block with the same functions.
-Centralized trains on the pooled shards and bypasses the plan IR. The
-scenario, adversary and DP axes are ROADMAP A7.
+Centralized trains on the pooled shards and bypasses the plan IR.
+
+Two opt-in axes layer onto every plan at one seam (``plan_round``): an
+active scenario (``core.scenario``: drops, truncated visits, stale
+uploads) rewrites the plan and its comm records, and a Byzantine
+adversary (``core.adversary``) stamps ``lane_scale`` after the drops, so
+an attacker that dropped this round uploads nothing. Off, neither runs
+nor draws. Robust reducers and DP-SGD are ROADMAP A7.2 and A7.3.
 
 The block boundary is also the residency protocol's boundary
 (``FLConfig.store="host"`` or ``"stream"``): ``dispatch_block`` stages the
@@ -38,6 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import FLConfig
+from repro_torch.core.adversary import AdversaryState
 from repro_torch.core.comm import CommMeter, ResidencyMeter
 from repro_torch.core.engines import make_engine
 from repro_torch.core.local import LocalTrainer
@@ -74,15 +81,13 @@ class _Planner:
 
     def __init__(self, trainer: LocalTrainer, clients: List[ClientData],
                  fl: FLConfig):
-        if fl.adversary.active:
-            raise NotImplementedError(
-                "adversaries are not ported yet (ROADMAP A7)")
         self.trainer = trainer
         self.clients = clients
         self.fl = fl
         self.engine = make_engine(trainer, clients, fl)
         self.edges = assign_edges(fl.num_devices, fl.num_edges)
         self.scenario = ScenarioState(fl.scenario, fl.num_devices)
+        self.adversary = AdversaryState(fl.adversary, fl.num_devices)
         self.residency = ResidencyMeter()
         self._transient_state_bytes = 0     # the running block's staged
                                             # carries while the next
@@ -233,14 +238,39 @@ class _Planner:
 
     def plan_round(self, t: int, rng: np.random.Generator,
                    state: Dict) -> RoundPlan:
-        """The algorithm's pure plan, stamped with its simulated time."""
+        """The algorithm's pure plan (``_plan_round``), then, only when a
+        scenario is active, its drop/slow/stale transform with rebuilt comm
+        records, then a Byzantine adversary's ``lane_scale`` stamp (after
+        the drops), and last the simulated-clock stamp. An inactive
+        scenario never runs and never draws, and the adversary draws
+        nothing, so their absence leaves plans and the RNG stream as the
+        plain planner makes them."""
         plan = self._plan_round(t, rng, state)
+        if self.scenario.active:
+            plan, dropped = self.scenario.transform(plan, rng)
+            plan = dataclasses.replace(
+                plan, comm=self._scenario_comm(plan, dropped))
+        if self.adversary.byzantine:
+            plan = self.adversary.transform(plan)
         return dataclasses.replace(
             plan, sim_seconds=self.scenario.plan_seconds(plan))
 
     def _plan_round(self, t: int, rng: np.random.Generator,
                     state: Dict) -> RoundPlan:
         raise NotImplementedError
+
+    def _scenario_comm(self, plan: RoundPlan,
+                       dropped: set) -> Tuple[Tuple[str, int], ...]:
+        """Closed-form comm of the transformed plan, star form: the cloud
+        broadcasts to every sampled client (a drop shows only when its
+        upload never arrives) and the survivors upload, each transfer
+        ``_transfers_per_client`` models."""
+        if not plan.groups:
+            return plan.comm
+        grp = plan.groups[0]
+        live = sum(1 for p in grp.hops[0].plans if p is not None)
+        tpc = self._transfers_per_client
+        return (("cloud_down", tpc * grp.lanes), ("cloud_up", tpc * live))
 
     # -- algorithm state in checkpoints (the plain algorithms keep none) ---
     def state_to_ckpt(self, state: Dict) -> Dict:
@@ -464,6 +494,26 @@ class Scaffold(_Planner):
         return state
 
 
+def _ring_scenario_comm(self, plan, dropped):
+    """Comm of a transformed ring plan (FedSR's and Ring's, one group whose
+    lanes are rings): every ring still receives the broadcast, its
+    survivors pass the model around a ring shrunk to them, and only a lane
+    with a survivor uploads."""
+    if not plan.groups:
+        return plan.comm
+    grp = plan.groups[0]
+    R = self.fl.ring_rounds
+    p2p, live_lanes = 0, 0
+    for c in range(grp.lanes):
+        members = {hop.ids[c] for hop in grp.hops
+                   if hop.plans[c] is not None}
+        if members:
+            live_lanes += 1
+            p2p += ring_lap_hops(len(members), R)
+    return (("cloud_down", grp.lanes), ("p2p", p2p),
+            ("cloud_up", live_lanes))
+
+
 class RingOptimization(_Planner):
     """Paper §III-B standalone baseline: ONE global ring over all sampled
     devices, R laps per round; no cloud aggregation inside the ring."""
@@ -481,6 +531,8 @@ class RingOptimization(_Planner):
             groups = (VisitGroup(hops=self._ring_hops([ring], rng),
                                  agg=AggSpec.flat([1.0])),)
         return RoundPlan(groups=groups, comm=comm)
+
+    _scenario_comm = _ring_scenario_comm
 
 
 class HierFAVG(_Planner):
@@ -527,6 +579,23 @@ class HierFAVG(_Planner):
                      ("cloud_up", 1)]
         return RoundPlan(groups=groups, comm=tuple(comm))
 
+    def _scenario_comm(self, plan, dropped):
+        """Per edge: the cloud still broadcasts, the edge exchanges R
+        iterations with its surviving devices, and only an edge with a
+        survivor uploads back."""
+        if not plan.groups:
+            return plan.comm
+        grp = plan.groups[0]
+        R = self.fl.ring_rounds
+        comm = []
+        for lanes in grp.agg.groups:
+            live = sum(1 for c in lanes if grp.hops[0].plans[c] is not None)
+            comm.append(("cloud_down", 1))
+            if live:
+                comm += [("edge_down", R * live), ("edge_up", R * live),
+                         ("cloud_up", 1)]
+        return tuple(comm)
+
 
 class FedSR(_Planner):
     """Algorithm 1 — semi-decentralized star-ring.
@@ -556,6 +625,8 @@ class FedSR(_Planner):
                 hops=self._ring_hops(rings, rng),
                 agg=AggSpec.flat([s / total for s in sizes])),)
         return RoundPlan(groups=groups, comm=comm)
+
+    _scenario_comm = _ring_scenario_comm
 
 
 class Centralized(_Planner):

@@ -10,7 +10,10 @@ group carries the lane stack from hop to hop; a seeded group (HierFAVG's
 edge iterations) starts from a fresh stack of the previous group's edge
 models. The group's last call folds the reduce in (``agg=``): the eq.-11
 weighted cloud reduce, or the (G, C) per-edge reduce of an uncollapsed
-group; with ``keep_locals`` it returns the trained lanes too. Per-lane
+group; with ``keep_locals`` it returns the trained lanes too. An attacked
+group's ``lane_scale`` rides the same call (``dscale``), against the
+lanes' seed: the global model for a cohort or a ring, each lane's edge
+model for a seeded group. Per-lane
 extras (MOON's ``w_prev``, SCAFFOLD's ``c_local``) are stacked along the
 lane axis on the device.
 
@@ -23,6 +26,7 @@ on one GPU no mesh exists, so lane padding is the identity.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core.engines.base import Engine
@@ -56,9 +60,20 @@ class BatchedEngine(Engine):
             kw[k] = torch.stack(rows + [w_glob] * (padded - len(rows)))
         return kw
 
+    @staticmethod
+    def _dscale(grp, padded: int):
+        """The adversary's per-lane delta factors, ghost lanes padded with
+        the honest 1.0; None for an honest group."""
+        if grp.lane_scale is None:
+            return None
+        ds = np.ones(padded, np.float32)
+        ds[:grp.lanes] = grp.lane_scale
+        return ds
+
     def _run_group(self, grp, w_glob, prev, lr, state):
         padded = self._pad(grp.lanes)
-        agg = grp.agg.matrix(padded)
+        red = dict(agg=grp.agg.matrix(padded), keep_locals=grp.keep_locals,
+                   dscale=self._dscale(grp, padded))
         kw = self._extras_kwargs(grp, w_glob, padded, state)
         keep = grp.keep_locals
         hops = grp.hops
@@ -67,18 +82,20 @@ class BatchedEngine(Engine):
         if grp.seed is None and len(hops) == 1:
             # star cohort: every lane starts from the global model
             out = self._train_hop(hops[0], padded, B, w_glob, lr,
-                                  broadcast=True, agg=agg, keep_locals=keep,
-                                  **kw)
+                                  broadcast=True, **red, **kw)
             return out if keep else (out, None)
         # ring lap sequence / seeded edge iteration: carry the lane stack
         # hop to hop; the LAST hop's call folds the reduce
-        models = (w_glob.unsqueeze(0).expand(padded, -1).contiguous()
-                  if grp.seed is None
+        # repeat copies even one lane: the steps train the stack in place
+        models = (w_glob.repeat(padded, 1) if grp.seed is None
                   else self._seed_stack(prev, grp.seed, padded))
+        if grp.seed is None and red["dscale"] is not None:
+            # the last hop trains the mid-ring stack, not the lanes' seed:
+            # the delta transform needs the broadcast global as its ref
+            red["dref"] = w_glob
         for hop in hops[:-1]:
             models = self._train_hop(hop, padded, B, models, lr, **kw)
-        out = self._train_hop(hops[-1], padded, B, models, lr, agg=agg,
-                              keep_locals=keep, **kw)
+        out = self._train_hop(hops[-1], padded, B, models, lr, **red, **kw)
         return out if keep else (out, None)
 
     def _train_hop(self, hop: Hop, padded: int, width: int, params, lr,

@@ -12,7 +12,9 @@ int32/bool/f32 arrays that are the block's entire H2D payload, and
 stacks as a cohort (``_stack_cohort_schedule``, with MOON's and
 SCAFFOLD's state lanes); a block of HierFAVG's chained edge iterations as
 an iteration axis inside the round axis (``_stack_hier_schedule``). The
-algorithm's device-resident state rides the block as its carry.
+algorithm's device-resident state rides the block as its carry. A block
+with an attacked round also ships the adversary's (n, C) delta factors
+(``dscale``); an honest block ships none and runs the honest path.
 """
 from __future__ import annotations
 
@@ -117,6 +119,15 @@ class FusedEngine(BatchedEngine):
                  for p in hop.plans if p is not None)
         return Cp, H, S, B
 
+    def _add_dscale(self, xs, groups, Cp: int) -> None:
+        """Stack the adversary's per-lane delta factors as an (n, Cp) ``xs``
+        lane when any round of the block is attacked (honest rounds and
+        ghost lanes carry 1.0); an honest block ships nothing."""
+        rows = [self._dscale(g, Cp) for g in groups]
+        if any(r is not None for r in rows):
+            xs["dscale"] = np.stack([np.ones(Cp, np.float32) if r is None
+                                     else r for r in rows])
+
     def _stack_cohort_schedule(self, plans, lrs, variant: str = "plain",
                                state=None):
         """Stack a block of single-group plans along the round axis:
@@ -157,6 +168,7 @@ class FusedEngine(BatchedEngine):
             ids = rowmap[ids]
         xs = {"rows": rows, "plans": idx, "valid": valid,
               "lr": np.asarray(lrs, np.float32), "aggv": aggv}
+        self._add_dscale(xs, groups, Cp)
         if variant == "moon":
             seen = np.asarray(state["seen"]).copy()
             use_prev = np.zeros((n, Cp), bool)
@@ -213,6 +225,9 @@ class FusedEngine(BatchedEngine):
                 first.agg, group_weights=None).matrix(Cp)
             aggv[r] = last.agg.matrix(Cp)
             seed[r, :last.lanes] = last.seed
-        return {"rows": rows, "plans": idx, "valid": valid,
-                "lr": np.asarray(lrs, np.float32), "wg": wg, "seed": seed,
-                "aggv": aggv}
+        xs = {"rows": rows, "plans": idx, "valid": valid,
+              "lr": np.asarray(lrs, np.float32), "wg": wg, "seed": seed,
+              "aggv": aggv}
+        # every iteration of a round carries its first group's factors
+        self._add_dscale(xs, [p.groups[0] for p in plans], Cp)
+        return xs

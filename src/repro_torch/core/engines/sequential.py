@@ -10,10 +10,13 @@ independent given their plans, so training lane by lane is exactly
 Algorithm 1's device-by-device schedule; the planner already drew the RNG
 stream in this visit order.
 
-The reduce is the two-level sum of eq. 11 (each group's lanes weighted in
-lane order, then the groups), not the batched and fused engines' folded
-``aggv @ lanes``: both are eq. 11 but round differently, so this engine
-agrees with the others within f32 rounding, not bit for bit. An
+An attacked group (``lane_scale``, ``core.adversary``) transforms each
+trained lane against its seed, lane by lane in the reference's order,
+before the reduce. The reduce is the two-level sum of eq. 11 (each
+group's lanes weighted in lane order, then the groups), not the batched
+and fused engines' folded ``aggv @ lanes``: both are eq. 11 but round
+differently, so this engine agrees with the others within f32 rounding,
+not bit for bit. An
 uncollapsed group (HierFAVG's intermediate edge iterations) returns its G
 group models, and lane c of the next group starts from model
 ``seed[c]``.
@@ -39,6 +42,14 @@ class SequentialEngine(Engine):
                 w = self.trainer.train(w, self.clients[hop.ids[c]], lr=lr,
                                        plan=hop.plans[c], **lane_kw)
             lanes.append(w)
+        if grp.lane_scale is not None:
+            # a Byzantine upload: lane c hands back ref + t * (model - ref)
+            # against its seed, as the other engines do before the reduce
+            for c, t in enumerate(grp.lane_scale):
+                if t == 1.0:
+                    continue
+                ref = w_glob if grp.seed is None else prev[grp.seed[c]]
+                lanes[c] = ref + t * (lanes[c] - ref)
         agg = grp.agg
         groups = [weighted_sum([lanes[la] for la in members],
                                [agg.lane_weights[la] for la in members])

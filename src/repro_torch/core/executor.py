@@ -40,6 +40,9 @@ and return only once the last is enqueued, so the prefetch overlaps the
 device's tail of the block, the eval and the next plan, not the step
 loop. Algorithms that bypass the plan IR (Centralized,
 ``pipelinable = False``) run through the serial driver.
+
+A ``label_flip`` adversary poisons the attacker shards right after the
+partition and before the algorithm (and its engine's store) is built.
 Personalization is not ported yet (ROADMAP A8) and raises.
 """
 from __future__ import annotations
@@ -56,6 +59,7 @@ import torch
 
 from repro_torch.checkpoint.io import restore, save
 from repro_torch.configs.base import FLConfig, ModelConfig
+from repro_torch.core.adversary import AdversaryState
 from repro_torch.core.algorithms import make_algorithm
 from repro_torch.core.comm import CommMeter
 from repro_torch.core.local import LocalTrainer
@@ -164,6 +168,12 @@ def run_experiment(
         train, scheme=fl.partition, num_devices=fl.num_devices,
         rng=rng, xi=fl.xi, alpha=fl.alpha,
     )
+    if fl.adversary.active and fl.adversary.kind == "label_flip":
+        # the data poison: attacker shards get flipped labels once, before
+        # the engine stages any data (every store serves the poisoned
+        # shards); the adversary's own seed picks the attackers
+        clients = AdversaryState(fl.adversary, fl.num_devices).poison_clients(
+            clients, model_cfg.num_classes)
     trainer = LocalTrainer(model_cfg, fl, device)
     ck = (_restore_checkpoint(checkpoint_dir)
           if resume and checkpoint_dir else None)

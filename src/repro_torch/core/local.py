@@ -1,6 +1,7 @@
 """Local training of the port — the twin of the JAX package's
 ``core/local.py`` for the three ported engines (the four loss variants,
-weighted-mean reduce), for either small model (the paper's MLP or CNN).
+weighted-mean reduce, the adversary's per-lane delta transform before it),
+for either small model (the paper's MLP or CNN).
 
 Parameters and momentum of C lanes each live in ONE contiguous ``(C, P)``
 buffer, in the sorted-leaf layout of ``utils.tree``; the model reads
@@ -127,6 +128,14 @@ def _cos(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.sum(a * b, -1)
 
 
+def apply_lane_scale(lanes: torch.Tensor, scale: torch.Tensor,
+                     ref: torch.Tensor) -> torch.Tensor:
+    """The adversary's Byzantine delta transform on a (C, P) lane stack:
+    lane c becomes ``ref + scale[c] * (lane - ref)`` (honest lanes carry
+    1.0). ``ref`` is the lanes' seed: one (P,) model or a (C, P) stack."""
+    return ref + scale.view(-1, 1) * (lanes - ref)
+
+
 def masked_momentum_update(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
                            ok: torch.Tensor, lr: torch.Tensor, *, reset: bool,
                            momentum: float) -> None:
@@ -146,10 +155,10 @@ class LocalTrainer:
     def __init__(self, cfg: ModelConfig, fl: FLConfig, device=None):
         if fl.reducer != "weighted_mean":
             raise NotImplementedError(
-                f"reducer {fl.reducer!r} is not ported yet (ROADMAP A7)")
+                f"reducer {fl.reducer!r} is not ported yet (ROADMAP A7.2)")
         if fl.dp_clip > 0:
             raise NotImplementedError(
-                "DP-SGD (dp_clip > 0) is not ported yet (ROADMAP A7)")
+                "DP-SGD (dp_clip > 0) is not ported yet (ROADMAP A7.3)")
         self.cfg = cfg
         self.fl = fl
         self.device = resolve_device(device)
@@ -354,6 +363,8 @@ class LocalTrainer:
     def train_many(self, params: torch.Tensor, batches: Dict[str, np.ndarray],
                    valid: np.ndarray, *, lr: float, broadcast: bool = False,
                    agg: Optional[np.ndarray] = None, keep_locals: bool = False,
+                   dscale: Optional[np.ndarray] = None,
+                   dref: Optional[torch.Tensor] = None,
                    variant: str = "plain",
                    anchor: Optional[torch.Tensor] = None,
                    w_glob: Optional[torch.Tensor] = None,
@@ -371,8 +382,13 @@ class LocalTrainer:
         the reduce into the call: a (C,) weight vector returns the (P,)
         aggregate, a (G, C) matrix the (G, P) per-group stack; without it
         the trained (C, P) stack is returned, and with ``keep_locals`` the
-        pair (aggregate, trained stack). ``variant`` and its extras: the
-        loss, as in ``train``, the per-lane ones (C, P) stacks."""
+        pair (aggregate, trained stack). ``dscale`` (C,) is the adversary's
+        per-lane delta factor (``VisitGroup.lane_scale``), applied to the
+        trained lanes before the reduce (and in the returned stack)
+        against ``dref`` or, without it, the lanes' seed ``params``; like
+        ``agg`` it is not metered, as the reference meters the call.
+        ``variant`` and its extras: the loss, as in ``train``, the
+        per-lane ones (C, P) stacks."""
         extras = _variant_extras(variant, anchor=anchor, w_glob=w_glob,
                                  w_prev=w_prev, c_glob=c_glob,
                                  c_local=c_local)
@@ -385,10 +401,17 @@ class LocalTrainer:
         dev = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
                .transpose(0, 1).contiguous() for k, v in batches.items()}
         ok = torch.from_numpy(np.ascontiguousarray(valid.T)).to(self.device)
-        lanes = (params.unsqueeze(0).expand(C, -1).contiguous() if broadcast
-                 else params)
+        # repeat copies even one lane (an expanded (1, P) view would share
+        # the caller's storage, and the steps train the stack in place)
+        lanes = params.repeat(C, 1) if broadcast else params
+        if dscale is not None and dref is None:
+            # the lanes' seed, before the steps train the stack in place
+            dref = params if broadcast else params.clone()
         self._sgd_steps(lanes, lambda s: {k: v[s] for k, v in dev.items()},
                         ok, self._device_lr(lr), S, extras)
+        if dscale is not None:
+            lanes = apply_lane_scale(lanes, torch.from_numpy(
+                np.asarray(dscale, np.float32)).to(self.device), dref)
         if agg is None:
             return lanes
         out = torch.from_numpy(np.asarray(agg, np.float32)).to(
@@ -425,7 +448,11 @@ class LocalTrainer:
         row ``seed`` (n, C) of the (G, P) edge models (the carried global in
         iteration 0), and after every iteration but the last the per-edge
         reduce ``wg`` (n, G, C) gives the next edge models; the last applies
-        ``aggv``. Returns the new (P,) global model and the new carry."""
+        ``aggv``. With ``dscale`` (n, C) in ``xs`` (an attacked block) each
+        round's trained lanes take the adversary's delta transform before
+        every reduce and the state update, against their seed: the round's
+        global, or each HierFAVG iteration's edge rows. Returns the new
+        (P,) global model and the new carry."""
         self.h2d_bytes += sum(_h2d_nbytes(v) for v in xs.values())
         self.dispatches += 1
         dev = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
@@ -440,6 +467,7 @@ class LocalTrainer:
             extras = self._block_extras(variant, shared_extras or {},
                                         stacked_extras or {}, w, carry, x,
                                         ids)
+            ds = x.get("dscale")
             if "wg" in x:
                 edges = w.unsqueeze(0).expand(x["wg"].shape[0], -1)
                 for it in range(H):
@@ -447,12 +475,20 @@ class LocalTrainer:
                         torch.index_select(edges, 0, x["seed"]), plane,
                         x["rows"][it:it + 1], x["plans"][it:it + 1],
                         x["valid"][it:it + 1], lr, extras)
+                    if ds is not None:
+                        # the iteration's seeds, gathered again (the
+                        # steps trained the first gather in place)
+                        lanes = apply_lane_scale(
+                            lanes, ds,
+                            torch.index_select(edges, 0, x["seed"]))
                     if it < H - 1:
                         edges = x["wg"] @ lanes
             else:
                 lanes = self._run_hops(
-                    w.unsqueeze(0).expand(C, -1).contiguous(), plane,
+                    w.repeat(C, 1), plane,
                     x["rows"], x["plans"], x["valid"], lr, extras)
+                if ds is not None:
+                    lanes = apply_lane_scale(lanes, ds, w)
             if variant == "moon":
                 carry["prev"] = scatter_rows(carry["prev"], ids, lanes)
             elif variant == "scaffold":

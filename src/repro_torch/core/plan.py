@@ -17,8 +17,9 @@ marks "the current global model" where a group's extras refer to it
 (FedProx's anchor, MOON's positive), ``StateRef`` a row or entry of the
 algorithm's device-resident state (``core.state``: MOON's previous locals,
 SCAFFOLD's variates), and the engine resolves both at run time, so a whole
-block of rounds can be planned before any of them runs. Adversarial lane
-scales are ROADMAP A7.
+block of rounds can be planned before any of them runs. The adversary's
+per-lane delta transform rides a group as ``lane_scale``; robust reducers
+are ROADMAP A7.2.
 """
 from __future__ import annotations
 
@@ -77,7 +78,7 @@ class AggSpec:
     def __post_init__(self):
         if self.reducer != "weighted_mean":
             raise NotImplementedError(
-                f"reducer {self.reducer!r} is not ported yet (ROADMAP A7)")
+                f"reducer {self.reducer!r} is not ported yet (ROADMAP A7.2)")
 
     @classmethod
     def flat(cls, weights: Sequence[float]) -> "AggSpec":
@@ -129,7 +130,15 @@ class VisitGroup:
     entry a lane (MOON's ``w_prev``, SCAFFOLD's ``c_local``: a
     ``StateRef`` into a client stack each). ``keep_locals`` asks the engine
     to return the final group's trained lanes too (MOON's and SCAFFOLD's
-    state updates read them)."""
+    state updates read them).
+
+    ``lane_scale`` is the adversary's per-lane delta transform
+    (``core.adversary``): before the group's reduce, lane c's trained
+    model becomes ``ref + lane_scale[c] * (model - ref)``, ``ref`` the
+    lane's seed (-1.0: a sign-flipped upload, above 1: an amplified one).
+    ``None`` (every honest round) skips the transform, so honest plans
+    run exactly as they did without an adversary; the kept lanes are the
+    transformed ones, as in the reference."""
 
     hops: Tuple[Hop, ...]
     variant: str = "plain"
@@ -139,6 +148,7 @@ class VisitGroup:
     seed: Optional[Tuple[int, ...]] = None
     agg: Optional[AggSpec] = None
     keep_locals: bool = False
+    lane_scale: Optional[Tuple[float, ...]] = None
 
     @property
     def lanes(self) -> int:
@@ -196,7 +206,10 @@ class Schedule:
                 f"a Schedule's plans must share group structure: {shapes}")
 
     def visited(self) -> np.ndarray:
-        """Sorted fleet ids of every client any hop of the block names."""
+        """Sorted fleet ids of every client any hop of the block names.
+        Ring-tail repeats and scenario-dropped lanes count: their rows are
+        still gathered (under an all-invalid mask), so they must be
+        staged."""
         ids = {i for p in self.plans for g in p.groups for h in g.hops
                for i in h.ids}
         return np.asarray(sorted(ids), np.int64)

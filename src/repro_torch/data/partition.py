@@ -7,6 +7,9 @@ shards are identical.
                      draws xi shards (most devices see only xi classes).
 * ``dirichlet``    — per class c, draw p_c ~ Dir_K(alpha) and split class-c
                      samples across devices proportionally.
+
+``poison_labels`` is the label-flip attack's permutation of a shard's
+labels.
 """
 from __future__ import annotations
 
@@ -59,6 +62,14 @@ def dirichlet_partition(
             donor = int(np.argmax(sizes))
             buckets[d].append(buckets[donor].pop())
     return [np.sort(np.asarray(b, dtype=np.int64)) for b in buckets]
+
+
+def poison_labels(labels: np.ndarray, num_classes: int) -> np.ndarray:
+    """Deterministic label-flip poison: ``label -> num_classes - 1 - label``
+    (``core.adversary`` applies it to attacker shards)."""
+    if num_classes < 2:
+        raise ValueError(f"label flip needs >= 2 classes, got {num_classes}")
+    return (num_classes - 1 - labels).astype(labels.dtype)
 
 
 def partition(

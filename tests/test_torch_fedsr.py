@@ -529,20 +529,13 @@ def test_importing_the_port_leaves_jax_unloaded():
 @pytest.mark.parametrize("override", [
     {"engine": "sharded"}, {"reducer": "median"},
     {"dp_clip": 1.0}, {"mesh_data_axis": "data"},
-    {"scenario": "drop"}, {"adversary": "sign_flip"},
     {"personalize": "full"},
 ])
 def test_unported_options_raise(override):
-    from repro_torch.configs.base import (
-        AdversaryConfig, PersonalizeConfig, ScenarioConfig,
-    )
+    from repro_torch.configs.base import PersonalizeConfig
     from repro_torch.core.executor import run_experiment
 
     override = dict(override)
-    if override.pop("scenario", None):
-        override["scenario"] = ScenarioConfig(drop_rate=0.5)
-    if override.pop("adversary", None):
-        override["adversary"] = AdversaryConfig(frac=0.25)
     if override.pop("personalize", None):
         override["personalize"] = PersonalizeConfig(epochs=1)
     _, (pm, pfl) = configs(SMALL, **_fl(**override))

@@ -29,7 +29,6 @@ package's (``data/store.py``, the host half of ``core/state.py``,
 The reference's runs share one ``LocalTrainer`` (as ``engine_parity``'s
 do), so its compiled steps stay warm across the cases.
 """
-import copy
 import dataclasses
 import os
 
@@ -40,7 +39,8 @@ torch = pytest.importorskip("torch")
 
 from torch_parity import (
     SMALL, assert_histories_equal, assert_schedules_equal,
-    assert_trees_close, configs, jax_init, mnist_tasks, to_numpy,
+    assert_trees_close, configs, jax_init, mnist_tasks, record_plans,
+    to_numpy,
 )
 
 CPU = torch.device("cpu")
@@ -425,24 +425,6 @@ def _pipe_task():
     return _RUNS["task"]
 
 
-def _record_plans(monkeypatch, module):
-    """Record ``(t0, schedule, RNG state after it)`` of every block that
-    ``module``'s planners plan."""
-    import importlib
-
-    base = importlib.import_module(module)._Planner
-    seen = []
-    orig = base.plan_schedule
-
-    def plan_schedule(self, t0, n, rng, state):
-        sched = orig(self, t0, n, rng, state)
-        seen.append((t0, sched, copy.deepcopy(rng.bit_generator.state)))
-        return sched
-
-    monkeypatch.setattr(base, "plan_schedule", plan_schedule)
-    return seen
-
-
 def _ref_trainer(rm, rfl):
     """The reference trainer every reference run of this file shares."""
     from repro.core.local import LocalTrainer
@@ -471,7 +453,7 @@ def _ref_run(monkeypatch, rm, rfl, **kw):
     (rtr, rte), _ = _pipe_task()
     with monkeypatch.context() as m:
         tr = _shared_ref_trainer(m, rm, rfl)
-        plans = _record_plans(m, "repro.core.algorithms")
+        plans = record_plans(m, "repro.core.algorithms")
         res = run_experiment(task="mnist_like", model_cfg=rm, fl=rfl,
                              train=rtr, test=rte, **kw)
     return res, plans, (tr.h2d_bytes, tr.dispatches)
@@ -525,7 +507,7 @@ def test_staged_run_matches_reference(monkeypatch, algorithm, engine, store,
     ref, ref_plans, (h2d, dispatches) = _ref_run(monkeypatch, rm, rfl,
                                                  eval_every=1)
     with monkeypatch.context() as m:
-        plans = _record_plans(m, "repro_torch.core.algorithms")
+        plans = record_plans(m, "repro_torch.core.algorithms")
         port = _port_run(pm, pfl, jax_init(rm, PIPE_FL["seed"]),
                          eval_every=1)
     assert len(plans) == len(ref_plans) == 3

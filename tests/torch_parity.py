@@ -61,17 +61,33 @@ def mnist_tasks(train_per_class=20, test_per_class=10):
                       test_per_class=test_per_class))
 
 
+_SUB_CONFIGS = {"scenario": "ScenarioConfig", "adversary": "AdversaryConfig"}
+
+
 def configs(model_overrides=None, **fl_kw):
     """``((ref_model, ref_fl), (port_model, port_fl))``: the paper MLP and
-    one FLConfig, built with the same overrides in both packages."""
+    one FLConfig, built with the same overrides in both packages (a
+    ``scenario`` or ``adversary`` given as a dict of fields, as each
+    package's own sub-config)."""
     from repro.configs.base import FLConfig as RefFL
     from repro.configs.fedsr_mlp import CONFIG as REF_MLP
     from repro_torch.configs.base import FLConfig
     from repro_torch.configs.fedsr_mlp import CONFIG
 
+    import repro.configs.base as ref_base
+    import repro_torch.configs.base as port_base
+
+    def fl(base, cls):
+        # scenario= and adversary= given as dicts become each package's
+        # own sub-config
+        kw = {k: (getattr(base, _SUB_CONFIGS[k])(**v)
+                  if k in _SUB_CONFIGS and isinstance(v, dict) else v)
+              for k, v in fl_kw.items()}
+        return cls(**kw)
+
     mo = dict(model_overrides or {})
-    return ((dataclasses.replace(REF_MLP, **mo), RefFL(**fl_kw)),
-            (dataclasses.replace(CONFIG, **mo), FLConfig(**fl_kw)))
+    return ((dataclasses.replace(REF_MLP, **mo), fl(ref_base, RefFL)),
+            (dataclasses.replace(CONFIG, **mo), fl(port_base, FLConfig)))
 
 
 def jax_init(ref_cfg, seed: int = 0) -> dict:
@@ -132,12 +148,32 @@ def assert_histories_equal(ref, port, n_test: int) -> None:
         assert np.float32(a.lr) == np.float32(b.lr)
 
 
+def record_plans(monkeypatch, module):
+    """Record ``(t0, schedule, RNG state after it)`` of every block that
+    ``module``'s planners plan (``repro.core.algorithms`` or
+    ``repro_torch.core.algorithms``)."""
+    import copy
+    import importlib
+
+    base = importlib.import_module(module)._Planner
+    seen = []
+    orig = base.plan_schedule
+
+    def plan_schedule(self, t0, n, rng, state):
+        sched = orig(self, t0, n, rng, state)
+        seen.append((t0, sched, copy.deepcopy(rng.bit_generator.state)))
+        return sched
+
+    monkeypatch.setattr(base, "plan_schedule", plan_schedule)
+    return seen
+
+
 def assert_schedules_equal(ref_sched, port_sched) -> None:
     """Two Schedules (one per package) hold identical plans: same ids,
     same batch-index arrays, same loss variants, shared and per-lane
-    extras (``GLOBAL``/``StateRef`` sentinels by name), seeds and
-    ``keep_locals``, same aggregation weights, comm records and simulated
-    seconds."""
+    extras (``GLOBAL``/``StateRef`` sentinels by name), seeds,
+    ``keep_locals`` and adversarial ``lane_scale``, same aggregation
+    weights, comm records and simulated seconds."""
     assert ref_sched.comm == port_sched.comm
     assert len(ref_sched.plans) == len(port_sched.plans)
     for rp, pp in zip(ref_sched.plans, port_sched.plans):
@@ -153,6 +189,7 @@ def assert_schedules_equal(ref_sched, port_sched) -> None:
             assert ({k: repr(v) for k, v in rg.stacked_extras.items()}
                     == {k: repr(v) for k, v in pg.stacked_extras.items()})
             assert rg.keep_locals == pg.keep_locals
+            assert rg.lane_scale == pg.lane_scale
             assert rg.agg.groups == pg.agg.groups
             assert rg.agg.lane_weights == pg.agg.lane_weights
             assert rg.agg.group_weights == pg.agg.group_weights
