@@ -23,7 +23,9 @@ active scenario (``core.scenario``: drops, truncated visits, stale
 uploads) rewrites the plan and its comm records, and a Byzantine
 adversary (``core.adversary``) stamps ``lane_scale`` after the drops, so
 an attacker that dropped this round uploads nothing. Off, neither runs
-nor draws. Robust reducers and DP-SGD are ROADMAP A7.2 and A7.3.
+nor draws. Before both, the config's robust reducer (``FLConfig.reducer``)
+is stamped onto every ``AggSpec`` of the plan (``_mark_agg``), which draws
+nothing either. DP-SGD is ROADMAP A7.3.
 
 The block boundary is also the residency protocol's boundary
 (``FLConfig.store="host"`` or ``"stream"``): ``dispatch_block`` stages the
@@ -238,14 +240,15 @@ class _Planner:
 
     def plan_round(self, t: int, rng: np.random.Generator,
                    state: Dict) -> RoundPlan:
-        """The algorithm's pure plan (``_plan_round``), then, only when a
-        scenario is active, its drop/slow/stale transform with rebuilt comm
-        records, then a Byzantine adversary's ``lane_scale`` stamp (after
-        the drops), and last the simulated-clock stamp. An inactive
-        scenario never runs and never draws, and the adversary draws
-        nothing, so their absence leaves plans and the RNG stream as the
-        plain planner makes them."""
-        plan = self._plan_round(t, rng, state)
+        """The algorithm's pure plan (``_plan_round``) with the config's
+        reducer stamped on (``_mark_agg``), then, only when a scenario is
+        active, its drop/slow/stale transform with rebuilt comm records,
+        then a Byzantine adversary's ``lane_scale`` stamp (after the
+        drops), and last the simulated-clock stamp. An inactive scenario
+        never runs and never draws, and the reducer stamp and the
+        adversary draw nothing, so their absence leaves plans and the RNG
+        stream as the plain planner makes them."""
+        plan = self._mark_agg(self._plan_round(t, rng, state))
         if self.scenario.active:
             plan, dropped = self.scenario.transform(plan, rng)
             plan = dataclasses.replace(
@@ -254,6 +257,20 @@ class _Planner:
             plan = self.adversary.transform(plan)
         return dataclasses.replace(
             plan, sim_seconds=self.scenario.plan_seconds(plan))
+
+    def _mark_agg(self, plan: RoundPlan) -> RoundPlan:
+        """Stamp the config's robust reducer onto every ``AggSpec`` of the
+        plan; ``weighted_mean`` returns the plan untouched."""
+        fl = self.fl
+        if fl.reducer == "weighted_mean":
+            return plan
+        groups = tuple(
+            dataclasses.replace(g, agg=dataclasses.replace(
+                g.agg, reducer=fl.reducer, trim_frac=fl.trim_frac,
+                krum_f=fl.krum_f))
+            if g.agg is not None else g
+            for g in plan.groups)
+        return dataclasses.replace(plan, groups=groups)
 
     def _plan_round(self, t: int, rng: np.random.Generator,
                     state: Dict) -> RoundPlan:

@@ -10,7 +10,9 @@ group carries the lane stack from hop to hop; a seeded group (HierFAVG's
 edge iterations) starts from a fresh stack of the previous group's edge
 models. The group's last call folds the reduce in (``agg=``): the eq.-11
 weighted cloud reduce, or the (G, C) per-edge reduce of an uncollapsed
-group; with ``keep_locals`` it returns the trained lanes too. An attacked
+group, or under a robust reducer its order statistic over each group's
+valid lanes (``AggSpec.reduce_kwargs``); with ``keep_locals`` it returns
+the trained lanes too. An attacked
 group's ``lane_scale`` rides the same call (``dscale``), against the
 lanes' seed: the global model for a cohort or a ring, each lane's edge
 model for a seeded group. Per-lane
@@ -72,7 +74,8 @@ class BatchedEngine(Engine):
 
     def _run_group(self, grp, w_glob, prev, lr, state):
         padded = self._pad(grp.lanes)
-        red = dict(agg=grp.agg.matrix(padded), keep_locals=grp.keep_locals,
+        red = dict(grp.agg.reduce_kwargs(padded),
+                   keep_locals=grp.keep_locals,
                    dscale=self._dscale(grp, padded))
         kw = self._extras_kwargs(grp, w_glob, padded, state)
         keep = grp.keep_locals

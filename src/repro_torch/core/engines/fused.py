@@ -14,7 +14,10 @@ SCAFFOLD's state lanes); a block of HierFAVG's chained edge iterations as
 an iteration axis inside the round axis (``_stack_hier_schedule``). The
 algorithm's device-resident state rides the block as its carry. A block
 with an attacked round also ships the adversary's (n, C) delta factors
-(``dscale``); an honest block ships none and runs the honest path.
+(``dscale``); an honest block ships none and runs the honest path. Under a
+robust reducer (``AggSpec.reducer``) a cohort block ships the uncollapsed
+lane weights and the group weights (``aggw``, ``aggg``) and a HierFAVG
+block the cloud weights (``gwv``) in place of the collapsed ``aggv``.
 """
 from __future__ import annotations
 
@@ -96,10 +99,12 @@ class FusedEngine(BatchedEngine):
               else self._stack_cohort_schedule(plans, lrs, grp.variant,
                                                state))
         carry = {f: state[f] for f in _CARRY.get(grp.variant, ())}
+        agg = plans[0].groups[-1].agg
         w_glob, carry = self.trainer.train_schedule(
             w_glob, self.plane, xs, carry, variant=grp.variant,
             shared_extras=grp.shared_extras,
-            stacked_extras=grp.stacked_extras)
+            stacked_extras=grp.stacked_extras, reducer=agg.reducer,
+            trim_frac=agg.trim_frac, krum_f=agg.krum_f)
         if carry:
             state.update(carry)
             for plan in plans:
@@ -132,7 +137,10 @@ class FusedEngine(BatchedEngine):
                                state=None):
         """Stack a block of single-group plans along the round axis:
         ``rows``/``plans``/``valid`` index arrays, per-round ``lr`` and the
-        collapsed eq.-11 weights ``aggv`` (ghost lanes weigh 0); for MOON
+        collapsed eq.-11 weights ``aggv`` (ghost lanes weigh 0), or under a
+        robust reducer the uncollapsed lane weights ``aggw`` (n, Gm, Cp)
+        and group weights ``aggg`` (n, Gm), zero rows padding each round
+        to the block's largest group count; for MOON
         and SCAFFOLD also the state-carry lanes: each lane's client row
         ``ids`` (a dead lane's: the dump row K), MOON's ``use_prev`` (from
         a copy of ``state["seen"]`` that advances round by round through
@@ -144,11 +152,16 @@ class FusedEngine(BatchedEngine):
         groups = [p.groups[0] for p in plans]
         n = len(groups)
         Cp, H, S, B = self._schedule_dims(groups)
+        robust = groups[0].agg.reducer != "weighted_mean"
         rows = np.zeros((n, H, Cp), np.int32)
         idx = np.zeros((n, H, Cp, S, B), np.int32)
         valid = np.zeros((n, H, Cp, S), bool)
         aggv = np.zeros((n, Cp), np.float32)
         ids = np.full((n, Cp), K, np.int32)
+        # a padded group row has no valid lane: a zero row at weight 0
+        Gm = max(len(g.agg.groups) for g in groups)
+        aggw = np.zeros((n, Gm, Cp), np.float32)
+        aggg = np.zeros((n, Gm), np.float32)
         for r, g in enumerate(groups):
             for h, hop in enumerate(g.hops):
                 rw, ix, vl = stack_plan_indices(
@@ -157,7 +170,13 @@ class FusedEngine(BatchedEngine):
                 rows[r, h], idx[r, h], valid[r, h] = rw, ix, vl
             # hops past len(g.hops) stay all-invalid: every lane carried
             # unchanged, exactly the ring-tail rule
-            aggv[r] = g.agg.matrix(Cp)
+            if robust:
+                G = len(g.agg.groups)
+                aggw[r, :G] = dataclasses.replace(
+                    g.agg, group_weights=None).matrix(Cp)
+                aggg[r, :G] = g.agg.group_weights
+            else:
+                aggv[r] = g.agg.matrix(Cp)
             live = np.asarray(g.lane_steps()) > 0
             ids[r, :g.lanes] = np.where(live, np.asarray(g.hops[0].ids), K)
         rowmap = state.get("_rowmap") if isinstance(state, dict) else None
@@ -167,7 +186,8 @@ class FusedEngine(BatchedEngine):
             # the fleet->cohort table (the dump K to the staged dump V)
             ids = rowmap[ids]
         xs = {"rows": rows, "plans": idx, "valid": valid,
-              "lr": np.asarray(lrs, np.float32), "aggv": aggv}
+              "lr": np.asarray(lrs, np.float32)}
+        xs.update({"aggw": aggw, "aggg": aggg} if robust else {"aggv": aggv})
         self._add_dscale(xs, groups, Cp)
         if variant == "moon":
             seen = np.asarray(state["seen"]).copy()
@@ -201,7 +221,9 @@ class FusedEngine(BatchedEngine):
         ``rows``/``plans``/``valid`` (n, R, C, ...), per-round ``lr``, the
         uncollapsed (G, C) per-edge reduce ``wg`` applied after every
         iteration but the last, each lane's edge ``seed`` (n, C) and the
-        collapsed cloud vector ``aggv`` of the last iteration."""
+        collapsed cloud vector ``aggv`` of the last iteration, or under a
+        robust reducer its (n, G) cloud weights ``gwv`` (the last
+        iteration's lane validity is ``wg``'s)."""
         n = len(plans)
         R = len(plans[0].groups)
         groups = [g for p in plans for g in p.groups]
@@ -212,7 +234,9 @@ class FusedEngine(BatchedEngine):
         valid = np.zeros((n, R, Cp, S), bool)
         wg = np.zeros((n, G, Cp), np.float32)
         seed = np.zeros((n, Cp), np.int32)
+        robust = plans[0].groups[-1].agg.reducer != "weighted_mean"
         aggv = np.zeros((n, Cp), np.float32)
+        gwv = np.zeros((n, G), np.float32)
         for r, plan in enumerate(plans):
             for it, g in enumerate(plan.groups):
                 (hop,) = g.hops
@@ -223,11 +247,14 @@ class FusedEngine(BatchedEngine):
             # ghost lanes weigh 0 in every row of wg and seed from row 0
             wg[r] = dataclasses.replace(
                 first.agg, group_weights=None).matrix(Cp)
-            aggv[r] = last.agg.matrix(Cp)
+            if robust:
+                gwv[r] = last.agg.group_weights
+            else:
+                aggv[r] = last.agg.matrix(Cp)
             seed[r, :last.lanes] = last.seed
         xs = {"rows": rows, "plans": idx, "valid": valid,
-              "lr": np.asarray(lrs, np.float32), "wg": wg, "seed": seed,
-              "aggv": aggv}
+              "lr": np.asarray(lrs, np.float32), "wg": wg, "seed": seed}
+        xs.update({"gwv": gwv} if robust else {"aggv": aggv})
         # every iteration of a round carries its first group's factors
         self._add_dscale(xs, [p.groups[0] for p in plans], Cp)
         return xs

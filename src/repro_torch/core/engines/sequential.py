@@ -19,11 +19,19 @@ differently, so this engine agrees with the others within f32 rounding,
 not bit for bit. An
 uncollapsed group (HierFAVG's intermediate edge iterations) returns its G
 group models, and lane c of the next group starts from model
-``seed[c]``.
+``seed[c]``. A robust reducer (``AggSpec.reducer``) stacks the lanes and
+takes ``core.robust``'s statistic over each group's valid lanes, as the
+other engines do.
 """
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
+import torch
+
 from repro_torch.core.engines.base import Engine
+from repro_torch.core.robust import robust_agg
 from repro_torch.utils.tree import weighted_sum
 
 
@@ -51,6 +59,14 @@ class SequentialEngine(Engine):
                 ref = w_glob if grp.seed is None else prev[grp.seed[c]]
                 lanes[c] = ref + t * (lanes[c] - ref)
         agg = grp.agg
+        if agg.reducer != "weighted_mean":
+            wm = dataclasses.replace(agg, group_weights=None).matrix(
+                grp.lanes)
+            gw = (np.asarray(agg.group_weights, np.float32)
+                  if agg.collapsed else None)
+            red = robust_agg(torch.stack(lanes), wm, gw, agg.reducer,
+                             agg.trim_frac, agg.krum_f)
+            return (red if agg.collapsed else list(red)), lanes
         groups = [weighted_sum([lanes[la] for la in members],
                                [agg.lane_weights[la] for la in members])
                   for members in agg.groups]

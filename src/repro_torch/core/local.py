@@ -1,7 +1,8 @@
 """Local training of the port — the twin of the JAX package's
 ``core/local.py`` for the three ported engines (the four loss variants,
-weighted-mean reduce, the adversary's per-lane delta transform before it),
-for either small model (the paper's MLP or CNN).
+the weighted-mean or a robust reduce (``core.robust``), the adversary's
+per-lane delta transform before it), for either small model (the paper's
+MLP or CNN).
 
 Parameters and momentum of C lanes each live in ONE contiguous ``(C, P)``
 buffer, in the sorted-leaf layout of ``utils.tree``; the model reads
@@ -77,6 +78,7 @@ import torch
 
 from repro_torch.configs.base import FLConfig, ModelConfig
 from repro_torch.core.plan import GLOBAL
+from repro_torch.core.robust import robust_agg
 from repro_torch.core.state import gather_rows, scaffold_step, scatter_rows
 from repro_torch.kernels.fused_sgd.ops import fused_sgd_lanes
 from repro_torch.kernels.fused_sgd.ref import flat_grads
@@ -153,9 +155,6 @@ class LocalTrainer:
     """Lane-stacked local SGD for one (model, FL) config on one device."""
 
     def __init__(self, cfg: ModelConfig, fl: FLConfig, device=None):
-        if fl.reducer != "weighted_mean":
-            raise NotImplementedError(
-                f"reducer {fl.reducer!r} is not ported yet (ROADMAP A7.2)")
         if fl.dp_clip > 0:
             raise NotImplementedError(
                 "DP-SGD (dp_clip > 0) is not ported yet (ROADMAP A7.3)")
@@ -363,6 +362,9 @@ class LocalTrainer:
     def train_many(self, params: torch.Tensor, batches: Dict[str, np.ndarray],
                    valid: np.ndarray, *, lr: float, broadcast: bool = False,
                    agg: Optional[np.ndarray] = None, keep_locals: bool = False,
+                   agg_gw: Optional[np.ndarray] = None,
+                   reducer: str = "weighted_mean", trim_frac: float = 0.0,
+                   krum_f: int = 0,
                    dscale: Optional[np.ndarray] = None,
                    dref: Optional[torch.Tensor] = None,
                    variant: str = "plain",
@@ -382,7 +384,11 @@ class LocalTrainer:
         the reduce into the call: a (C,) weight vector returns the (P,)
         aggregate, a (G, C) matrix the (G, P) per-group stack; without it
         the trained (C, P) stack is returned, and with ``keep_locals`` the
-        pair (aggregate, trained stack). ``dscale`` (C,) is the adversary's
+        pair (aggregate, trained stack). A robust ``reducer``
+        (``AggSpec.reduce_kwargs``) takes ``agg`` as the uncollapsed
+        (G, C) lane-weight matrix and ``agg_gw`` as the (G,) group weights
+        (None: the (G, P) stack) and reduces through ``robust_agg``.
+        ``dscale`` (C,) is the adversary's
         per-lane delta factor (``VisitGroup.lane_scale``), applied to the
         trained lanes before the reduce (and in the returned stack)
         against ``dref`` or, without it, the lanes' seed ``params``; like
@@ -414,8 +420,11 @@ class LocalTrainer:
                 np.asarray(dscale, np.float32)).to(self.device), dref)
         if agg is None:
             return lanes
-        out = torch.from_numpy(np.asarray(agg, np.float32)).to(
-            self.device) @ lanes
+        agg = torch.from_numpy(np.asarray(agg, np.float32)).to(self.device)
+        if reducer == "weighted_mean":
+            out = agg @ lanes
+        else:
+            out = robust_agg(lanes, agg, agg_gw, reducer, trim_frac, krum_f)
         return (out, lanes) if keep_locals else out
 
     @torch.no_grad()
@@ -424,7 +433,9 @@ class LocalTrainer:
                        carry: Optional[Dict[str, torch.Tensor]] = None, *,
                        variant: str = "plain",
                        shared_extras: Optional[Dict] = None,
-                       stacked_extras: Optional[Dict] = None):
+                       stacked_extras: Optional[Dict] = None,
+                       reducer: str = "weighted_mean",
+                       trim_frac: float = 0.0, krum_f: int = 0):
         """An entire block of rounds as ONE call (one dispatch).
 
         ``w_glob`` is the global model as a flat (P,) vector. ``xs`` stacks
@@ -451,14 +462,21 @@ class LocalTrainer:
         ``aggv``. With ``dscale`` (n, C) in ``xs`` (an attacked block) each
         round's trained lanes take the adversary's delta transform before
         every reduce and the state update, against their seed: the round's
-        global, or each HierFAVG iteration's edge rows. Returns the new
-        (P,) global model and the new carry."""
+        global, or each HierFAVG iteration's edge rows. A robust
+        ``reducer`` (with ``trim_frac``, ``krum_f``; ``core.robust``) takes
+        every round's reduce: a cohort block ships the uncollapsed
+        lane weights ``aggw`` (n, G, C) and the group weights ``aggg``
+        (n, G) in place of ``aggv``, a HierFAVG block reduces each
+        iteration by ``wg``'s validity and the last one with the cloud
+        weights ``gwv`` (n, G). Returns the new (P,) global model and the
+        new carry."""
         self.h2d_bytes += sum(_h2d_nbytes(v) for v in xs.values())
         self.dispatches += 1
         dev = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
                for k, v in xs.items()}
         carry = dict(carry or {})
         n, H, C = xs["rows"].shape
+        rk = (reducer, trim_frac, krum_f)
         w = w_glob
         for r in range(n):
             x = {k: v[r] for k, v in dev.items()}
@@ -482,7 +500,8 @@ class LocalTrainer:
                             lanes, ds,
                             torch.index_select(edges, 0, x["seed"]))
                     if it < H - 1:
-                        edges = x["wg"] @ lanes
+                        edges = (x["wg"] @ lanes if "aggv" in x
+                                 else robust_agg(lanes, x["wg"], None, *rk))
             else:
                 lanes = self._run_hops(
                     w.repeat(C, 1), plane,
@@ -495,7 +514,12 @@ class LocalTrainer:
                 carry["c"], carry["ci"] = scaffold_step(
                     carry["c"], carry["ci"], ids, lanes, w, x["kl"],
                     x["mw"], x["frac"])
-            w = x["aggv"] @ lanes
+            if "aggv" in x:
+                w = x["aggv"] @ lanes
+            elif "gwv" in x:
+                w = robust_agg(lanes, x["wg"], x["gwv"], *rk)
+            else:
+                w = robust_agg(lanes, x["aggw"], x["aggg"], *rk)
         return w, carry
 
     @staticmethod

@@ -18,8 +18,8 @@ marks "the current global model" where a group's extras refer to it
 algorithm's device-resident state (``core.state``: MOON's previous locals,
 SCAFFOLD's variates), and the engine resolves both at run time, so a whole
 block of rounds can be planned before any of them runs. The adversary's
-per-lane delta transform rides a group as ``lane_scale``; robust reducers
-are ROADMAP A7.2.
+per-lane delta transform rides a group as ``lane_scale``; a Byzantine-robust
+reduce (``core.robust``) rides its ``AggSpec`` as ``reducer``.
 """
 from __future__ import annotations
 
@@ -68,17 +68,25 @@ class AggSpec:
     edge iterations, which seed the next group). Aggregation is linear, so
     ``matrix`` folds both levels of a collapsed reduce into one effective
     per-lane weight vector.
+
+    ``reducer`` replaces the per-group weighted sum with a robust order
+    statistic over the group's valid lanes (``core.robust``: ``median``,
+    ``trimmed_mean`` with ``trim_frac``, ``krum`` with ``krum_f``); a lane
+    is valid where its weight is above 0, and the statistic is unweighted.
+    The group level stays the linear ``group_weights`` mean.
     """
 
     groups: Tuple[Tuple[int, ...], ...]      # lane indices per group
     lane_weights: Tuple[float, ...]          # weight of each lane IN its group
     group_weights: Optional[Tuple[float, ...]] = None
-    reducer: str = "weighted_mean"
+    reducer: str = "weighted_mean"           # weighted_mean|median|trimmed_mean|krum
+    trim_frac: float = 0.0                   # per-side trim (trimmed_mean)
+    krum_f: int = 0                          # assumed Byzantine lanes (krum)
 
     def __post_init__(self):
-        if self.reducer != "weighted_mean":
-            raise NotImplementedError(
-                f"reducer {self.reducer!r} is not ported yet (ROADMAP A7.2)")
+        if self.reducer not in ("weighted_mean", "median", "trimmed_mean",
+                                "krum"):
+            raise ValueError(f"unknown reducer {self.reducer!r}")
 
     @classmethod
     def flat(cls, weights: Sequence[float]) -> "AggSpec":
@@ -106,6 +114,20 @@ class AggSpec:
         if not self.collapsed:
             return W
         return np.asarray(self.group_weights, np.float32) @ W     # (pad_to,)
+
+    def reduce_kwargs(self, pad_to: int) -> Dict[str, Any]:
+        """The reduce operands of ``LocalTrainer.train_many``:
+        ``weighted_mean`` ships the collapsed ``matrix``; a robust reducer
+        ships the uncollapsed (G, pad_to) lane-weight matrix (its > 0
+        pattern is the validity mask), the (G,) group weights (None for an
+        uncollapsed reduce) and its own knobs."""
+        if self.reducer == "weighted_mean":
+            return {"agg": self.matrix(pad_to)}
+        wm = dataclasses.replace(self, group_weights=None).matrix(pad_to)
+        gw = (np.asarray(self.group_weights, np.float32)
+              if self.collapsed else None)
+        return {"agg": wm, "agg_gw": gw, "reducer": self.reducer,
+                "trim_frac": self.trim_frac, "krum_f": self.krum_f}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -527,7 +527,7 @@ def test_importing_the_port_leaves_jax_unloaded():
 
 
 @pytest.mark.parametrize("override", [
-    {"engine": "sharded"}, {"reducer": "median"},
+    {"engine": "sharded"},
     {"dp_clip": 1.0}, {"mesh_data_axis": "data"},
     {"personalize": "full"},
 ])

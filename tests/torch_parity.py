@@ -173,7 +173,7 @@ def assert_schedules_equal(ref_sched, port_sched) -> None:
     same batch-index arrays, same loss variants, shared and per-lane
     extras (``GLOBAL``/``StateRef`` sentinels by name), seeds,
     ``keep_locals`` and adversarial ``lane_scale``, same aggregation
-    weights, comm records and simulated seconds."""
+    weights and reducer, comm records and simulated seconds."""
     assert ref_sched.comm == port_sched.comm
     assert len(ref_sched.plans) == len(port_sched.plans)
     for rp, pp in zip(ref_sched.plans, port_sched.plans):
@@ -193,6 +193,8 @@ def assert_schedules_equal(ref_sched, port_sched) -> None:
             assert rg.agg.groups == pg.agg.groups
             assert rg.agg.lane_weights == pg.agg.lane_weights
             assert rg.agg.group_weights == pg.agg.group_weights
+            assert ((rg.agg.reducer, rg.agg.trim_frac, rg.agg.krum_f)
+                    == (pg.agg.reducer, pg.agg.trim_frac, pg.agg.krum_f))
             assert len(rg.hops) == len(pg.hops)
             for rh, ph in zip(rg.hops, pg.hops):
                 assert rh.ids == ph.ids
