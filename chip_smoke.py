@@ -192,6 +192,26 @@ non-zero at the end, before any result line is printed):
    a Krum run whose GPU run picked other lanes than its CPU run. Logged:
    one steady round of each run beside the ``weighted_mean`` round of
    phase 3g under the same attack.
+3i. The DP-SGD row of ``attack_defense_grid`` (``dp_clip=1.0``,
+   ``dp_noise_mult=1.1``, the honest fleet at ``num_edges=10``) on phase
+   3g's path: FedSR (rings of 2) and FedAvg on the fused engine, and each
+   one's clip-only twin (``dp_noise_mult=0``), FedSR's also on the batched
+   and sequential engines. Each fused run GPU then CPU (in phase 3g's
+   pool) with phase 3's checks (no accuracy floor); each run's literal
+   (``fused_sgd`` launches, dispatches, comm, ``dp_epsilon``,
+   ``dp_delta``; ``DP_LITERALS`` from ``scripts/dp_literals.py``) on both
+   devices; one DP transform a SGD step; every ``fused_sgd`` launch
+   against its plain version, bit for bit. The noised runs' accuracies
+   and models GPU against CPU are logged, not held (the two devices'
+   generators draw other noise); each clip-only fused model GPU against
+   CPU within ``ENGINE_ROUND1_TOL`` with the 1.03x clip outside
+   (``DP_BOUNDED``); the batched clip-only run bit-equal to the fused one.
+   The transform with a CUDA generator on a fixed (20, 199,210) stack:
+   the standardized noise's mean, std and lane correlations within their
+   bounds, a rerun at the same seed bit-equal. Logged: the share of
+   lane-steps the clip bound, each run's steady rounds beside phase 3g's
+   honest ``weighted_mean`` rounds, the transform's time, and a profiled
+   FedSR round with and without DP-SGD (the kernels it adds a step).
 4. The yi-9b serving path at full width and 2 layers, GPU against CPU
    from the same CPU-drawn weights, in float32 and in bfloat16:
    ``prefill_step`` at B=1, S=256 and ``prefill_and_decode`` at B=4,
@@ -1744,13 +1764,16 @@ def steady_ms(res):
 
 
 def model_gap(run_experiment, task, tag, tfl, gpu_model, cpu_model,
-              stop_after, bounded):
-    """The model GPU against CPU and the 1.03x learning rate's GPU model
-    against the CPU's, checked against ``ENGINE_ROUND1_TOL`` (the control
-    outside it) or logged. Returns the control run, an eval a round."""
+              stop_after, bounded, control_fl=None,
+              control_what=f"{LR_CONTROL}x the learning rate"):
+    """The model GPU against CPU and the control's GPU model (the 1.03x
+    learning rate, or ``control_fl``) against the CPU's, checked against
+    ``ENGINE_ROUND1_TOL`` (the control outside it) or logged. Returns the
+    control run, an eval a round."""
     control = run_experiment(
         eval_every=1, device="cuda", stop_after=stop_after,
-        fl=dataclasses.replace(tfl, init_lr=tfl.init_lr * LR_CONTROL),
+        fl=control_fl or dataclasses.replace(
+            tfl, init_lr=tfl.init_lr * LR_CONTROL),
         **task)
     err = max_abs_diff(gpu_model, cpu_model)
     err_c = max_abs_diff(control.final_model, cpu_model)
@@ -1758,13 +1781,13 @@ def model_gap(run_experiment, task, tag, tfl, gpu_model, cpu_model,
         f"max |diff| {err:.3e} (bound {ENGINE_ROUND1_TOL}, "
         f"{'checked' if bounded else 'logged, not checked (C7)'}; "
         f"above 1e-6: {diff_spread(gpu_model, cpu_model)}); control, "
-        f"the GPU run at {LR_CONTROL}x the learning rate: {err_c:.3e}")
+        f"the GPU run at {control_what}: {err_c:.3e}")
     if bounded:
         check(err <= ENGINE_ROUND1_TOL, f"{tag}: the GPU model after "
               f"round {stop_after} {err} from the CPU's")
         check(err_c > ENGINE_ROUND1_TOL,
-              f"{tag}: the bound does not tell a {LR_CONTROL}x learning "
-              f"rate from the CPU's run")
+              f"{tag}: the bound does not tell {control_what} from the "
+              f"CPU's run")
     return control
 
 
@@ -2207,6 +2230,295 @@ def robust_path(run_experiment, fused_sgd_lanes, cfg, fl, init, jobs,
     return launches
 
 
+# Phase 3i, the DP-SGD row of the attack grid (fl_tables.py::
+# attack_defense_grid: clip 1.0 and noise multiplier 1.1 on the honest
+# fleet, num_edges=10, so FedSR runs rings of 2) on phase 3g's path, 3
+# rounds in one block against the grid's 20: FedSR and FedAvg with the
+# noise on, and each one's clip-only twin (dp_noise_mult=0), which alone
+# can be held against the CPU run; FedSR's twin also on the batched and
+# sequential engines.
+DP_CLIP, DP_NOISE = 1.0, 1.1
+DP_RUNS = (("fedsr", DP_NOISE, "fused"), ("fedavg", DP_NOISE, "fused"),
+           ("fedsr", 0.0, "fused"), ("fedavg", 0.0, "fused"),
+           ("fedsr", 0.0, "batched"), ("fedsr", 0.0, "sequential"))
+# Each run's (fused_sgd launches, dispatches, comm, dp_epsilon, dp_delta),
+# from the JAX package's planners and ledger on a CPU
+# (scripts/dp_literals.py, which also holds the port's to them).
+DP_LITERALS = {
+    ('fedsr', 1.1, 'fused'): (
+        120, 1, {"cloud_down": 30, "cloud_up": 30, "p2p": 270},
+        58.73899703869308, 1e-05),
+    ('fedavg', 1.1, 'fused'): (
+        60, 1, {"cloud_down": 60, "cloud_up": 60},
+        58.73899703869308, 1e-05),
+    ('fedsr', 0.0, 'fused'): (
+        120, 1, {"cloud_down": 30, "cloud_up": 30, "p2p": 270},
+        float("inf"), 1e-05),
+    ('fedavg', 0.0, 'fused'): (
+        60, 1, {"cloud_down": 60, "cloud_up": 60},
+        float("inf"), 1e-05),
+    ('fedsr', 0.0, 'batched'): (
+        120, 30, {"cloud_down": 30, "cloud_up": 30, "p2p": 270},
+        float("inf"), 1e-05),
+    ('fedsr', 0.0, 'sequential'): (
+        1200, 1200, {"cloud_down": 30, "cloud_up": 30, "p2p": 270},
+        float("inf"), 1e-05),
+}
+# The clip-only runs whose 3-round model GPU against CPU is held at
+# ENGINE_ROUND1_TOL, the 1.03x clip landing outside. Chosen as phase 3g's
+# are: on a CPU (scripts/dp_literals.py --gaps, initial seeds 0 and 1,
+# three draws each) a relative 1e-7 change of the initial weights moved
+# FedSR's model by at most 9.0e-6 and FedAvg's by at most 2.4e-6, the
+# 1.03x clip by 2.9e-4 to 3.4e-4: the clip bound every lane-step of both,
+# so a larger clip is a larger step.
+DP_BOUNDED = {("fedsr", 0.0, "fused"), ("fedavg", 0.0, "fused")}
+DP_CLIP_CONTROL = 1.03
+DP_NOISE_SHAPE = (20, 199_210)      # FedAvg's 20 lanes of the paper MLP
+DP_STD_TOL = 0.01
+
+
+def dp_fl(fl, algorithm: str, noise: float, engine: str = "fused"):
+    """Phase 3i's FLConfig of one run of ``DP_RUNS``, from phase 3's
+    ``fl``: phase 3g's honest run at the attack runs' edges (``sync10``)
+    with the grid's DP-SGD."""
+    return dataclasses.replace(scenario_fl(fl, algorithm, "sync10"),
+                               dp_clip=DP_CLIP, dp_noise_mult=noise,
+                               engine=engine)
+
+
+def dp_tag(run) -> str:
+    algorithm, noise, engine = run
+    return f"{algorithm}/{'noise' if noise else 'clip'}/{engine}"
+
+
+class checked_dp:
+    """Within the block, every DP transform on the card (the local
+    trainer's call site) is counted (``calls``), with the lane-steps it
+    saw (``lanes``, masked ones included) and those the clip bound
+    (``clipped``, kept on the device until ``share`` reads it)."""
+
+    def __init__(self):
+        self.calls, self.lanes, self.clipped = 0, 0, None
+
+    def __enter__(self):
+        import repro_torch.core.local as local
+
+        self.local, self.saved = local, local.dp_clip_noise_
+
+        def fn(grads, clip, sigma, gen):
+            fac = self.saved(grads, clip, sigma, gen)
+            if fac.device.type == "cuda":
+                self.calls += 1
+                self.lanes += fac.numel()
+                n = (fac < 1).sum()
+                self.clipped = n if self.clipped is None else self.clipped + n
+            return fac
+        local.dp_clip_noise_ = fn
+        return self
+
+    def __exit__(self, *exc):
+        self.local.dp_clip_noise_ = self.saved
+
+    def share(self) -> float:
+        return int(self.clipped) / self.lanes if self.lanes else 0.0
+
+
+def dp_jobs(pool, fl) -> dict:
+    """Phase 3i's CPU runs (the fused ones), submitted to ``pool``."""
+    return {run: pool.submit(_cpu_run, dp_fl(fl, *run), None)
+            for run in DP_RUNS if run[2] == "fused"}
+
+
+def dp_noise_check() -> None:
+    """The transform with a CUDA generator on a fixed (20, 199,210) stack
+    of the paper MLP's six leaves (lane c scaled by (c + 1) / 20, so the
+    clip binds some lanes and not others): the noise ``(out - clip(g)) /
+    sigma`` over its n elements has |mean| < 5/sqrt(n), a std within
+    ``DP_STD_TOL`` of 1 and a largest |correlation| between two lanes
+    below 5/sqrt(P); the same seed draws the same noise bit for bit,
+    another seed other noise. Logs the transform's time at this shape,
+    noised and clip-only."""
+    from repro_torch.core.local import dp_clip_noise_
+
+    C, P = DP_NOISE_SHAPE
+    base = torch.randn(DP_NOISE_SHAPE,
+                       generator=torch.Generator().manual_seed(3)) * 0.01
+    base *= torch.arange(1, C + 1).view(C, 1) / C
+    base = base.cuda()
+    sigma = DP_NOISE * DP_CLIP
+
+    def run(seed, s):
+        leaves = split_leaves(base, MLP_LEAVES)
+        fac = dp_clip_noise_(leaves, DP_CLIP, s, torch.Generator(
+            device="cuda").manual_seed(seed))
+        return torch.cat([v.flatten(1) for v in leaves], 1), fac
+
+    clipped, fac = run(0, 0.0)
+    out, _ = run(0, sigma)
+    again, _ = run(0, sigma)
+    other, _ = run(1, sigma)
+    z = (out.double() - clipped.double()) / sigma
+    n = z.numel()
+    mean, std = float(z.mean()), float(z.std())
+    zc = z - z.mean(1, keepdim=True)
+    cov = zc @ zc.T
+    d = cov.diagonal().sqrt()
+    corr = (cov / (d[:, None] * d[None, :])).cpu()
+    off = float(corr[~torch.eye(C, dtype=torch.bool)].abs().max())
+    bound = int((fac < 1).sum())
+    log(f"[3i/noise] the transform with a CUDA generator on a fixed "
+        f"{DP_NOISE_SHAPE} stack ({bound} of {C} lanes clipped): the "
+        f"standardized noise over {n} elements has mean {mean:.3e} (bound "
+        f"{5 / n ** 0.5:.3e}), std {std:.6f} (bound 1 +- {DP_STD_TOL}), "
+        f"largest |correlation| between lanes {off:.3e} (bound "
+        f"{5 / P ** 0.5:.3e}); the same seed again "
+        f"{'bit-equal' if torch.equal(out, again) else 'DIFFERS'}")
+    check(0 < bound < C, f"3i: the clip bound {bound} of {C} lanes")
+    check(abs(mean) < 5 / n ** 0.5 and abs(std - 1) < DP_STD_TOL
+          and off < 5 / P ** 0.5,
+          f"3i: the CUDA noise's mean {mean}, std {std}, correlation {off}")
+    check(torch.equal(out, again), "3i: the same seed drew other noise")
+    check(not torch.equal(out, other), "3i: another seed drew the same "
+          "noise")
+    leaves = split_leaves(base, MLP_LEAVES)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    noised = time_launch(lambda: dp_clip_noise_(leaves, DP_CLIP, sigma, gen))
+    clip_only = time_launch(lambda: dp_clip_noise_(leaves, DP_CLIP, 0.0,
+                                                   gen))
+    log(f"[3i/time] the DP transform at {DP_NOISE_SHAPE} with the MLP's six "
+        f"leaves (CUDA events, L2 flushed, median): {noised:.4f} ms noised, "
+        f"{clip_only:.4f} ms clip-only")
+
+
+def dp_path(run_experiment, fused_sgd_lanes, cfg, fl, init, jobs, train,
+            test, wmean_steady) -> int:
+    """Phase 3i: every run of ``DP_RUNS`` on the card, each fused run also
+    on the CPU (``jobs``, in the pool), with phase 3's checks (no accuracy
+    floor; the noised runs' accuracies logged, not held, since the two
+    devices draw other noise); each run's literal (``fused_sgd``
+    launches, dispatches, comm, ``dp_epsilon``, ``dp_delta``;
+    ``DP_LITERALS``) on both devices; one DP transform a SGD step; every
+    ``fused_sgd`` launch of the GPU runs against its plain version; each
+    clip-only fused model GPU against CPU within ``ENGINE_ROUND1_TOL`` with
+    the 1.03x clip outside for ``DP_BOUNDED``, logged for the others; the
+    batched clip-only run bit-equal to its fused run (the sequential one's
+    gap logged). Then ``dp_noise_check`` and a profiled round of FedSR
+    with and without DP-SGD: the kernels the transform adds a step. Logs
+    the share of lane-steps the clip bound and one steady round of each
+    run beside phase 3g's ``weighted_mean`` round of the same honest
+    fleet (``wmean_steady``, same call). Returns the ``fused_sgd``
+    launches of its GPU runs."""
+    from repro_torch.kernels.fused_sgd.ref import sgd_lanes_reference
+
+    checked = checked_sgd(fused_sgd_lanes, sgd_lanes_reference)
+    task = dict(task="mnist_like", model_cfg=cfg, init_params=init,
+                train=train, test=test)
+    gpu_runs, transforms = {}, {}
+    t0 = time.perf_counter()
+    for run in DP_RUNS:
+        with checked, checked_dp() as dp:
+            gpu_runs[run] = main_path(
+                run_experiment, fused_sgd_lanes, cfg, dp_fl(fl, *run), init,
+                eval_every=3, tag=f"3i {dp_tag(run)}", devices=("cuda",),
+                train=train, test=test)["cuda"]
+        transforms[run] = (dp.calls, dp.lanes, dp.share())
+    cpu_runs = {run: job.result(timeout=600) for run, job in jobs.items()}
+    log(f"[3i] GPU runs and the CPU runs left in the pool: "
+        f"{time.perf_counter() - t0:.1f}s; CPU walls "
+        f"{sum(r[3] for r in cpu_runs.values()):.1f}s in all")
+
+    def literal(res, blocks, n):
+        comm = Counter()
+        for _, sched in blocks:
+            comm.update(dict(sched.comm))
+        return (n, res.dispatches, dict(comm), res.dp_epsilon, res.dp_delta)
+
+    launches = 0
+    for run, lit in DP_LITERALS.items():
+        tag = f"3i {dp_tag(run)}"
+        tfl = dp_fl(fl, *run)
+        gpu, blocks, n, _ = gpu_runs[run]
+        launches += n
+        got = literal(gpu, blocks, n)
+        check(got == lit, f"{tag}: (launches, dispatches, comm, dp_epsilon, "
+              f"dp_delta) {got}, the literal {lit}")
+        calls, lanes, share = transforms[run]
+        log(f"[{tag}] literal {got}; {calls} DP transforms on the card over "
+            f"{lanes} lane-steps, the clip bound {share:.4f} of them (masked "
+            f"lane-steps included); accuracies "
+            f"{[round(r.accuracy, 4) for r in gpu.history]}")
+        check(calls == n, f"{tag}: {calls} DP transforms, {n} SGD steps")
+        if run[2] != "fused":
+            fused = gpu_runs[run[:2] + ("fused",)][0]
+            same = all(torch.equal(gpu.final_model[k], fused.final_model[k])
+                       for k in fused.final_model)
+            log(f"[{tag}] final model against the fused engine's on the GPU "
+                f"{'bit-equal' if same else 'differs'} (max |diff| "
+                f"{max_abs_diff(gpu.final_model, fused.final_model):.3e})")
+            if run[2] == "batched":
+                check(same, f"{tag}: batched is not the fused run bit for "
+                      f"bit")
+            continue
+        cpu, cblocks, _, wall = cpu_runs[run]
+        cpu.final_model = {k: torch.from_numpy(v)
+                           for k, v in cpu.final_model.items()}
+        check(literal(cpu, cblocks, 0)[1:] == lit[1:],
+              f"{tag}: the CPU run's literal differs from {lit}")
+        log(f"[{tag}] cpu: accuracies "
+            f"{[round(r.accuracy, 4) for r in cpu.history]} "
+            f"dispatches={cpu.dispatches} h2d_bytes={cpu.h2d_bytes} "
+            f"dp_epsilon={cpu.dp_epsilon!r} wall={wall:.3f}s")
+        noised = run[1] > 0
+        check_main_path({"cuda": gpu_runs[run], "cpu": cpu_runs[run]},
+                        199_210, acc_tol=1.0 if noised else 0.02,
+                        min_final_acc=None, tag=tag)
+        if noised:
+            log(f"[{tag}] GPU against CPU, logged, not checked (the two "
+                f"devices' generators draw other noise): final accuracy "
+                f"{gpu.final_accuracy:.4f} against "
+                f"{cpu.final_accuracy:.4f}, model max |diff| "
+                f"{max_abs_diff(gpu.final_model, cpu.final_model):.3e}")
+            timed = run_experiment(eval_every=1, device="cuda", fl=tfl,
+                                   **task)
+        else:
+            timed = model_gap(
+                run_experiment, task, tag, tfl, gpu.final_model,
+                cpu.final_model, 3, run in DP_BOUNDED,
+                control_fl=dataclasses.replace(
+                    tfl, dp_clip=DP_CLIP * DP_CLIP_CONTROL),
+                control_what=f"{DP_CLIP_CONTROL}x the clip")
+        wm = wmean_steady.get((run[0], "sync10"), [])
+        log(f"[3i/time] {dp_tag(run)}: steady rounds (2 and 3) "
+            + ", ".join(f"{v:.2f}" for v in steady_ms(timed))
+            + " ms; weighted_mean without DP (phase 3g, sync10) "
+            + ", ".join(f"{v:.2f}" for v in wm) + " ms (same call)")
+    worst = float(checked.worst) if checked.worst is not None else None
+    log(f"[3i] fused_sgd against its plain version on each launch's inputs: "
+        f"{checked.calls} launches, max |diff| {worst}")
+    check(checked.calls == launches and worst == 0.0,
+          f"3i: {checked.calls} checked launches of {launches}, max |diff| "
+          f"{worst} from the plain version")
+    want = sum(lit[0] for lit in DP_LITERALS.values())
+    check(launches == want, f"3i: {launches} fused_sgd launches, the "
+          f"literals sum to {want}")
+    dp_noise_check()
+    rounds = {what: profile_round(cfg, tfl, init, fused_sgd_lanes,
+                                  what=f"FedSR {what}")
+              for what, tfl in (("DP-SGD", dp_fl(fl, "fedsr", DP_NOISE)),
+                                ("without DP", scenario_fl(fl, "fedsr",
+                                                           "sync10")))}
+    a, b = rounds["DP-SGD"], rounds["without DP"]
+    added = (a["kernels"] / max(a["steps"], 1)
+             - b["kernels"] / max(b["steps"], 1))
+    log(f"[3i/profile] one FedSR round (rings of 2): {a['kernels']} device "
+        f"kernels over {a['steps']} SGD steps with DP-SGD, "
+        f"{b['kernels']} over {b['steps']} without: the transform adds "
+        f"{added:.2f} kernels a step; device busy {a['busy_ms']:.3f} against "
+        f"{b['busy_ms']:.3f} ms; unprofiled {a['wall_ms']:.2f} against "
+        f"{b['wall_ms']:.2f} ms")
+    return launches
+
+
 def time_launch(fn, reps: int = 50) -> float:
     """Median ms of one call of ``fn``, timed alone with CUDA events. Before
     every call a 256 MB write flushes the 50 MB L2 cache, and a spin kernel
@@ -2430,7 +2742,7 @@ def profile_round(cfg, fl, init, fused_sgd_lanes, task="mnist_like",
           f"the fused {what} round ran {cats} torch.cat kernels over {steps} "
           f"steps: the update must read the gradient leaves in place")
     return {"wall_ms": walls["default"], "busy_ms": busy / 1e3,
-            "steps": steps}
+            "steps": steps, "kernels": kernels}
 
 
 # ---------------------------------------------------------------------------
@@ -3628,15 +3940,17 @@ def main() -> int:
 
     # phase 3g: the scenario curves and the attack column under drops,
     # stragglers, stale uploads and Byzantine or poisoned clients; phase
-    # 3h: the attack grid's robust defense columns. Both phases' CPU runs
-    # go to one worker pool while their GPU runs go on; every run shares
-    # one task (run_experiment makes the same from the seed).
+    # 3h: the attack grid's robust defense columns; phase 3i: its DP-SGD
+    # row. The three phases' CPU runs go to one worker pool while their GPU
+    # runs go on; every run shares one task (run_experiment makes the same
+    # from the seed).
     from repro_torch.data.synthetic import make_task
 
     train, test = make_task("mnist_like", seed=fl.seed)
     with cpu_pool(CONFIG, init, train, test) as pool:
         jobs_3g = scenario_jobs(pool, fl)
         jobs_3h = robust_jobs(pool, fl)
+        jobs_3i = dp_jobs(pool, fl)
         t0 = time.perf_counter()
         scenario_launches, steady = scenario_path(
             run_experiment, fused_sgd_lanes, CONFIG, fl, init, jobs_3g,
@@ -3650,7 +3964,12 @@ def main() -> int:
             train, test, steady)
         log(f"[3h] fused_sgd launches of phase 3h's GPU runs: "
             f"{robust_launches}; its runs in {time.perf_counter() - t0:.1f}s")
-    launches["fused_sgd"] += scenario_launches + robust_launches
+        t0 = time.perf_counter()
+        dp_launches = dp_path(run_experiment, fused_sgd_lanes, CONFIG, fl,
+                              init, jobs_3i, train, test, steady)
+        log(f"[3i] fused_sgd launches of phase 3i's GPU runs: "
+            f"{dp_launches}; the phase in {time.perf_counter() - t0:.1f}s")
+    launches["fused_sgd"] += scenario_launches + robust_launches + dp_launches
 
     # phases 4-7: the yi-9b and the mamba2-2.7b serving paths
     yi = ServePath(

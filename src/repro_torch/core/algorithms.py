@@ -25,7 +25,10 @@ adversary (``core.adversary``) stamps ``lane_scale`` after the drops, so
 an attacker that dropped this round uploads nothing. Off, neither runs
 nor draws. Before both, the config's robust reducer (``FLConfig.reducer``)
 is stamped onto every ``AggSpec`` of the plan (``_mark_agg``), which draws
-nothing either. DP-SGD is ROADMAP A7.3.
+nothing either. DP-SGD (``dp_clip > 0``) changes no plan: the local
+trainer transforms each step's gradient, and the planner keeps the
+privacy ledger (``core.privacy``), charged at ``finish_block`` with each
+round's worst-case per-client steps (Centralized: each visit's steps).
 
 The block boundary is also the residency protocol's boundary
 (``FLConfig.store="host"`` or ``"stream"``): ``dispatch_block`` stages the
@@ -54,6 +57,7 @@ from repro_torch.core.plan import (
     GLOBAL, AggSpec, Hop, RoundPlan, RoundResult, Schedule, StateRef,
     VisitGroup,
 )
+from repro_torch.core.privacy import PrivacyLedger, plan_max_client_steps
 from repro_torch.core.ring import ring_lap_hops
 from repro_torch.core.scenario import ScenarioState
 from repro_torch.core.state import (
@@ -90,6 +94,8 @@ class _Planner:
         self.edges = assign_edges(fl.num_devices, fl.num_edges)
         self.scenario = ScenarioState(fl.scenario, fl.num_devices)
         self.adversary = AdversaryState(fl.adversary, fl.num_devices)
+        self.privacy = (PrivacyLedger(fl.dp_noise_mult, fl.dp_delta)
+                        if fl.dp_clip > 0 else None)
         self.residency = ResidencyMeter()
         self._transient_state_bytes = 0     # the running block's staged
                                             # carries while the next
@@ -217,9 +223,13 @@ class _Planner:
                      meter: CommMeter) -> None:
         """Retire a block: write its trained state rows back into the host
         arenas (the staged stores' one readback, where the pipeline waits
-        for the block) and apply its closed-form comm records and simulated
-        time."""
+        for the block) and apply its closed-form privacy and comm records
+        and simulated time."""
         self._unstage_state(state)
+        if self.privacy is not None:
+            # worst-case client: each round's max per-client steps
+            for plan in sched.plans:
+                self.privacy.record(plan_max_client_steps(plan))
         if meter is not None:
             for channel, count in sched.comm:
                 meter.record(channel, count)
@@ -668,10 +678,13 @@ class Centralized(_Planner):
     def run_schedule(self, w_glob, t0, lrs, rng, meter, state):
         """A block is the per-round loop: each round one visit of the
         pool, its batch plan drawn from ``rng`` as the reference draws it;
-        nothing to meter."""
+        no comm to meter, and under DP-SGD the visit's steps charged to the
+        ledger."""
         for lr in lrs:
             w_glob = self.trainer.train(w_glob, self.pool, lr=float(lr),
                                         epochs=self.fl.local_epochs, rng=rng)
+            if self.privacy is not None:
+                self.privacy.record(self.trainer.last_steps)
         return w_glob, state
 
 

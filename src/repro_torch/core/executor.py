@@ -43,6 +43,10 @@ loop. Algorithms that bypass the plan IR (Centralized,
 
 A ``label_flip`` adversary poisons the attacker shards right after the
 partition and before the algorithm (and its engine's store) is built.
+Under DP-SGD the result reports the planner's ledger as ``dp_epsilon`` and
+``dp_delta``. As in the reference, a checkpoint keeps neither the ledger
+nor the noise stream: a resumed run charges only the rounds after the
+resume and draws its noise anew (ROADMAP C9).
 Personalization is not ported yet (ROADMAP A8) and raises.
 """
 from __future__ import annotations
@@ -101,6 +105,8 @@ class ExperimentResult:
                                             # under the staged stores; both
                                             # pipeline buffers under
                                             # prefetch=1)
+    dp_epsilon: Optional[float] = None      # (eps, delta) spent by the run's
+    dp_delta: Optional[float] = None        # DP-SGD ledger (dp_clip > 0 only)
     stage_seconds: float = 0.0              # host->device staging wall
                                             # (store gathers + uploads)
     overlapped_stage_seconds: float = 0.0   # the part of it a prefetch hid
@@ -331,9 +337,12 @@ def run_experiment(
     stage_s, overlap_s = algo.engine.staging_stats()
     res = algo.residency
     res.stage_seconds, res.overlapped_stage_seconds = stage_s, overlap_s
+    eps, delta = ((None, None) if algo.privacy is None
+                  else algo.privacy.spent)
     return ExperimentResult(fl.algorithm, task, fl.partition, history,
                             final_model=unravel(w_glob, layout),
                             peak_device_bytes=res.peak_bytes,
+                            dp_epsilon=eps, dp_delta=delta,
                             stage_seconds=res.stage_seconds,
                             overlapped_stage_seconds=(
                                 res.overlapped_stage_seconds),

@@ -64,6 +64,22 @@ each path is held against its own reference path:
   kernel with every lane stepping when ``use_fused_sgd``, else per leaf in
   torch ops.
 
+DP-SGD (``FLConfig.dp_clip > 0``) transforms every step's gradient
+between autograd and the update, under every engine and variant, as the
+reference's ``_make_dp`` does (``dp_clip_noise_``): each lane's
+batch-mean gradient (the whole loss's: FedProx's and MOON's terms
+included, SCAFFOLD's before its drift correction) is clipped to L2 norm
+``dp_clip`` over all its leaves, then every element gets Gaussian noise of
+std ``dp_noise_mult * dp_clip``. Masked lanes are transformed too; the
+masked update discards them. The transform works in place on autograd's
+leaves, so the fused update still reads them in place. The noise comes
+from the trainer's own ``torch.Generator`` on its device, seeded once from
+``dp_seed`` and drawn on the training thread in step order; it never
+touches the experiment's numpy RNG, so plans and meters are those of the
+run without noise. Torch cannot replay ``jax.random``, and a CUDA
+generator draws other numbers than a CPU one, so a noised run matches the
+reference in law, not element for element.
+
 Counters, as the reference meters them: ``h2d_bytes`` (what each entry
 point ships: per-step batches, per-hop stacks and masks, or the block's
 index plans and per-round arrays) and ``dispatches`` (one per step, per
@@ -151,13 +167,29 @@ def masked_momentum_update(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
     p.sub_((okf * lr) * m)
 
 
+def dp_clip_noise_(grads, clip: float, sigma: float,
+                   gen: Optional[torch.Generator]) -> torch.Tensor:
+    """The reference's DP-SGD transform (``_make_dp(clip, sigma, True)``),
+    in place on the gradient leaves ``grads`` (one (C, *shape) tensor a
+    leaf, in the layout's sorted order): each lane's squared L2 norm ``sq``
+    summed over the leaves, ``fac = min(1, clip / sqrt(sq + 1e-12))`` times
+    every leaf of the lane, then, when ``sigma > 0``, ``sigma`` times a
+    standard normal drawn from ``gen`` added to every element, leaf by
+    leaf. Returns the (C,) factors."""
+    sq = sum(torch.sum(g * g, dim=tuple(range(1, g.dim()))) for g in grads)
+    fac = torch.clamp(clip / torch.sqrt(sq + 1e-12), max=1.0)
+    for g in grads:
+        g.mul_(fac.view(-1, *[1] * (g.dim() - 1)))
+        if sigma > 0:
+            g.add_(torch.randn(g.shape, generator=gen, dtype=g.dtype,
+                               device=g.device), alpha=sigma)
+    return fac
+
+
 class LocalTrainer:
     """Lane-stacked local SGD for one (model, FL) config on one device."""
 
     def __init__(self, cfg: ModelConfig, fl: FLConfig, device=None):
-        if fl.dp_clip > 0:
-            raise NotImplementedError(
-                "DP-SGD (dp_clip > 0) is not ported yet (ROADMAP A7.3)")
         self.cfg = cfg
         self.fl = fl
         self.device = resolve_device(device)
@@ -165,6 +197,13 @@ class LocalTrainer:
         self.layout = tuple((k, specs[k].shape) for k in sorted(specs))
         self.h2d_bytes = 0
         self.dispatches = 0
+        # DP-SGD: (clip, noise std) and the noise stream, seeded once
+        self._dp = None
+        if fl.dp_clip > 0:
+            self._dp = (float(fl.dp_clip), float(fl.dp_noise_mult * fl.dp_clip))
+            self._dp_gen = torch.Generator(device=self.device)
+            self._dp_gen.manual_seed(fl.dp_seed)
+        self.last_steps = 0
 
     # ------------------------------------------------------------------
     def lane_grads(self, params: torch.Tensor, batch: Dict[str, torch.Tensor],
@@ -220,6 +259,14 @@ class LocalTrainer:
         con = -torch.mean(pos - torch.logaddexp(pos, neg), dim=-1)
         return ce + self.fl.mu * con
 
+    def _dp_grads(self, params, batch, loss_kw):
+        """``lane_grads``'s gradient leaves, DP-transformed in place when
+        the config asks for DP-SGD."""
+        _, grads = self.lane_grads(params, batch, **loss_kw)
+        if self._dp is not None:
+            dp_clip_noise_(grads, *self._dp, self._dp_gen)
+        return grads
+
     def _update(self, p, grads, m, ok, lr, reset: bool) -> None:
         """The masked momentum step on the (C, P) stack ``p`` from the
         gradient leaves ``grads``: the fused update reads them in place,
@@ -261,7 +308,7 @@ class LocalTrainer:
         loss_kw = {k: v for k, v in extras.items() if k in _LOSS_EXTRAS}
         m = None if scaffold else torch.zeros_like(params)
         for t in range(ok.shape[0]):
-            _, grads = self.lane_grads(params, batch_at(t), **loss_kw)
+            grads = self._dp_grads(params, batch_at(t), loss_kw)
             if scaffold:
                 self._scaffold_update(params, grads, lr, extras["c_glob"],
                                       extras["c_local"], ok[t])
@@ -320,7 +367,8 @@ class LocalTrainer:
         The update is unmasked (see the module docstring). ``variant``
         picks the loss and its extras, each a (P,) model here (the
         client's own ``w_prev``/``c_local`` too). Returns the trained (P,)
-        model; ``params`` is left as it was."""
+        model; ``params`` is left as it was. The visit's step count is left
+        in ``last_steps`` (Centralized's privacy ledger reads it)."""
         extras = {k: v.reshape(1, -1) if k in _PER_LANE else v
                   for k, v in _variant_extras(
                       variant, anchor=anchor, w_glob=w_glob, w_prev=w_prev,
@@ -338,13 +386,14 @@ class LocalTrainer:
         lr = self._device_lr(lr)
         ok = torch.ones(1, dtype=torch.bool, device=p.device)
         mom = self.fl.momentum
+        self.last_steps = int(plan.shape[0])
         for s, sl in enumerate(plan):
             batch = {"images": client.images[sl], "labels": client.labels[sl]}
             self.h2d_bytes += sum(_h2d_nbytes(v) for v in batch.values())
             self.dispatches += 1
-            _, grads = self.lane_grads(p, {
+            grads = self._dp_grads(p, {
                 k: torch.from_numpy(v).to(self.device).unsqueeze(0)
-                for k, v in batch.items()}, **loss_kw)
+                for k, v in batch.items()}, loss_kw)
             if scaffold:
                 self._scaffold_update(p, grads, lr, extras["c_glob"],
                                       extras["c_local"])

@@ -391,8 +391,7 @@ def test_the_default_config_runs(monkeypatch):
 
 
 @pytest.mark.parametrize("engine", ENGINES)
-@pytest.mark.parametrize("override", [
-    {"dp_clip": 1.0}, {"mesh_data_axis": "data"}])
+@pytest.mark.parametrize("override", [{"mesh_data_axis": "data"}])
 def test_unported_options_raise_under_the_new_engines(engine, override):
     _, (pm, pfl) = configs(SMALL, **fl_kwargs(engine=engine, **override))
     _, (ptr, pte) = mnist_tasks(train_per_class=4, test_per_class=1)

@@ -527,8 +527,7 @@ def test_importing_the_port_leaves_jax_unloaded():
 
 
 @pytest.mark.parametrize("override", [
-    {"engine": "sharded"},
-    {"dp_clip": 1.0}, {"mesh_data_axis": "data"},
+    {"engine": "sharded"}, {"mesh_data_axis": "data"},
     {"personalize": "full"},
 ])
 def test_unported_options_raise(override):
