@@ -212,6 +212,30 @@ non-zero at the end, before any result line is printed):
    lane-steps the clip bound, each run's steady rounds beside phase 3g's
    honest ``weighted_mean`` rounds, the transform's time, and a profiled
    FedSR round with and without DP-SGD (the kernels it adds a step).
+3j. Personalization and classifier fleet serving (ROADMAP A8): (a)
+   ``personalize_table``'s alpha=0.1 rows (FedAvg and FedSR at ``_fl``'s
+   defaults, dirichlet, full and head mode, ``PersonalizeConfig(epochs=3,
+   lr=0.02)``) at 2 global rounds, GPU then CPU (in phase 3g's pool): the
+   stage's plans, per-client eval labels and comm equal; the whole runs'
+   fleets GPU against CPU logged (a round's outcome carries into them,
+   C8), the stage alone from the GPU run's global model within
+   ``PERS_STAGE_TOL`` of the CPU's stage with the 1.03x fine-tune learning
+   rate outside; head mode's body rows the global model's bit for bit on
+   the card; (b) Table IV's K=100 FedSR run
+   with a one-epoch stage under the device store (one block of 100) and
+   the host store with prefetch 0 and 1 (blocks of 64 and 36): the three
+   fleets against each other, ``peak_device_bytes``, the staging wall and
+   its overlap; (c) ``FleetClassifier`` on (b)'s fleet (256 requests
+   drawn with replacement: host- and device-resident logits bit-equal,
+   stacked against ``loop_classify`` and each request's solo forward
+   within ``SERVE_TOL``, a misrouted batch outside it, one dispatch a
+   batch) and on a K=1,024 full-width stand-in fleet (256 distinct
+   clients: stacked against loop, device- and host-resident, timed); (d)
+   all eight rows of the table at its 12 rounds on the GPU, accuracies
+   and lift logged. Every ``fused_sgd`` launch of the phase's GPU runs
+   (rounds and stage: one a stage step) against its plain version, bit
+   for bit; then ``fused_sgd``'s times at (100, 199,210) and (64,
+   199,210).
 4. The yi-9b serving path at full width and 2 layers, GPU against CPU
    from the same CPU-drawn weights, in float32 and in bfloat16:
    ``prefill_step`` at B=1, S=256 and ``prefill_and_decode`` at B=4,
@@ -1372,7 +1396,7 @@ def hazard_sequence(st, a_ids, b_ids, c_ids):
     st.prefetch(b_ids)
     st.arena(b_ids)                     # drops A's arena
     st.prefetch(c_ids)
-    c_plane = st._pending[1].result()[0]
+    c_plane = st._stager._pending[1].result()[0]
     live = not held.query()
     reused = c_plane.images.data_ptr() == a_ptr
     del c_plane
@@ -1390,21 +1414,21 @@ def hazard_run(record_stream: bool = True):
     from repro_torch.data import store as store_mod
 
     st = store_mod.HostStore(_hazard_clients(), "cuda")
-    orig = store_mod._StagedStore._hand_over
+    orig = store_mod.Stager._hand_over
 
     def no_record(self, plane, event):
         if event is not None:
             torch.cuda.current_stream(self.device).wait_event(event)
 
     if not record_stream:
-        store_mod._StagedStore._hand_over = no_record
+        store_mod.Stager._hand_over = no_record
     try:
         warm = hazard_sequence(st, *(np.arange(k, k + 20)
                                      for k in (0, 20, 40)))
         measured = hazard_sequence(st, *(np.arange(k, k + 20)
                                          for k in (60, 80, 0)))
     finally:
-        store_mod._StagedStore._hand_over = orig
+        store_mod.Stager._hand_over = orig
         st.close()
     return warm, measured
 
@@ -1451,7 +1475,7 @@ def staging_times(reps: int = 10) -> None:
     times = {"cohort arena": [], "stage_rows": [], "unstage_rows": []}
     try:
         for i in range(reps + 2):
-            times["cohort arena"].append(st._build(visited)[2])
+            times["cohort arena"].append(st._stager._build(visited)[2])
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             staged = stage_rows(arena, visited, "cuda")
@@ -1793,7 +1817,7 @@ def model_gap(run_experiment, task, tag, tfl, gpu_model, cpu_model,
 
 @contextlib.contextmanager
 def cpu_pool(cfg, init, train, test):
-    """The worker pool of phases 3g and 3h's CPU runs, spawned, each worker
+    """The worker pool of phases 3g-3j's CPU runs, spawned, each worker
     with ``CPU_WORKER_THREADS`` threads and the phases' shared inputs. A
     worker that dies breaks the pool and raises at ``result()``, where a
     ``multiprocessing.Pool`` would start another and wait forever."""
@@ -2516,6 +2540,556 @@ def dp_path(run_experiment, fused_sgd_lanes, cfg, fl, init, jobs, train,
         f"{added:.2f} kernels a step; device busy {a['busy_ms']:.3f} against "
         f"{b['busy_ms']:.3f} ms; unprofiled {a['wall_ms']:.2f} against "
         f"{b['wall_ms']:.2f} ms")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 3j, personalization and classifier fleet serving (ROADMAP A8).
+# (a) personalize_table's alpha=0.1 rows (fl_tables.py::personalize_table
+# at _fl's defaults: dirichlet, K=20, 5 edges, FedAvg E=5 R=1, FedSR E=1
+# R=5, batch 32; the paper MLP at full width on mnist_like, fused,
+# use_fused_sgd; PersonalizeConfig(epochs=3, lr=0.02) in full and head
+# mode) at 2 global rounds against the table's 12, GPU then CPU (in phase
+# 3g's pool). (b) Table IV's K=100 fleet (phase 3f's FedSR run) with
+# PersonalizeConfig(epochs=1) under the device store (one block of 100)
+# and the host store with prefetch 0 and 1 (blocks of 64 and 36). (c) The
+# classifier fleet serving on (b)'s fleet and on a K=1,024 full-width
+# stand-in fleet. (d) All eight rows of the table at its 12 rounds, on the
+# GPU alone.
+PERS_ALGOS = ("fedavg", "fedsr")
+PERS_MODES = ("full", "head")
+PERS_ROUNDS, PERS_TABLE_ROUNDS = 2, 12
+PERS_EPOCHS, PERS_LR = 3, 0.02
+# The personalized fleet GPU against CPU. On a CPU
+# (scripts/personalize_gaps.py, initial seeds 0 and 1, three draws each) a
+# relative 1e-7 change of the initial weights moves the four rows' whole
+# runs' fleets by up to 4.582e-3, and the fine-tune at 1.03x its learning
+# rate by 2.030e-3 to 3.311e-3: the 2-round global model lands on another
+# of a round's few outcomes (ROADMAP C8) and the fine-tune carries it, so
+# no bound on the whole run tells the control from rounding, and it is
+# logged. The stage alone, from one global model: a relative 1e-7 change
+# of that model moves the fleet by 4.470e-8 to 1.192e-7 and the 1.03x
+# fine-tune by 2.030e-3 to 7.913e-3, so the GPU's stage is held against
+# the CPU's stage from the GPU run's global model. Its gap is rounding
+# plus, now and then, a ReLU kink that flips over the 39 steps: moving
+# every step's trained parameters by a relative 1e-7 (a rounding-sized
+# change in each product) flips one in FedAvg's full-mode row of seed 0
+# on a CPU (1.445e-5 and 1.448e-5 in two of three draws, seeds 0-2), and
+# on an H100 (NVIDIA H100 80GB HBM3, 700 W; seeds 0 and 1, four draws)
+# both that and the 1e-7 move of the global model land on 6.428e-5 there
+# and on 1.138e-4 in FedSR's full-mode row of seed 1, the very gaps the
+# card's stage reads against the CPU's (6.427e-5, 1.138e-4; the other
+# rows 4.470e-8 to 7.451e-8). The bound sits between the largest of
+# those, 1.138e-4, and the least control, 2.031e-3, with room 4.4x and
+# 4.1x on the two sides.
+PERS_LR_CONTROL = 1.03
+PERS_STAGE_TOL = 5e-4
+PERS_FLEET_EPOCHS = 1               # (b): one step a client (20 images)
+PERS_FLEET_RUNS = (("device", 0), ("host", 0), ("host", 1))
+# The three (b) fleets against each other on the card: the same global
+# model fine-tuned in one block of 100 lanes or in blocks of 64 and 36,
+# held bit for bit (the lane-stacked products gave each lane the same
+# bits at 100, 64 and 36 lanes on an H100).
+PERS_BLOCK_TOL = 0.0
+SERVE_REQUESTS = 256
+SERVE_FLEET = 1024                  # (c): the stand-in fleet, 816 MB
+SERVE_TOL = 1e-5
+
+
+def pers_fl(fl, algorithm: str, mode: str, alpha: float = 0.1,
+            rounds: int = PERS_ROUNDS, lr: float = PERS_LR):
+    """One row of ``personalize_table`` (its ``_fl`` call), from phase 3's
+    ``fl`` (the paper MLP's batch 32, fused, ``use_fused_sgd``)."""
+    from repro_torch.configs.base import PersonalizeConfig
+
+    star = algorithm == "fedavg"
+    return dataclasses.replace(
+        fl, algorithm=algorithm, partition="dirichlet", alpha=alpha,
+        num_devices=20, num_edges=5, local_epochs=5 if star else 1,
+        ring_rounds=1 if star else 5, rounds=rounds,
+        personalize=PersonalizeConfig(epochs=PERS_EPOCHS, lr=lr, mode=mode))
+
+
+class recorded_stage:
+    """Within the block, every personalization block's host arrays are
+    recorded: the ``(rows, plans, valid)`` of each ``train_many_fused``
+    call (``calls``) and the labels of each per-client eval draw
+    (``labels``)."""
+
+    def __enter__(self):
+        import repro_torch.core.local as local
+        import repro_torch.core.personalize as pers
+
+        self.calls, self.labels = [], []
+        self.cls, self.pers = local.LocalTrainer, pers
+        self.saved = (self.cls.train_many_fused, pers.per_client_test_sets)
+        train, sets = self.saved
+
+        def rec_train(trainer, params, plane, rows, plans, valid, **kw):
+            self.calls.append(tuple(np.array(a) for a in (rows, plans,
+                                                          valid)))
+            return train(trainer, params, plane, rows, plans, valid, **kw)
+
+        def rec_sets(*a, **kw):
+            images, labels = sets(*a, **kw)
+            self.labels.append(labels.copy())
+            return images, labels
+        self.cls.train_many_fused = rec_train
+        self.pers.per_client_test_sets = rec_sets
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.train_many_fused, self.pers.per_client_test_sets = self.saved
+
+    def steps(self) -> int:
+        """The recorded blocks' SGD steps: one ``fused_sgd`` launch each."""
+        return sum(valid.shape[-1] for _, _, valid in self.calls)
+
+
+def _cpu_run_pers(fl):
+    """One phase 3j run on the CPU, in a worker: ``(result, blocks, calls,
+    labels, wall)``, the models as numpy arrays for the trip back."""
+    from repro_torch.core.executor import run_experiment
+
+    blocks = []
+    t0 = time.perf_counter()
+    with recorded_stage() as rec:
+        res = run_experiment(fl=fl, eval_every=fl.rounds, device="cpu",
+                             on_block=lambda t, s: blocks.append((t, s)),
+                             **_CPU_TASK)
+    res.final_model = {k: v.numpy() for k, v in res.final_model.items()}
+    res.personalized_fleet = {k: np.array(v)
+                              for k, v in res.personalized_fleet.items()}
+    return res, blocks, rec.calls, rec.labels, time.perf_counter() - t0
+
+
+def pers_jobs(pool, fl) -> dict:
+    """Phase 3j's CPU runs of (a), submitted to ``pool``."""
+    return {(a, m): pool.submit(_cpu_run_pers, pers_fl(fl, a, m))
+            for a in PERS_ALGOS for m in PERS_MODES}
+
+
+def fleet_gap(a, b) -> float:
+    """max |a - b| over two ``{leaf: (K, ...)}`` numpy fleets."""
+    return max(float(np.abs(a[k] - b[k]).max()) for k in a)
+
+
+def body_frozen(res, cfg) -> bool:
+    """Every body leaf of every personalized row is the global model's,
+    bit for bit (head mode)."""
+    from repro_torch.models.small import head_param_names
+
+    head = head_param_names(cfg)
+    return all(np.array_equal(v, np.broadcast_to(
+        res.final_model[k].cpu().numpy(), v.shape))
+        for k, v in res.personalized_fleet.items() if k not in head)
+
+
+def pers_summary(res) -> str:
+    return (f"acc_global {res.global_client_accuracy:.4f}, acc_personalized "
+            f"{res.personalized_accuracy:.4f}, lift "
+            f"{res.personalized_accuracy - res.global_client_accuracy:+.4f}")
+
+
+def pers_run(run_experiment, fused_sgd_lanes, sgd_ref, tfl, tag, **kw):
+    """One GPU run of phase 3j with each ``fused_sgd`` launch held against
+    its plain version: ``(result, blocks, recorded_stage, launches)``; the
+    launches must be the round blocks' (``engine_counts``) plus one a
+    stage step, and every launch bit-equal."""
+    blocks = []
+    fused_sgd_lanes.launches = 0
+    with recorded_stage() as rec, checked_sgd(fused_sgd_lanes,
+                                              sgd_ref) as chk:
+        res = run_experiment(fl=tfl, device="cuda",
+                             on_block=lambda t, s: blocks.append((t, s)),
+                             **kw)
+    n = fused_sgd_lanes.launches
+    want = engine_counts(blocks, "fused")[0] + rec.steps()
+    worst = 0.0 if chk.worst is None else float(chk.worst)
+    check(n == want == chk.calls, f"{tag}: {n} fused_sgd launches "
+          f"({chk.calls} held), the plans imply {want}")
+    check(worst == 0.0, f"{tag}: a fused_sgd launch is {worst} from the "
+          f"plain version")
+    check(res.personalized_fleet is not None and all(
+        np.isfinite(v).all() for v in res.personalized_fleet.values()),
+        f"{tag}: no finite personalized fleet")
+    return res, blocks, rec, n
+
+
+def pers_clients(fl, train):
+    """The run's client shards, as ``run_experiment`` partitions them."""
+    from repro_torch.data.pipeline import make_clients
+
+    return make_clients(train, scheme=fl.partition,
+                        num_devices=fl.num_devices,
+                        rng=np.random.default_rng(fl.seed), xi=fl.xi,
+                        alpha=fl.alpha)
+
+
+def _cpu_stage(fl, w):
+    """The stage alone on the CPU, in a worker, from the global model ``w``
+    (numpy): the personalized fleet as numpy arrays."""
+    from repro_torch.core.personalize import personalize_fleet
+
+    report = personalize_fleet(_CPU_TASK["model_cfg"], fl,
+                               pers_clients(fl, _CPU_TASK["train"]), w,
+                               _CPU_TASK["test"], device="cpu")
+    return {k: np.array(v) for k, v in report.fleet.items()}
+
+
+def pers_table_path(run_experiment, fused_sgd_lanes, sgd_ref, cfg, fl, init,
+                    pool, jobs, train, test) -> int:
+    """Phase 3j (a): the table's alpha=0.1 rows, GPU then CPU (``jobs``,
+    the whole runs; the stage alone from the GPU run's global model,
+    submitted to ``pool``): plans, per-client eval labels and comm exactly
+    equal; the whole runs' fleets GPU against CPU logged (C8); the stage
+    alone GPU against CPU within ``PERS_STAGE_TOL``, the stage at
+    ``PERS_LR_CONTROL`` times its learning rate on the GPU outside; head
+    mode's body rows the global model's bit for bit on the card. Returns
+    the ``fused_sgd`` launches of its GPU runs."""
+    from repro_torch.core.personalize import personalize_fleet
+
+    task = dict(task="mnist_like", model_cfg=cfg, init_params=init,
+                train=train, test=test)
+    launches, runs = 0, {}
+    for algorithm in PERS_ALGOS:
+        for mode in PERS_MODES:
+            tag = f"3j/table {algorithm}/{mode}"
+            tfl = pers_fl(fl, algorithm, mode)
+            gpu, _, rec, n = pers_run(
+                run_experiment, fused_sgd_lanes, sgd_ref, tfl, tag,
+                eval_every=tfl.rounds, **task)
+            launches += n
+            w = {k: v.cpu().numpy() for k, v in gpu.final_model.items()}
+            stage = pool.submit(_cpu_stage, tfl, w)
+            control = personalize_fleet(
+                cfg, dataclasses.replace(tfl, personalize=dataclasses.replace(
+                    tfl.personalize, lr=PERS_LR * PERS_LR_CONTROL)),
+                pers_clients(tfl, train), w, test, device="cuda").fleet
+            runs[algorithm, mode] = (tag, tfl, gpu, rec, n, stage, control)
+    for key, (tag, tfl, gpu, rec, n, stage, control) in runs.items():
+        cpu, _, calls, labels, wall = jobs[key].result()
+        same_plans = len(calls) == len(rec.calls) and all(
+            np.array_equal(x, y) and x.dtype == y.dtype
+            for a, b in zip(calls, rec.calls) for x, y in zip(a, b))
+        same_labels = len(labels) == len(rec.labels) and all(
+            np.array_equal(a, b) for a, b in zip(labels, rec.labels))
+        same_comm = ([(r.round, r.comm) for r in gpu.history]
+                     == [(r.round, r.comm) for r in cpu.history])
+        blk = [v.shape[1:] for _, _, v in rec.calls]
+        log(f"[{tag}] fused_sgd launches {n} ({rec.steps()} of them the "
+            f"stage's, blocks (lanes, steps) {blk}); stage plans "
+            f"{'equal' if same_plans else 'DIFFER'}, eval labels "
+            f"{'equal' if same_labels else 'DIFFER'}, comm "
+            f"{'equal' if same_comm else 'DIFFERS'} GPU against CPU; GPU "
+            f"{pers_summary(gpu)}; CPU {pers_summary(cpu)} ({wall:.1f}s in "
+            f"the pool)")
+        check(same_plans and same_labels and same_comm,
+              f"{tag}: plans, eval labels or comm differ GPU against CPU")
+        check((gpu.h2d_bytes, gpu.dispatches)
+              == (cpu.h2d_bytes, cpu.dispatches),
+              f"{tag}: h2d_bytes/dispatches differ GPU against CPU")
+        err_w = max_abs_diff(gpu.final_model, {
+            k: torch.from_numpy(v) for k, v in cpu.final_model.items()})
+        err_run = fleet_gap(gpu.personalized_fleet, cpu.personalized_fleet)
+        cpu_stage = stage.result()
+        err = fleet_gap(gpu.personalized_fleet, cpu_stage)
+        err_c = fleet_gap(control, cpu_stage)
+        log(f"[{tag}] whole runs GPU against CPU: the global model after "
+            f"round {tfl.rounds} {err_w:.3e}, the personalized fleet "
+            f"{err_run:.3e} (logged, C8); the stage alone from the GPU's "
+            f"global model, GPU against CPU: {err:.3e} (bound "
+            f"{PERS_STAGE_TOL}); control, the stage at {PERS_LR_CONTROL}x "
+            f"its learning rate: {err_c:.3e} (must exceed the bound)")
+        check(err <= PERS_STAGE_TOL, f"{tag}: the stage's fleet on the GPU "
+              f"{err} from the CPU's")
+        check(err_c > PERS_STAGE_TOL, f"{tag}: the bound does not tell a "
+              f"{PERS_LR_CONTROL}x fine-tune learning rate from the CPU's "
+              f"stage")
+        if key[1] == "head":
+            frozen = body_frozen(gpu, cfg)
+            log(f"[{tag}] head mode: the body rows "
+                f"{'equal' if frozen else 'DIFFER from'} the global model bit "
+                f"for bit on the card")
+            check(frozen, f"{tag}: head mode moved a body leaf")
+    return launches
+
+
+def pers_fleet_path(run_experiment, fused_sgd_lanes, sgd_ref, cfg, fl,
+                    init) -> tuple:
+    """Phase 3j (b): Table IV's K=100 FedSR run with a one-epoch stage
+    under each of ``PERS_FLEET_RUNS``: launches, meters and staging logged;
+    the three fleets against each other. Returns the launches and the
+    device store's personalized fleet."""
+    from repro_torch.configs.base import PersonalizeConfig
+
+    launches, fleets = 0, {}
+    for store, prefetch in PERS_FLEET_RUNS:
+        tag = f"3j/fleet {store}/{prefetch}"
+        tfl = dataclasses.replace(
+            fl, algorithm="fedsr", store=store, prefetch=prefetch,
+            **TABLE4_KW, **TABLE4["fedsr"],
+            personalize=PersonalizeConfig(epochs=PERS_FLEET_EPOCHS))
+        t0 = time.perf_counter()
+        res, _, rec, n = pers_run(
+            run_experiment, fused_sgd_lanes, sgd_ref, tfl, tag,
+            task="mnist_like", model_cfg=cfg, eval_every=1,
+            init_params=init)
+        wall = time.perf_counter() - t0
+        launches += n
+        fleets[store, prefetch] = res
+        blk = [v.shape[1:] for _, _, v in rec.calls]
+        want_blocks = [(100, 1)] if store == "device" else [(64, 1), (36, 1)]
+        log(f"[{tag}] fused_sgd launches {n}, stage blocks (lanes, steps) "
+            f"{blk}; peak_device_bytes {res.peak_device_bytes}; staging "
+            f"{res.stage_seconds * 1e3:.3f} ms, of it hidden by a prefetch "
+            f"{res.overlapped_stage_seconds * 1e3:.3f} ms (overlap_fraction "
+            f"{res.overlap_fraction:.3f}); {pers_summary(res)}; the run "
+            f"{wall:.2f}s")
+        check(blk == want_blocks, f"{tag}: stage blocks {blk}, expected "
+              f"{want_blocks}")
+        check(res.peak_device_bytes == TABLE4_PEAK["fedsr", store, prefetch],
+              f"{tag}: peak_device_bytes {res.peak_device_bytes}")
+    base = fleets["device", 0]
+    for key in PERS_FLEET_RUNS[1:]:
+        res = fleets[key]
+        same_w = all(torch.equal(res.final_model[k], base.final_model[k])
+                     for k in base.final_model)
+        gap = fleet_gap(res.personalized_fleet, base.personalized_fleet)
+        log(f"[3j/fleet {key[0]}/{key[1]}] against (device, 0) on the GPU: "
+            f"global model {'bit-equal' if same_w else 'differs'}; "
+            f"personalized fleet max |diff| {gap:.3e} ("
+            f"{'bit-equal' if gap == 0 else 'blocks of 64 + 36 lanes against 100'}"
+            f"); per-client accuracies "
+            f"{'equal' if np.array_equal(res.personalized_accuracy, base.personalized_accuracy) else 'differ'}")
+        check(same_w, f"3j/fleet {key}: the global model is not the "
+              f"(device, 0) run's")
+        check(gap <= PERS_BLOCK_TOL, f"3j/fleet {key}: the personalized "
+              f"fleet {gap} from the (device, 0) run's")
+    return launches, base.personalized_fleet
+
+
+def serve_check(cfg, fleet_dict, test) -> None:
+    """Phase 3j (c), first half: (b)'s K=100 personalized fleet serving
+    ``SERVE_REQUESTS`` requests drawn with replacement from the test set,
+    two batches: device- and host-resident logits bit-equal (the second
+    batch's cohort prefetched while the first is served), the stacked
+    forward against ``loop_classify`` within ``SERVE_TOL``, each request
+    against its own model's solo forward within ``SERVE_TOL`` and against
+    a misrouted batch outside it, one dispatch a batch."""
+    from repro_torch.models.small import small_model_apply
+    from repro_torch.serve.fleet import (
+        FleetClassifier, FleetParams, loop_classify,
+    )
+
+    k = len(next(iter(fleet_dict.values())))
+    rng = np.random.default_rng(0)
+    batches = [(rng.integers(0, k, SERVE_REQUESTS),
+                test.images[rng.integers(0, len(test.labels),
+                                         SERVE_REQUESTS)])
+               for _ in range(2)]
+    dev = FleetParams(fleet_dict, device="cuda")
+    host = FleetParams(fleet_dict, resident=False, device="cuda")
+    clf = FleetClassifier(cfg)
+    try:
+        for i, (lanes, images) in enumerate(batches):
+            got_h = clf(host, lanes, images)
+            if i == 0:
+                host.prefetch(batches[1][0])
+            got = clf(dev, lanes, images)
+            same = torch.equal(got, got_h)
+            loop = loop_classify(cfg, dev, lanes, images)
+            x = torch.from_numpy(images).cuda()
+            solo = torch.cat([small_model_apply(dev.model(int(lane)),
+                                                x[b:b + 1], cfg)
+                              for b, lane in enumerate(lanes)])
+            wrong = clf(dev, (lanes + 1) % k, images)
+            e_loop = float((got - loop).abs().max())
+            e_solo = float((got - solo).abs().max())
+            e_wrong = float((got - wrong).abs().max())
+            log(f"[3j/serve] K={k} fleet, batch {i}: {SERVE_REQUESTS} "
+                f"requests over {len(np.unique(lanes))} clients; host- "
+                f"against device-resident logits "
+                f"{'bit-equal' if same else 'DIFFER'}; stacked against "
+                f"loop_classify {e_loop:.3e}, against each request's solo "
+                f"forward {e_solo:.3e} ({int((got == solo).all(1).sum())} "
+                f"of {SERVE_REQUESTS} rows bit-equal), against a misrouted "
+                f"batch {e_wrong:.3e} (bound {SERVE_TOL})")
+            check(same, f"3j/serve batch {i}: host-resident logits differ "
+                  f"from device-resident ones")
+            check(e_loop <= SERVE_TOL and e_solo <= SERVE_TOL,
+                  f"3j/serve batch {i}: stacked logits {e_loop}, {e_solo} "
+                  f"from the loop's and the solo forwards")
+            check(e_wrong > SERVE_TOL, f"3j/serve batch {i}: a misrouted "
+                  f"batch is within the bound")
+        log(f"[3j/serve] host-resident staging {host.stage_seconds * 1e3:.3f}"
+            f" ms, of it prefetched {host.overlapped_stage_seconds * 1e3:.3f}"
+            f" ms")
+        check(host.overlapped_stage_seconds > 0, "3j/serve: the prefetched "
+              "cohort was not consumed")
+    finally:
+        host.close()
+    check(clf.dispatches == 6, f"3j/serve: {clf.dispatches} dispatches "
+          f"for six batches")
+
+
+def _wall_ms(fn, reps: int) -> list:
+    """Wall ms of each of ``reps`` calls of ``fn``, each fenced by a
+    synchronize."""
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def serve_times(cfg, init, test, reps: int = 10) -> None:
+    """Phase 3j (c), second half: a ``SERVE_FLEET``-client full-width MLP
+    fleet (the seeded global model plus 0.01 N(0, 1) a client from a CUDA
+    ``torch.Generator``, the reference's stand-in) serving batches of
+    ``SERVE_REQUESTS`` distinct clients: the stacked forward against
+    ``loop_classify``, device- and host-resident, timed by the host's
+    clock (fenced); the host-resident fleet alternates two lane sets, so
+    every batch stages its cohort, with and without a prefetch of the
+    next. The logits of the four ways agree (host = device bit for bit,
+    stacked against loop within ``SERVE_TOL``)."""
+    from repro_torch.models.small import params_from_numpy
+    from repro_torch.serve.fleet import (
+        FleetClassifier, FleetParams, loop_classify,
+    )
+    from repro_torch.utils.tree import layout_of, ravel_params
+
+    params = params_from_numpy(init, torch.device("cuda"))
+    layout = layout_of(params)
+    w = ravel_params(params)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    arena = w.unsqueeze(0) + 0.01 * torch.randn(
+        (SERVE_FLEET, w.numel()), generator=gen, device="cuda")
+    dev = FleetParams.from_arena(arena, layout, device="cuda")
+    host_arena = arena.cpu().numpy()
+    host = FleetParams.from_arena(host_arena, layout, resident=False,
+                                  device="cuda")
+    rng = np.random.default_rng(1)
+    sets = [rng.choice(SERVE_FLEET, SERVE_REQUESTS, replace=False)
+            for _ in range(2)]
+    images = torch.from_numpy(test.images[rng.integers(
+        0, len(test.labels), SERVE_REQUESTS)]).cuda()
+    clf = FleetClassifier(cfg)
+    try:
+        got = clf(dev, sets[0], images)
+        e_loop = float((got - loop_classify(cfg, dev, sets[0], images))
+                       .abs().max())
+        same = torch.equal(got, clf(host, sets[0], images))
+        check(same and e_loop <= SERVE_TOL, f"3j/serve K={SERVE_FLEET}: "
+              f"host = device {same}, stacked against loop {e_loop}")
+        stacked = _wall_ms(lambda: clf(dev, sets[0], images), reps)
+        loop = _wall_ms(lambda: loop_classify(cfg, dev, sets[0], images),
+                        max(reps // 2, 2))
+        turn = [0]
+
+        def staged(prefetch: bool):
+            turn[0] ^= 1
+            clf(host, sets[turn[0]], images)
+            if prefetch:
+                host.prefetch(sets[turn[0] ^ 1])
+        host_sync = _wall_ms(lambda: staged(False), reps)
+        s0, o0 = host.stage_seconds, host.overlapped_stage_seconds
+        host_pre = _wall_ms(lambda: staged(True), reps)
+        med = {k: float(np.median(v)) for k, v in (
+            ("stacked", stacked), ("loop", loop), ("host", host_sync),
+            ("host_prefetch", host_pre))}
+        log(f"[3j/serve] K={SERVE_FLEET} full-width MLP fleet "
+            f"({arena.numel() * 4 / 1e6:.1f} MB on the card; a batch of "
+            f"{SERVE_REQUESTS} distinct clients gathers "
+            f"{SERVE_REQUESTS * w.numel() * 4 / 1e6:.1f} MB): stacked "
+            f"against loop {e_loop:.3e}, host = device "
+            f"{'bit for bit' if same else 'DIFFERS'}; median ms a batch: "
+            f"stacked {med['stacked']:.3f} ({SERVE_REQUESTS / med['stacked'] * 1e3:.0f} "
+            f"requests/s), loop {med['loop']:.3f} "
+            f"({SERVE_REQUESTS / med['loop'] * 1e3:.0f} requests/s; "
+            f"{med['loop'] / med['stacked']:.1f}x the stacked), "
+            f"host-resident {med['host']:.3f}, with a prefetch "
+            f"{med['host_prefetch']:.3f}; the prefetched batches' staging "
+            f"{(host.stage_seconds - s0) * 1e3 / reps:.3f} ms a batch, "
+            f"{(host.overlapped_stage_seconds - o0) * 1e3 / reps:.3f} of it "
+            f"ahead of its batch")
+        # a cohort's staging piece by piece: the host gather into
+        # page-locked memory (the fleet's torch gather, and np.take with
+        # out=, as the client stores gather), then the copy
+        ids = np.sort(sets[0])
+        pinned = torch.empty((len(ids), w.numel()), dtype=torch.float32,
+                             pin_memory=True)
+        gather = float(np.median(_wall_ms(lambda: torch.index_select(
+            torch.from_numpy(host_arena), 0, torch.from_numpy(ids),
+            out=pinned), reps)))
+        take = float(np.median(_wall_ms(lambda: np.take(
+            host_arena, ids, axis=0, out=pinned.numpy()), reps)))
+        copy = float(np.median(_wall_ms(lambda: pinned.to(
+            "cuda", non_blocking=True), reps)))
+        nbytes = pinned.numel() * 4
+        log(f"[3j/serve] a cohort's staging piece by piece (median of "
+            f"{reps}): the host gather into page-locked memory "
+            f"{gather:.3f} ms ({nbytes / gather / 1e6:.2f} GB/s; np.take "
+            f"with out= {take:.3f} ms, {nbytes / take / 1e6:.2f} GB/s), the "
+            f"H2D copy {copy:.3f} ms ({nbytes / copy / 1e6:.2f} GB/s)")
+    finally:
+        host.close()
+    del dev, host, arena
+    torch.cuda.empty_cache()
+
+
+def pers_rows(run_experiment, fused_sgd_lanes, sgd_ref, cfg, fl, init,
+              train, test) -> int:
+    """Phase 3j (d): all eight rows of ``personalize_table`` at its 12
+    rounds on the GPU, each ``fused_sgd`` launch held against its plain
+    version; each row's accuracies and lift logged. Returns the
+    launches."""
+    task = dict(task="mnist_like", model_cfg=cfg, init_params=init,
+                train=train, test=test)
+    launches = 0
+    for alpha in (0.5, 0.1):
+        for mode in PERS_MODES:
+            for algorithm in PERS_ALGOS:
+                tag = f"3j/rows alpha={alpha} {mode} {algorithm}"
+                tfl = pers_fl(fl, algorithm, mode, alpha, PERS_TABLE_ROUNDS)
+                t0 = time.perf_counter()
+                res, _, _, n = pers_run(run_experiment, fused_sgd_lanes,
+                                        sgd_ref, tfl, tag,
+                                        eval_every=tfl.rounds, **task)
+                launches += n
+                log(f"[{tag}] {pers_summary(res)}; global accuracy "
+                    f"{res.final_accuracy:.4f}; {n} fused_sgd launches; "
+                    f"{time.perf_counter() - t0:.2f}s")
+    return launches
+
+
+def pers_path(run_experiment, fused_sgd_lanes, sgd_ref, cfg, fl, init, pool,
+              jobs, train, test) -> int:
+    """Phase 3j: (a) to (d), then ``fused_sgd``'s times at the stage's two
+    lane counts of (b). Returns the phase's ``fused_sgd`` launches."""
+    t0 = time.perf_counter()
+    launches = pers_table_path(run_experiment, fused_sgd_lanes, sgd_ref,
+                               cfg, fl, init, pool, jobs, train, test)
+    log(f"[3j] (a) in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    n, fleet = pers_fleet_path(run_experiment, fused_sgd_lanes, sgd_ref, cfg,
+                               fl, init)
+    launches += n
+    log(f"[3j] (b) in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    serve_check(cfg, fleet, test)
+    serve_times(cfg, init, test)
+    log(f"[3j] (c) in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    launches += pers_rows(run_experiment, fused_sgd_lanes, sgd_ref, cfg, fl,
+                          init, train, test)
+    log(f"[3j] (d) in {time.perf_counter() - t0:.1f}s")
+    for lanes in (100, 64):
+        time_kernels(fused_sgd_lanes, sgd_ref, (lanes, 199_210), MLP_LEAVES,
+                     f"MLP leaves (a personalization block of {lanes})")
     return launches
 
 
@@ -3941,9 +4515,10 @@ def main() -> int:
     # phase 3g: the scenario curves and the attack column under drops,
     # stragglers, stale uploads and Byzantine or poisoned clients; phase
     # 3h: the attack grid's robust defense columns; phase 3i: its DP-SGD
-    # row. The three phases' CPU runs go to one worker pool while their GPU
-    # runs go on; every run shares one task (run_experiment makes the same
-    # from the seed).
+    # row; phase 3j: personalization and classifier fleet serving. The
+    # four phases' CPU runs go to one worker pool while their GPU runs go
+    # on; every run shares one task (run_experiment makes the same from
+    # the seed).
     from repro_torch.data.synthetic import make_task
 
     train, test = make_task("mnist_like", seed=fl.seed)
@@ -3951,6 +4526,7 @@ def main() -> int:
         jobs_3g = scenario_jobs(pool, fl)
         jobs_3h = robust_jobs(pool, fl)
         jobs_3i = dp_jobs(pool, fl)
+        jobs_3j = pers_jobs(pool, fl)
         t0 = time.perf_counter()
         scenario_launches, steady = scenario_path(
             run_experiment, fused_sgd_lanes, CONFIG, fl, init, jobs_3g,
@@ -3969,7 +4545,15 @@ def main() -> int:
                               init, jobs_3i, train, test, steady)
         log(f"[3i] fused_sgd launches of phase 3i's GPU runs: "
             f"{dp_launches}; the phase in {time.perf_counter() - t0:.1f}s")
-    launches["fused_sgd"] += scenario_launches + robust_launches + dp_launches
+        t0 = time.perf_counter()
+        pers_launches = pers_path(run_experiment, fused_sgd_lanes,
+                                  sgd_lanes_reference, CONFIG, fl, init,
+                                  pool, jobs_3j, train, test)
+        log(f"[3j] fused_sgd launches of phase 3j's GPU runs: "
+            f"{pers_launches}; the phase in "
+            f"{time.perf_counter() - t0:.1f}s")
+    launches["fused_sgd"] += (scenario_launches + robust_launches
+                              + dp_launches + pers_launches)
 
     # phases 4-7: the yi-9b and the mamba2-2.7b serving paths
     yi = ServePath(

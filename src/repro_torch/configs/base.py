@@ -149,7 +149,11 @@ class AdversaryConfig:
 
 @dataclasses.dataclass(frozen=True)
 class PersonalizeConfig:
-    """Post-global personalization stage; active raises (ROADMAP A8)."""
+    """Post-global personalization stage (``core.personalize``): with
+    ``epochs > 0`` every client fine-tunes the final global model on its
+    own shard after the last round. Field meanings are those of the JAX
+    package's ``PersonalizeConfig``; the default (``epochs=0``) runs and
+    draws nothing."""
     epochs: int = 0
     lr: float = 0.01
     mode: str = "full"              # full | head

@@ -47,7 +47,13 @@ Under DP-SGD the result reports the planner's ledger as ``dp_epsilon`` and
 ``dp_delta``. As in the reference, a checkpoint keeps neither the ledger
 nor the noise stream: a resumed run charges only the rounds after the
 resume and draws its noise anew (ROADMAP C9).
-Personalization is not ported yet (ROADMAP A8) and raises.
+
+An active ``FLConfig.personalize`` runs the personalization stage
+(``core.personalize``) after the round loop and before the engine's store
+is closed, so the fused engine's store serves it too and its staging
+counts in ``stage_seconds``; the result reports ``personalized_accuracy``,
+``global_client_accuracy`` and ``personalized_fleet``, and a
+``checkpoint_dir`` gets ``personalized.msgpack``.
 """
 from __future__ import annotations
 
@@ -67,6 +73,7 @@ from repro_torch.core.adversary import AdversaryState
 from repro_torch.core.algorithms import make_algorithm
 from repro_torch.core.comm import CommMeter
 from repro_torch.core.local import LocalTrainer
+from repro_torch.core.personalize import personalize_fleet, save_personalized
 from repro_torch.core.plan import Schedule
 from repro_torch.data.pipeline import make_clients
 from repro_torch.data.synthetic import Dataset, make_task
@@ -115,6 +122,12 @@ class ExperimentResult:
     h2d_bytes: int = 0                      # LocalTrainer.h2d_bytes at the end
     dispatches: int = 0                     # LocalTrainer.dispatches (steps,
                                             # hop calls or blocks)
+    # the personalization stage (None when it is off): the mean per-client
+    # accuracy of the fleet and of the global model on the same draws, and
+    # the fleet as {leaf: (K, ...)} views of the stage's host arena
+    personalized_accuracy: Optional[float] = None
+    global_client_accuracy: Optional[float] = None
+    personalized_fleet: Optional[Dict[str, np.ndarray]] = None
 
     @property
     def overlap_fraction(self) -> float:
@@ -142,12 +155,6 @@ class ExperimentResult:
         return None
 
 
-def _check_ported(fl: FLConfig) -> None:
-    if fl.personalize.active:
-        raise NotImplementedError(
-            "personalization is not ported yet (ROADMAP A8)")
-
-
 def run_experiment(
     *,
     task: str,
@@ -165,7 +172,6 @@ def run_experiment(
     device=None,
     on_block: Optional[Callable[[int, Schedule], None]] = None,
 ) -> ExperimentResult:
-    _check_ported(fl)
     device = resolve_device(device)
     if train is None or test is None:
         train, test = make_task(task, seed=fl.seed)
@@ -329,12 +335,20 @@ def run_experiment(
                 if is_eval:
                     record_eval(t, acc_dev, lrs)
                 maybe_checkpoint(t, rng_snap)
+        # the personalization stage, on the engine's store when it has one
+        preport = None
+        if fl.personalize.active:
+            preport = personalize_fleet(model_cfg, fl, clients, w_glob, test,
+                                        store=store, device=device)
+            if checkpoint_dir:
+                save_personalized(checkpoint_dir, preport.arena, layout)
+        # the store's staging wall (the stage's included) and the part of
+        # it a prefetch hid
+        stage_s, overlap_s = algo.engine.staging_stats()
     finally:
         if store is not None:
             store.close()
 
-    # the store's staging wall and the part of it a prefetch hid
-    stage_s, overlap_s = algo.engine.staging_stats()
     res = algo.residency
     res.stage_seconds, res.overlapped_stage_seconds = stage_s, overlap_s
     eps, delta = ((None, None) if algo.privacy is None
@@ -348,7 +362,15 @@ def run_experiment(
                                 res.overlapped_stage_seconds),
                             dispatch_seconds=res.dispatch_seconds,
                             h2d_bytes=trainer.h2d_bytes,
-                            dispatches=trainer.dispatches)
+                            dispatches=trainer.dispatches,
+                            personalized_accuracy=(
+                                None if preport is None
+                                else preport.personalized_accuracy),
+                            global_client_accuracy=(
+                                None if preport is None
+                                else preport.global_client_accuracy),
+                            personalized_fleet=(
+                                None if preport is None else preport.fleet))
 
 
 # ---------------------------------------------------------------------------

@@ -18,7 +18,10 @@ engine has its entry point:
   ONE call against the device-resident data plane. The JAX package
   compiles it into one ``lax.scan``; here it is a Python loop over rounds
   and, inside a round, over the flat H*S steps of ``_run_hops`` (for
-  HierFAVG over R chained edge iterations of one hop each).
+  HierFAVG over R chained edge iterations of one hop each);
+* ``train_many_fused`` (the personalization stage, ``core.personalize``)
+  — one visit group of H hops against the data plane, without a reduce:
+  the trained (C, P) lane stack is the result.
 
 The variants (``variant=`` and its extras, as in the reference):
 
@@ -80,6 +83,14 @@ run without noise. Torch cannot replay ``jax.random``, and a CUDA
 generator draws other numbers than a CPU one, so a noised run matches the
 reference in law, not element for element.
 
+``grad_mask`` (the reference's, for head-only personalization) freezes
+leaves: a params-shaped 0/1 mask, kept as one tensor a leaf in the
+layout's order, multiplied in place into every gradient leaf between
+autograd and the DP transform, on every path. A frozen leaf's gradient is
+zero, so its momentum stays zero and the update leaves it bit for bit;
+it still goes through the update, and DP noise, added after the mask,
+moves it (ROADMAP C10).
+
 Counters, as the reference meters them: ``h2d_bytes`` (what each entry
 point ships: per-step batches, per-hop stacks and masks, or the block's
 index plans and per-round arrays) and ``dispatches`` (one per step, per
@@ -87,7 +98,7 @@ hop call, or per block).
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -189,12 +200,18 @@ def dp_clip_noise_(grads, clip: float, sigma: float,
 class LocalTrainer:
     """Lane-stacked local SGD for one (model, FL) config on one device."""
 
-    def __init__(self, cfg: ModelConfig, fl: FLConfig, device=None):
+    def __init__(self, cfg: ModelConfig, fl: FLConfig, device=None,
+                 grad_mask: Optional[Mapping] = None):
         self.cfg = cfg
         self.fl = fl
         self.device = resolve_device(device)
         specs = specs_for(cfg)
         self.layout = tuple((k, specs[k].shape) for k in sorted(specs))
+        # the frozen-leaf mask, one (*shape) float32 tensor a leaf
+        self._mask = None if grad_mask is None else tuple(
+            torch.as_tensor(grad_mask[k], dtype=torch.float32,
+                            device=self.device).reshape(shape)
+            for k, shape in self.layout)
         self.h2d_bytes = 0
         self.dispatches = 0
         # DP-SGD: (clip, noise std) and the noise stream, seeded once
@@ -259,10 +276,13 @@ class LocalTrainer:
         con = -torch.mean(pos - torch.logaddexp(pos, neg), dim=-1)
         return ce + self.fl.mu * con
 
-    def _dp_grads(self, params, batch, loss_kw):
-        """``lane_grads``'s gradient leaves, DP-transformed in place when
-        the config asks for DP-SGD."""
+    def _step_grads(self, params, batch, loss_kw):
+        """``lane_grads``'s gradient leaves, masked by ``grad_mask`` and
+        then DP-transformed, in place, as far as the trainer asks."""
         _, grads = self.lane_grads(params, batch, **loss_kw)
+        if self._mask is not None:
+            for g, mk in zip(grads, self._mask):
+                g.mul_(mk)
         if self._dp is not None:
             dp_clip_noise_(grads, *self._dp, self._dp_gen)
         return grads
@@ -308,7 +328,7 @@ class LocalTrainer:
         loss_kw = {k: v for k, v in extras.items() if k in _LOSS_EXTRAS}
         m = None if scaffold else torch.zeros_like(params)
         for t in range(ok.shape[0]):
-            grads = self._dp_grads(params, batch_at(t), loss_kw)
+            grads = self._step_grads(params, batch_at(t), loss_kw)
             if scaffold:
                 self._scaffold_update(params, grads, lr, extras["c_glob"],
                                       extras["c_local"], ok[t])
@@ -391,7 +411,7 @@ class LocalTrainer:
             batch = {"images": client.images[sl], "labels": client.labels[sl]}
             self.h2d_bytes += sum(_h2d_nbytes(v) for v in batch.values())
             self.dispatches += 1
-            grads = self._dp_grads(p, {
+            grads = self._step_grads(p, {
                 k: torch.from_numpy(v).to(self.device).unsqueeze(0)
                 for k, v in batch.items()}, loss_kw)
             if scaffold:
@@ -475,6 +495,32 @@ class LocalTrainer:
         else:
             out = robust_agg(lanes, agg, agg_gw, reducer, trim_frac, krum_f)
         return (out, lanes) if keep_locals else out
+
+    @torch.no_grad()
+    def train_many_fused(self, params: torch.Tensor, plane, rows: np.ndarray,
+                         plans: np.ndarray, valid: np.ndarray, *,
+                         lr: float) -> torch.Tensor:
+        """One visit group of H hops against the device data plane
+        ``plane`` as one call (one dispatch), without a reduce: the
+        reference's ``train_many_fused`` with ``agg=None``, as the
+        personalization stage calls it. ``rows`` (H, C), ``plans``
+        (H, C, S, B) and ``valid`` (H, C, S) are ``stack_plan_indices``'s
+        host arrays, the call's whole H2D payload (metered into
+        ``h2d_bytes``); every lane starts from the (P,) model ``params``,
+        and hop h trains fleet row ``rows[h, c]`` on plan ``plans[h, c]``,
+        momentum reset at each visit. Returns the trained (C, P) stack.
+        The plain loss only; the reference's other options run in the
+        port through ``train_schedule`` and ``train_many``."""
+        rows = np.asarray(rows, np.int32)
+        plans = np.asarray(plans, np.int32)
+        valid = np.asarray(valid, bool)
+        self.h2d_bytes += rows.nbytes + plans.nbytes + valid.nbytes
+        self.dispatches += 1
+        dev = [torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+               for a in (rows, plans, valid)]
+        # repeat copies even one lane, as in train_many
+        lanes = params.repeat(valid.shape[1], 1)
+        return self._run_hops(lanes, plane, *dev, self._device_lr(lr), {})
 
     @torch.no_grad()
     def train_schedule(self, w_glob: torch.Tensor, plane,

@@ -30,9 +30,10 @@ live (a double buffer), so peak residency is at most two cohorts;
 prefetch hid.
 
 **On the GPU** a staged arena is gathered into page-locked host buffers
-and copied with ``non_blocking=True`` on a side CUDA stream the store
-owns; the build records an event there and waits for it, so
-``stage_seconds`` covers the copy. The consumer (``arena``) makes the
+and copied with ``non_blocking=True`` on a side CUDA stream that the
+store's ``Stager`` owns (the serving fleet's host-resident cohorts stage
+through the same class); the build records an event there and waits for
+it, so ``stage_seconds`` covers the copy. The consumer (``arena``) makes the
 current stream wait on that event, and marks each arena tensor as used by
 the current stream (``record_stream``): the tensors were allocated on the
 side stream, and without the mark the caching allocator could hand a
@@ -112,6 +113,107 @@ class DeviceStore(ClientStore):
         return self.arena(visited).nbytes if first else 0
 
 
+class Stager:
+    """Background staging with at most one prefetch in flight, shared by the
+    staged client stores and the host-resident serving fleet
+    (``serve.fleet.FleetParams``), which differ only in what they gather.
+
+    ``build(ids, pinned)`` gathers and uploads the buffers for ``ids``
+    (into page-locked host memory, copied with ``non_blocking=True``, when
+    ``pinned``); ``tensors(built)`` lists the device tensors of what it
+    returned. On the GPU the build runs on a side stream this stager owns
+    and is fenced by an event before its clock stops; ``take`` hands it
+    over to the current stream (see the module docstring). A prefetch is
+    keyed by ``key``: ``take`` consumes a matching one, drains a stale
+    one and builds synchronously instead; a failure of the staging thread
+    is raised there."""
+
+    def __init__(self, device: torch.device, build, tensors,
+                 name: str = "repro-torch-stage"):
+        self.device = device
+        self._build_fn = build
+        self._tensors = tensors
+        self._name = name
+        # at most one prefetch in flight: (key, future)
+        self._pending: Optional[Tuple[tuple, concurrent.futures.Future]] = None
+        self._pool: Optional[concurrent.futures.ThreadPoolExecutor] = None
+        self._stream = (torch.cuda.Stream(device)
+                        if device.type == "cuda" else None)
+
+    def _build(self, ids: np.ndarray):
+        """Build for ``ids``: ``(built, event, seconds)``. Runs on the
+        staging thread under a prefetch."""
+        secs = [0.0]
+        event = None
+        with timed(lambda s: secs.__setitem__(0, s)):
+            if self._stream is None:
+                built = self._build_fn(ids, False)
+            else:
+                # the staging thread sets its device itself
+                with torch.cuda.device(self.device), \
+                        torch.cuda.stream(self._stream):
+                    built = self._build_fn(ids, True)
+                    event = torch.cuda.Event()
+                    event.record(self._stream)
+                event.synchronize()
+        return built, event, secs[0]
+
+    def _hand_over(self, built, event) -> None:
+        """Make buffers built on the side stream safe to read on the
+        current stream: wait for their copy, and tie their memory to the
+        current stream's work so the allocator cannot reuse it under that
+        work once they are dropped."""
+        if event is None:
+            return
+        current = torch.cuda.current_stream(self.device)
+        current.wait_event(event)
+        for t in self._tensors(built):
+            t.record_stream(current)
+
+    def pending(self, key: tuple) -> bool:
+        """Whether a prefetch for ``key`` is in flight."""
+        return self._pending is not None and self._pending[0] == key
+
+    def prefetch(self, key: tuple, ids: np.ndarray) -> None:
+        """Start building for ``ids`` on the staging thread."""
+        if self.pending(key):
+            return
+        if self._pending is not None:       # a superseded prefetch: drain it
+            pending, self._pending = self._pending, None
+            pending[1].result()
+        if self._pool is None:
+            self._pool = concurrent.futures.ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix=self._name)
+        self._pending = (key, self._pool.submit(self._build, ids))
+
+    def take(self, key: tuple, ids: np.ndarray):
+        """The buffers for ``ids``, handed over to the current stream:
+        ``(built, seconds, prefetched)``. A caller frees what it replaces
+        before a synchronous build (``pending(key)`` false)."""
+        hit = self.pending(key)
+        pending, self._pending = self._pending, None
+        if hit:
+            built, event, secs = pending[1].result()
+        else:
+            if pending is not None:         # a stale prefetch for another set
+                pending[1].result()
+            built, event, secs = self._build(ids)
+        self._hand_over(built, event)
+        return built, secs, hit
+
+    def close(self) -> None:
+        """Drain a prefetch in flight and stop the staging thread. Safe to
+        call twice."""
+        pending, self._pending = self._pending, None
+        try:
+            if pending is not None:
+                pending[1].result()
+        finally:
+            if self._pool is not None:
+                self._pool.shutdown(wait=True)
+                self._pool = None
+
+
 class _StagedStore(ClientStore):
     """Per-block cohort staging shared by the host and stream stores, which
     differ only in where ``_cohort`` reads the pixels from."""
@@ -120,50 +222,18 @@ class _StagedStore(ClientStore):
         super().__init__(clients, device)
         self._arena: Optional[DeviceDataPlane] = None
         self._visited: Optional[tuple] = None
-        # at most one prefetch in flight: (visited key, future)
-        self._pending: Optional[Tuple[tuple, concurrent.futures.Future]] = None
-        self._pool: Optional[concurrent.futures.ThreadPoolExecutor] = None
-        self._stream = (torch.cuda.Stream(self.device)
-                        if self.device.type == "cuda" else None)
+        self._stager = Stager(self.device, self._gather,
+                              DeviceDataPlane.tensors)
 
     def _cohort(self, visited: np.ndarray) -> List[ClientData]:
         """The visited clients' shards, wherever this store keeps them."""
         raise NotImplementedError
 
-    def _build(self, visited: np.ndarray):
-        """Gather and upload one cohort arena: ``(plane, event, seconds)``.
-        Runs on the staging thread under prefetch. On the GPU the copy is
-        enqueued on the store's side stream and fenced by its event before
-        the clock stops."""
-        secs = [0.0]
-        event = None
-        with timed(lambda s: secs.__setitem__(0, s)):
-            kw = dict(client_ids=visited, fleet_size=len(self.clients))
-            if self._stream is None:
-                plane = DeviceDataPlane(self._cohort(visited), self.device,
-                                        **kw)
-            else:
-                # the staging thread sets its device itself
-                with torch.cuda.device(self.device), \
-                        torch.cuda.stream(self._stream):
-                    plane = DeviceDataPlane(self._cohort(visited),
-                                            self.device, pinned=True, **kw)
-                    event = torch.cuda.Event()
-                    event.record(self._stream)
-                event.synchronize()
-        return plane, event, secs[0]
-
-    def _hand_over(self, plane: DeviceDataPlane, event) -> None:
-        """Make an arena built on the side stream safe to read on the
-        current stream: wait for its copy, and tie its memory to the
-        current stream's work so the allocator cannot reuse it under that
-        work once the arena is dropped."""
-        if event is None:
-            return
-        current = torch.cuda.current_stream(self.device)
-        current.wait_event(event)
-        for t in plane.tensors():
-            t.record_stream(current)
+    def _gather(self, visited: np.ndarray, pinned: bool) -> DeviceDataPlane:
+        """Gather and upload one cohort arena (the stager's build)."""
+        return DeviceDataPlane(self._cohort(visited), self.device,
+                               client_ids=visited,
+                               fleet_size=len(self.clients), pinned=pinned)
 
     @staticmethod
     def _key(visited: np.ndarray) -> tuple:
@@ -177,41 +247,27 @@ class _StagedStore(ClientStore):
     def prefetch(self, visited=None) -> None:
         visited = self._as_ids(visited)
         key = self._key(visited)
-        if key == self._visited or (
-                self._pending is not None and self._pending[0] == key):
-            return      # already resident, or already staging
-        if self._pending is not None:       # a superseded prefetch: drain it
-            self._pending[1].result()
-            self._pending = None
-        if self._pool is None:
-            self._pool = concurrent.futures.ThreadPoolExecutor(
-                max_workers=1, thread_name_prefix="repro-torch-stage")
-        self._pending = (key, self._pool.submit(self._build, visited))
+        if key != self._visited:            # else already resident
+            self._stager.prefetch(key, visited)
 
     def arena(self, visited=None) -> DeviceDataPlane:
         visited = self._as_ids(visited)
         key = self._key(visited)
         if self._visited == key:
             return self._arena
-        pending, self._pending = self._pending, None
-        if pending is not None and pending[0] == key:
-            # consume the prefetch: it was built while the previous block
-            # ran, so its whole wall counts as overlapped; both arenas are
-            # live until the swap below (the double buffer's high-water
-            # mark)
-            plane, event, secs = pending[1].result()
-            self.stage_seconds += secs
+        if not self._stager.pending(key):
+            self._arena = None      # free the previous cohort before staging
+        plane, secs, prefetched = self._stager.take(key, visited)
+        self.stage_seconds += secs
+        if prefetched:
+            # built while the previous block ran, so its whole wall counts
+            # as overlapped; both arenas are live until the swap below
+            # (the double buffer's high-water mark)
             self.overlapped_stage_seconds += secs
             prev = self._arena.nbytes if self._arena is not None else 0
             self.last_pair_nbytes = prev + plane.nbytes
         else:
-            if pending is not None:         # a stale prefetch for another set
-                pending[1].result()
-            self._arena = None      # free the previous cohort before staging
-            plane, event, secs = self._build(visited)
-            self.stage_seconds += secs
             self.last_pair_nbytes = plane.nbytes
-        self._hand_over(plane, event)
         self._arena = plane
         self._visited = key
         return self._arena
@@ -222,12 +278,7 @@ class _StagedStore(ClientStore):
         return plane.nbytes if self._visited != staged else 0
 
     def close(self) -> None:
-        if self._pending is not None:
-            self._pending[1].result()
-            self._pending = None
-        if self._pool is not None:
-            self._pool.shutdown(wait=True)
-            self._pool = None
+        self._stager.close()
 
 
 class HostStore(_StagedStore):

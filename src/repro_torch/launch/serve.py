@@ -10,7 +10,8 @@ CLI serves, and ``--device cpu`` runs on the CPU. As in the reference, the
 prompt is fed through ``decode_step`` one position at a time, so a Mamba2
 model serves through its O(1) recurrence and never runs the chunked SSD
 scan; that scan is ``launch/steps.py::make_prefill_step``'s. The reference's
-``--fleet`` mode (``FleetDecoder``) is not ported yet (ROADMAP A8).
+``--fleet`` mode (``FleetDecoder``) is not ported yet (ROADMAP A10.2);
+classifier fleets serve through ``serve.fleet.FleetClassifier``.
 """
 from __future__ import annotations
 

@@ -503,7 +503,8 @@ def test_importing_the_port_leaves_jax_unloaded():
             "repro_torch.kernels.fused_sgd.kernel",
             "repro_torch.models.small", "repro_torch.configs.fedsr_mlp",
             "repro_torch.configs.fedsr_cnn", "repro_torch.checkpoint",
-            "repro_torch.checkpoint.io"]
+            "repro_torch.checkpoint.io", "repro_torch.core.personalize",
+            "repro_torch.serve", "repro_torch.serve.fleet"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "from repro_torch.core.algorithms import (\n"
@@ -528,15 +529,10 @@ def test_importing_the_port_leaves_jax_unloaded():
 
 @pytest.mark.parametrize("override", [
     {"engine": "sharded"}, {"mesh_data_axis": "data"},
-    {"personalize": "full"},
 ])
 def test_unported_options_raise(override):
-    from repro_torch.configs.base import PersonalizeConfig
     from repro_torch.core.executor import run_experiment
 
-    override = dict(override)
-    if override.pop("personalize", None):
-        override["personalize"] = PersonalizeConfig(epochs=1)
     _, (pm, pfl) = configs(SMALL, **_fl(**override))
     _, (ptr, pte) = _tasks(train_per_class=4, test_per_class=1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

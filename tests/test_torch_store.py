@@ -187,7 +187,7 @@ def test_stream_store_close_is_idempotent(staged):
     store.close()
     store.close()
     assert not os.path.exists(tmp)
-    assert store._pool is None and store._pending is None
+    assert store._stager._pool is None and store._stager._pending is None
 
 
 def test_prefetch_consume_counts_overlap_and_pair_bytes():
@@ -213,11 +213,11 @@ def test_prefetch_skips_resident_and_redundant():
     try:
         store.arena(np.asarray([1, 3]))
         store.prefetch(np.asarray([1, 3]))      # already resident
-        assert store._pending is None
+        assert store._stager._pending is None
         store.prefetch(np.asarray([0]))
-        pending = store._pending
+        pending = store._stager._pending
         store.prefetch(np.asarray([0]))         # already staging
-        assert store._pending is pending
+        assert store._stager._pending is pending
     finally:
         store.close()
 
@@ -230,7 +230,7 @@ def test_stale_prefetch_falls_back_to_sync_stage():
         store.prefetch(np.asarray([0]))         # the lookahead guessed wrong
         c = store.arena(np.asarray([2, 3]))
         assert c.images.shape[0] == 11
-        assert store._pending is None
+        assert store._stager._pending is None
         assert store.overlapped_stage_seconds == before
         assert store.last_pair_nbytes == c.nbytes
     finally:
@@ -403,8 +403,8 @@ def test_prefetch_block_hands_data_to_the_staging_thread():
     store = algo.engine.store
     try:
         algo.prefetch_block(sched, sched.visited(), state)  # overlapping
-        assert store._pending is not None
-        assert store._pending[0] == tuple(sched.visited().tolist())
+        assert store._stager._pending is not None
+        assert store._stager._pending[0] == tuple(sched.visited().tolist())
     finally:
         store.close()
 
