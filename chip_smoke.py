@@ -236,6 +236,24 @@ non-zero at the end, before any result line is printed):
    (rounds and stage: one a stage step) against its plain version, bit
    for bit; then ``fused_sgd``'s times at (100, 199,210) and (64,
    199,210).
+3k. ``engine="sharded"`` and ``mesh_data_axis`` (ROADMAP A5) on phase 3's
+   path, 2 rounds in one block: FedSR on the fused engine with
+   ``mesh_data_axis="data"`` and FedAvg (E=5) on the sharded engine, (a)
+   on the card's own mesh (one entry: the padding is the identity, the
+   plane takes the mesh layout) and (b) on a sim mesh of 8 entries of the
+   one card (``launch.mesh.visible_devices`` replaced), where FedSR's 5 ring
+   lanes pad to 8 and FedAvg's 20 to 24; GPU then CPU (in phase 3g's
+   pool) with phase 3's checks. ``N_max`` of the shards and each run's
+   ``h2d_bytes``, ``peak_device_bytes`` and dispatches on both devices
+   against ``MESH_LITERALS`` (``scripts/mesh_literals.py``, from the
+   reference); every stack padded as the plans imply and every ghost
+   lane's returned row its seed bit for bit; on (a) each model the
+   unmeshed run's bit for bit on the card; on (a) and (b) each model
+   within ``MESH_TOL`` of the CPU's run on the same mesh, with the 1.03x
+   learning rate outside (on (b) the gap to the unpadded card run
+   logged). Every ``fused_sgd`` launch of the phase
+   (the unmeshed runs' too) against its plain version, bit for bit; then
+   ``fused_sgd``'s times at (8, 199,210) and (24, 199,210).
 4. The yi-9b serving path at full width and 2 layers, GPU against CPU
    from the same CPU-drawn weights, in float32 and in bfloat16:
    ``prefill_step`` at B=1, S=256 and ``prefill_and_decode`` at B=4,
@@ -1789,11 +1807,12 @@ def steady_ms(res):
 
 def model_gap(run_experiment, task, tag, tfl, gpu_model, cpu_model,
               stop_after, bounded, control_fl=None,
-              control_what=f"{LR_CONTROL}x the learning rate"):
+              control_what=f"{LR_CONTROL}x the learning rate",
+              tol=ENGINE_ROUND1_TOL):
     """The model GPU against CPU and the control's GPU model (the 1.03x
     learning rate, or ``control_fl``) against the CPU's, checked against
-    ``ENGINE_ROUND1_TOL`` (the control outside it) or logged. Returns the
-    control run, an eval a round."""
+    ``tol`` (the control outside it) or logged. Returns the control run,
+    an eval a round."""
     control = run_experiment(
         eval_every=1, device="cuda", stop_after=stop_after,
         fl=control_fl or dataclasses.replace(
@@ -1802,14 +1821,14 @@ def model_gap(run_experiment, task, tag, tfl, gpu_model, cpu_model,
     err = max_abs_diff(gpu_model, cpu_model)
     err_c = max_abs_diff(control.final_model, cpu_model)
     log(f"[{tag}] the model after round {stop_after}, GPU against CPU: "
-        f"max |diff| {err:.3e} (bound {ENGINE_ROUND1_TOL}, "
+        f"max |diff| {err:.3e} (bound {tol}, "
         f"{'checked' if bounded else 'logged, not checked (C7)'}; "
         f"above 1e-6: {diff_spread(gpu_model, cpu_model)}); control, "
         f"the GPU run at {control_what}: {err_c:.3e}")
     if bounded:
-        check(err <= ENGINE_ROUND1_TOL, f"{tag}: the GPU model after "
+        check(err <= tol, f"{tag}: the GPU model after "
               f"round {stop_after} {err} from the CPU's")
-        check(err_c > ENGINE_ROUND1_TOL,
+        check(err_c > tol,
               f"{tag}: the bound does not tell {control_what} from the "
               f"CPU's run")
     return control
@@ -3090,6 +3109,228 @@ def pers_path(run_experiment, fused_sgd_lanes, sgd_ref, cfg, fl, init, pool,
     for lanes in (100, 64):
         time_kernels(fused_sgd_lanes, sgd_ref, (lanes, 199_210), MLP_LEAVES,
                      f"MLP leaves (a personalization block of {lanes})")
+    return launches
+
+
+# Phase 3k, engine="sharded" and mesh_data_axis (ROADMAP A5) on phase 3's
+# path (the paper MLP at full width, K=20, M=5, R=5, batch 32; E=1 for
+# FedSR, 5 for FedAvg), 2 rounds in one block: FedSR on the fused engine
+# with mesh_data_axis="data" and FedAvg on the sharded engine, on (a) the
+# card's own mesh (its one entry) and (b) a sim mesh of 8 entries of the
+# one card (visible_devices patched), where FedSR's 5 ring lanes pad to 8
+# and FedAvg's 20 to 24.
+# MESH_LITERALS holds (N_max, h2d_bytes, peak_device_bytes, dispatches) of
+# each run, keyed (algorithm, engine, mesh_data_axis, mesh size), from the
+# reference's runs on the CPU (scripts/mesh_literals.py): under the mesh
+# the fused engine's plane pads every shard to N_max and its 20 shards to
+# a mesh multiple, so its bytes are round_up(20) * N_max * (3,136 + 4) plus
+# 20 * 4.
+MESH_RUNS = (("fedsr", "fused", "data"), ("fedavg", "sharded", None))
+MESH_SIZES = (1, 8)
+MESH_LITERALS = {
+    ('fedavg', 'sharded', None, 1): (100, 80384800, 0, 2),
+    ('fedsr', 'fused', 'data', 1): (100, 104048, 6280080, 1),
+    ('fedavg', 'sharded', None, 8): (100, 96461760, 0, 2),
+    ('fedsr', 'fused', 'data', 8): (100, 166472, 7536080, 1),
+}
+MESH_PLAIN = {"fused": "fused", "sharded": "batched"}
+# The bound of each run's model GPU against CPU, on both meshes, between
+# the largest rounding-sized reading of scripts/mesh_gaps.py (the run moved
+# by a relative 1e-7 in its initial weights or in every step's trained
+# parameters, 3 draws each, on the card, both meshes) and the least
+# control (the 1.03x learning rate). FedAvg over initial-weight seeds 0-4:
+# readings up to 4.666e-5, controls from 2.749e-4. FedSR's ring chain lands
+# on other outcomes from a rounding-size change (ROADMAP C8): over seeds
+# 0-4 its readings reach 7.808e-4 and its controls fall to 1.252e-3, so
+# its bound holds for the phase's seed 0 alone (readings up to 9.678e-5,
+# control 1.739e-3), 4e-4 about midway on a log scale.
+MESH_TOL = {"fedsr": 4e-4, "fedavg": ENGINE_ROUND1_TOL}
+
+
+def mesh_fl(fl, algorithm: str, engine: str, axis):
+    """Phase 3k's FLConfig of one run, from phase 3's ``fl``: FedAvg at
+    E=5, as phase 3g's star runs (at E=1 its 2-round model moves too little
+    for the 1.03x learning rate to land outside the bound)."""
+    return dataclasses.replace(
+        fl, algorithm=algorithm, engine=engine, mesh_data_axis=axis,
+        rounds=2, local_epochs=5 if algorithm == "fedavg" else 1)
+
+
+@contextlib.contextmanager
+def sim_mesh(n: int, device: str):
+    """The sim mesh as ``n`` entries of ``device`` (``launch.mesh``'s one
+    device list, replaced for the block)."""
+    import repro_torch.launch.mesh as mesh
+
+    saved = mesh.visible_devices
+    mesh.visible_devices = lambda dev=None: [torch.device(device)] * n
+    try:
+        yield
+    finally:
+        mesh.visible_devices = saved
+
+
+def _cpu_run_mesh(fl, size):
+    """One phase 3k run on the CPU, in a worker, on a sim mesh of ``size``
+    CPU entries: ``_cpu_run``'s tuple."""
+    with sim_mesh(size, "cpu"):
+        return _cpu_run(fl, None)
+
+
+def mesh_jobs(pool, fl) -> dict:
+    """Phase 3k's CPU runs, submitted to ``pool``: ``{(algorithm, size):
+    future}``."""
+    return {(run[0], size): pool.submit(_cpu_run_mesh, mesh_fl(fl, *run),
+                                        size)
+            for run in MESH_RUNS for size in MESH_SIZES}
+
+
+class idle_lanes:
+    """Within the block, every lane-stacked step loop
+    (``LocalTrainer._sgd_steps``) records the lanes it gives no valid step
+    (the ghost lanes of a padded stack) and how far each one's returned row
+    moved from its seed row (``worst``, on the device; it must be 0), and
+    the lane counts of the stacks it trains (``widths``)."""
+
+    def __init__(self):
+        self.lanes, self.worst, self.widths = 0, None, Counter()
+
+    def __enter__(self):
+        from repro_torch.core.local import LocalTrainer
+
+        self.cls, self.saved = LocalTrainer, LocalTrainer._sgd_steps
+        rec = self
+
+        def steps(tr, params, batch_at, ok, lr, S, extras):
+            idle = ~ok.any(0)
+            seeds = params[idle].clone()
+            out = rec.saved(tr, params, batch_at, ok, lr, S, extras)
+            rec.widths[params.shape[0]] += 1
+            if seeds.shape[0]:
+                d = (out[idle] - seeds).abs().max()
+                rec.worst = d if rec.worst is None else torch.maximum(
+                    rec.worst, d)
+                rec.lanes += seeds.shape[0]
+            return out
+        LocalTrainer._sgd_steps = steps
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._sgd_steps = self.saved
+
+
+def mesh_ghosts(blocks, engine: str, size: int) -> tuple:
+    """(ghost lanes, stack widths) the plans imply on a mesh of ``size``:
+    each group's lanes padded to a multiple of ``size``, one step loop a
+    group under the fused engine, one a hop under the sharded one."""
+    ghosts, widths = 0, Counter()
+    for _, sched in blocks:
+        for plan in sched.plans:
+            for g in plan.groups:
+                padded = -(-g.lanes // size) * size
+                calls = 1 if engine == "fused" else len(g.hops)
+                ghosts += (padded - g.lanes) * calls
+                widths[padded] += calls
+    return ghosts, widths
+
+
+def mesh_path(run_experiment, fused_sgd_lanes, cfg, fl, init, jobs, train,
+              test):
+    """Phase 3k: each run of ``MESH_RUNS`` on the card's own mesh and on
+    an 8-entry sim mesh of the card, GPU then CPU (``jobs``, in the pool),
+    with phase 3's checks (no accuracy floor) and each ``fused_sgd`` launch
+    of the GPU runs held against its plain version; ``N_max`` of the CPU's
+    shards and each run's ``h2d_bytes``, ``peak_device_bytes`` and
+    dispatches on both devices against ``MESH_LITERALS``; the lanes padded
+    as the plans imply, every ghost lane's returned row its seed bit for
+    bit; on the card's own mesh each model bit-equal to the same run
+    without the mesh on the card; on both meshes the model within
+    ``MESH_TOL`` of the CPU's run on the same mesh, the 1.03x learning
+    rate outside it; on the 8-entry mesh its gap to the unpadded card run
+    logged. Returns the ``fused_sgd`` launches of its checked GPU runs."""
+    from repro_torch.kernels.fused_sgd.ref import sgd_lanes_reference
+
+    t_phase = time.perf_counter()
+    log(f"[3k] torch.cuda.device_count() = {torch.cuda.device_count()}")
+    checked = checked_sgd(fused_sgd_lanes, sgd_lanes_reference)
+    task = dict(task="mnist_like", model_cfg=cfg, init_params=init,
+                train=train, test=test)
+    n_max = max(len(c) for c in pers_clients(fl, train))
+    launches = 0
+    plain = {}
+    for algorithm, engine, _ in MESH_RUNS:
+        tfl = mesh_fl(fl, algorithm, MESH_PLAIN[engine], None)
+        with checked:
+            plain[algorithm] = main_path(
+                run_experiment, fused_sgd_lanes, cfg, tfl, init,
+                eval_every=3, tag=f"3k {algorithm}/{tfl.engine}",
+                devices=("cuda",), train=train, test=test)["cuda"]
+        launches += plain[algorithm][2]
+    for algorithm, engine, axis in MESH_RUNS:
+        tfl = mesh_fl(fl, algorithm, engine, axis)
+        for size in MESH_SIZES:
+            tag = f"3k {algorithm}/{engine}/mesh {size}"
+            lit = MESH_LITERALS[algorithm, engine, axis, size]
+            idle = idle_lanes()
+            with checked, idle, (sim_mesh(size, "cuda") if size > 1
+                                 else contextlib.nullcontext()):
+                gpu = main_path(run_experiment, fused_sgd_lanes, cfg, tfl,
+                                init, eval_every=3, tag=tag,
+                                devices=("cuda",), train=train,
+                                test=test)["cuda"]
+            res, blocks, n, _ = gpu
+            launches += n
+            cpu = jobs[algorithm, size].result(timeout=600)
+            cpu[0].final_model = {k: torch.from_numpy(v)
+                                  for k, v in cpu[0].final_model.items()}
+            log(f"[{tag}] cpu: accuracies "
+                f"{[round(r.accuracy, 4) for r in cpu[0].history]} "
+                f"dispatches={cpu[0].dispatches} h2d_bytes={cpu[0].h2d_bytes}"
+                f" wall={cpu[3]:.3f}s")
+            check_main_path({"cuda": gpu, "cpu": cpu}, 199_210,
+                            min_final_acc=None, tag=tag,
+                            engine="fused" if engine == "fused"
+                            else "batched")
+            for dev, r in (("GPU", res), ("CPU", cpu[0])):
+                got = (n_max, r.h2d_bytes, r.peak_device_bytes, r.dispatches)
+                log(f"[{tag}] {dev}: N_max {n_max} (from the CPU's shards), "
+                    f"h2d_bytes {r.h2d_bytes}, peak_device_bytes "
+                    f"{r.peak_device_bytes}, dispatches {r.dispatches}; the "
+                    f"literal {lit}")
+                check(got == lit, f"{tag}: {dev} meters {got}, the literal "
+                      f"{lit}")
+            ghosts, widths = mesh_ghosts(blocks, engine, size)
+            worst = None if idle.worst is None else float(idle.worst)
+            log(f"[{tag}] lane stacks {dict(idle.widths)} (the plans imply "
+                f"{dict(widths)}); ghost lanes {idle.lanes} (implied "
+                f"{ghosts}), max |returned row - seed| {worst}")
+            check(idle.widths == widths and idle.lanes == ghosts,
+                  f"{tag}: lane stacks {dict(idle.widths)} and {idle.lanes} "
+                  f"idle lanes, the plans imply {dict(widths)} and {ghosts}")
+            check(ghosts == 0 or worst == 0.0,
+                  f"{tag}: a ghost lane's row moved {worst} from its seed")
+            gap = max_abs_diff(res.final_model, plain[algorithm][0]
+                               .final_model)
+            if size == 1:
+                log(f"[{tag}] the model against the same run without the "
+                    f"mesh on the card: max |diff| {gap:.3e}")
+                check(gap == 0.0, f"{tag}: the model is not the unmeshed "
+                      f"run's bit for bit on the card ({gap})")
+            else:
+                log(f"[{tag}] the model against the unpadded run on the "
+                    f"card: max |diff| {gap:.3e} (logged)")
+            with (sim_mesh(size, "cuda") if size > 1
+                  else contextlib.nullcontext()):
+                model_gap(run_experiment, task, tag, tfl, res.final_model,
+                          cpu[0].final_model, 2, True,
+                          tol=MESH_TOL[algorithm])
+    worst = float(checked.worst) if checked.worst is not None else None
+    log(f"[3k] fused_sgd against its plain version on each launch's inputs: "
+        f"{checked.calls} launches, max |diff| {worst}")
+    check(checked.calls == launches and worst == 0.0,
+          f"3k: {checked.calls} checked launches of {launches}, max |diff| "
+          f"{worst} from the plain version")
+    log(f"[3k] the phase's runs in {time.perf_counter() - t_phase:.1f}s")
     return launches
 
 
@@ -4515,10 +4756,10 @@ def main() -> int:
     # phase 3g: the scenario curves and the attack column under drops,
     # stragglers, stale uploads and Byzantine or poisoned clients; phase
     # 3h: the attack grid's robust defense columns; phase 3i: its DP-SGD
-    # row; phase 3j: personalization and classifier fleet serving. The
-    # four phases' CPU runs go to one worker pool while their GPU runs go
-    # on; every run shares one task (run_experiment makes the same from
-    # the seed).
+    # row; phase 3j: personalization and classifier fleet serving; phase
+    # 3k: the sharded engine and mesh_data_axis. The five phases' CPU runs
+    # go to one worker pool while their GPU runs go on; every run shares
+    # one task (run_experiment makes the same from the seed).
     from repro_torch.data.synthetic import make_task
 
     train, test = make_task("mnist_like", seed=fl.seed)
@@ -4527,6 +4768,7 @@ def main() -> int:
         jobs_3h = robust_jobs(pool, fl)
         jobs_3i = dp_jobs(pool, fl)
         jobs_3j = pers_jobs(pool, fl)
+        jobs_3k = mesh_jobs(pool, fl)
         t0 = time.perf_counter()
         scenario_launches, steady = scenario_path(
             run_experiment, fused_sgd_lanes, CONFIG, fl, init, jobs_3g,
@@ -4552,8 +4794,20 @@ def main() -> int:
         log(f"[3j] fused_sgd launches of phase 3j's GPU runs: "
             f"{pers_launches}; the phase in "
             f"{time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        mesh_launches = mesh_path(run_experiment, fused_sgd_lanes, CONFIG,
+                                  fl, init, jobs_3k, train, test)
+        log(f"[3k] fused_sgd launches of phase 3k's GPU runs: "
+            f"{mesh_launches}; the phase in "
+            f"{time.perf_counter() - t0:.1f}s")
     launches["fused_sgd"] += (scenario_launches + robust_launches
-                              + dp_launches + pers_launches)
+                              + dp_launches + pers_launches + mesh_launches)
+    for shape, what in (((8, 199_210), "MLP leaves (FedSR's rings on an "
+                         "8-entry mesh)"),
+                        ((24, 199_210), "MLP leaves (FedAvg's cohort on an "
+                         "8-entry mesh)")):
+        time_kernels(fused_sgd_lanes, sgd_lanes_reference, shape, MLP_LEAVES,
+                     what)
 
     # phases 4-7: the yi-9b and the mamba2-2.7b serving paths
     yi = ServePath(

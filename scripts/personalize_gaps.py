@@ -42,6 +42,34 @@ from chip_smoke import (  # noqa: E402
 )
 
 
+@contextlib.contextmanager
+def jittered_steps(rel, seed):
+    """After every ``fused_sgd`` step, each parameter the step's gradient
+    reached (a nonzero gradient in its lane) moved by a relative ``rel``,
+    signs from a generator seeded with ``seed``."""
+    import torch
+
+    import repro_torch.core.local as local
+
+    step = local.fused_sgd_lanes
+    gens = {}
+
+    def jittered(p, grads, *a, **kw):
+        gen = gens.setdefault(p.device, torch.Generator(
+            device=p.device).manual_seed(seed))
+        reached = torch.cat([g.reshape(p.shape[0], -1) for g in grads],
+                            dim=1) != 0
+        step(p, grads, *a, **kw)
+        sign = torch.randint(0, 2, p.shape, generator=gen, device=p.device,
+                             dtype=torch.float32)
+        p.mul_(1 + rel * (2 * sign - 1) * reached)
+    local.fused_sgd_lanes = jittered
+    try:
+        yield
+    finally:
+        local.fused_sgd_lanes = step
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seeds", type=int, nargs="+", default=[0, 1])
@@ -52,8 +80,6 @@ def main() -> int:
     args = ap.parse_args()
 
     import torch
-
-    import repro_torch.core.local as local
 
     from repro_torch.configs.base import FLConfig
     from repro_torch.configs.fedsr_mlp import CONFIG
@@ -77,29 +103,6 @@ def main() -> int:
         algorithm="fedsr", partition="pathological", num_devices=20,
         num_edges=5, ring_rounds=5, local_epochs=1, batch_size=32,
         rounds=10, engine="fused", use_fused_sgd=True, seed=0)
-
-    @contextlib.contextmanager
-    def jittered_steps(rel, seed):
-        """After every ``fused_sgd`` step, each parameter the step's
-        gradient reached (a nonzero gradient in its lane) moved by a
-        relative ``rel``, signs from a generator seeded with ``seed``."""
-        step = local.fused_sgd_lanes
-        gens = {}
-
-        def jittered(p, grads, *a, **kw):
-            gen = gens.setdefault(p.device, torch.Generator(
-                device=p.device).manual_seed(seed))
-            reached = torch.cat([g.reshape(p.shape[0], -1) for g in grads],
-                                dim=1) != 0
-            step(p, grads, *a, **kw)
-            sign = torch.randint(0, 2, p.shape, generator=gen,
-                                 device=p.device, dtype=torch.float32)
-            p.mul_(1 + rel * (2 * sign - 1) * reached)
-        local.fused_sgd_lanes = jittered
-        try:
-            yield
-        finally:
-            local.fused_sgd_lanes = step
 
     def run(fl, init, device="cpu"):
         return run_experiment(task="mnist_like", model_cfg=CONFIG, fl=fl,

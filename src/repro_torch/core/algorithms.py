@@ -65,7 +65,9 @@ from repro_torch.core.state import (
     scatter_rows, stage_rows, unpack_client_rows, unstage_rows,
 )
 from repro_torch.core.topology import assign_edges, clusters_of, sample_ring
-from repro_torch.data.pipeline import ClientData, plan_epoch_indices
+from repro_torch.data.pipeline import (
+    ClientData, client_weights, plan_epoch_indices,
+)
 from repro_torch.utils.tree import unravel
 
 
@@ -320,8 +322,7 @@ class _Planner:
         return sorted(rng.choice(k, size=n, replace=False).tolist())
 
     def _weights(self, ids: List[int]) -> np.ndarray:
-        sizes = np.asarray([len(self.clients[i]) for i in ids], np.float64)
-        return sizes / sizes.sum()
+        return client_weights([self.clients[i] for i in ids])
 
     def _ring_hops(self, rings: List[List[int]],
                    rng: np.random.Generator) -> Tuple[Hop, ...]:

@@ -33,6 +33,8 @@ class Engine:
         self.trainer = trainer
         self.clients = clients
         self.fl = fl
+        self.data_axis = fl.mesh_data_axis or "data"
+        self.mesh = None        # the sim mesh (batched and fused engines)
 
     @staticmethod
     def _resolve(value, w_glob: torch.Tensor, state=None):

@@ -22,9 +22,18 @@ lane axis on the device.
 This engine is host-fed, so a staged store (``FLConfig.store="host"`` or
 ``"stream"``) changes nothing of its data path; MOON's and SCAFFOLD's rows
 arrive as the block's staged cohort carry, read through ``_resolve``'s
-row map. The fused engine inherits ``_pad``. Its mesh-sharded form
-(``engine="sharded"``, ghost lanes up to a mesh multiple) is ROADMAP A5;
-on one GPU no mesh exists, so lane padding is the identity.
+row map.
+
+``engine="sharded"`` is this engine on the sim mesh
+(``launch.mesh.make_sim_mesh``), and ``FLConfig.mesh_data_axis`` opts the
+plain batched and fused engines into it: every lane stack is ghost-padded
+to the next multiple of the mesh size (``_pad``, which the fused engine
+inherits). A ghost lane is an ordinary lane whose steps are all invalid:
+zero data, the global model as its seed and extras, row 0 of a seeded
+group's edge models, the honest delta factor 1.0 and weight 0 in every
+reduce, so it never trains, draws no RNG and moves no aggregate. With
+every mesh entry the trainer's one device the lanes stay where they are;
+a mesh over several distinct devices raises (ROADMAP A5.2).
 """
 from __future__ import annotations
 
@@ -34,14 +43,23 @@ import torch
 from repro_torch.core.engines.base import Engine
 from repro_torch.core.plan import Hop
 from repro_torch.data.pipeline import stack_plans
+from repro_torch.launch.mesh import make_sim_mesh, round_up_to_mesh
 
 
 class BatchedEngine(Engine):
 
+    def __init__(self, trainer, clients, fl):
+        super().__init__(trainer, clients, fl)
+        if fl.engine == "sharded" or fl.mesh_data_axis:
+            self.mesh = make_sim_mesh(fl.num_devices, axis=self.data_axis,
+                                      device=trainer.device)
+
     def _pad(self, c: int) -> int:
         """Round a lane count up to the mesh size (ghost-lane padding of
         the sharded engine); identity with no mesh."""
-        return c
+        if self.mesh is None:
+            return c
+        return round_up_to_mesh(c, self.mesh)
 
     def _seed_stack(self, prev: torch.Tensor, seed, padded: int):
         """A fresh (padded, P) stack of each lane's seed row of the previous
@@ -106,4 +124,5 @@ class BatchedEngine(Engine):
         batches, valid = stack_plans(
             [self.clients[i] for i in hop.ids], list(hop.plans),
             pad_to=padded, width=width)
-        return self.trainer.train_many(params, batches, valid, lr=lr, **kw)
+        return self.trainer.train_many(params, batches, valid, lr=lr,
+                                       mesh=self.mesh, **kw)

@@ -18,6 +18,15 @@ with an attacked round also ships the adversary's (n, C) delta factors
 robust reducer (``AggSpec.reducer``) a cohort block ships the uncollapsed
 lane weights and the group weights (``aggw``, ``aggg``) and a HierFAVG
 block the cloud weights (``gwv``) in place of the collapsed ``aggv``.
+
+``FLConfig.mesh_data_axis`` composes (the sim mesh, ``launch.mesh``): the
+store's planes take the mesh layout (shards padded to the largest, rows
+to a mesh multiple; ``DeviceDataPlane``), and every lane axis of the
+block is ghost-padded to a mesh multiple (``_pad``): ghost lanes index
+fleet row 0 under an all-invalid mask, weigh 0 in ``aggv``, ``aggw`` and
+``wg``, seed from edge row 0, carry the delta factor 1.0, and under MOON
+and SCAFFOLD point their ``ids`` at the dump row K of ``core.state``, so
+the in-block state scatter discards them.
 """
 from __future__ import annotations
 
@@ -42,7 +51,8 @@ class FusedEngine(BatchedEngine):
         # where the fleet lives between blocks is the store's policy
         # (FLConfig.store): the upload-once fleet plane, or per-block
         # cohort arenas that keep device bytes O(cohort) (data.store)
-        self.store = make_store(fl.store, clients, trainer.device)
+        self.store = make_store(fl.store, clients, trainer.device,
+                                mesh=self.mesh)
         self._arena: DeviceDataPlane = None
 
     @property
@@ -104,7 +114,7 @@ class FusedEngine(BatchedEngine):
             w_glob, self.plane, xs, carry, variant=grp.variant,
             shared_extras=grp.shared_extras,
             stacked_extras=grp.stacked_extras, reducer=agg.reducer,
-            trim_frac=agg.trim_frac, krum_f=agg.krum_f)
+            trim_frac=agg.trim_frac, krum_f=agg.krum_f, mesh=self.mesh)
         if carry:
             state.update(carry)
             for plan in plans:

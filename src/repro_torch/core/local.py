@@ -91,6 +91,12 @@ zero, so its momentum stays zero and the update leaves it bit for bit;
 it still goes through the update, and DP noise, added after the mask,
 moves it (ROADMAP C10).
 
+``train_many`` and ``train_schedule`` take the sim mesh (``mesh=``;
+``launch.mesh``) of the sharded engine and ``mesh_data_axis``: the lane
+axis C must be a multiple of the mesh size, with the reference's
+``ValueError`` otherwise. Every mesh entry is the trainer's one device, so
+placement leaves the lanes where they are; a ghost lane is an ordinary lane whose ``valid`` row is all false.
+
 Counters, as the reference meters them: ``h2d_bytes`` (what each entry
 point ships: per-step batches, per-hop stacks and masks, or the block's
 index plans and per-round arrays) and ``dispatches`` (one per step, per
@@ -109,6 +115,7 @@ from repro_torch.core.robust import robust_agg
 from repro_torch.core.state import gather_rows, scaffold_step, scatter_rows
 from repro_torch.kernels.fused_sgd.ops import fused_sgd_lanes
 from repro_torch.kernels.fused_sgd.ref import flat_grads
+from repro_torch.launch.mesh import check_lane_axis
 from repro_torch.models.registry import specs_for
 from repro_torch.data.pipeline import plan_epoch_indices
 from repro_torch.models.small import (
@@ -436,7 +443,7 @@ class LocalTrainer:
                    krum_f: int = 0,
                    dscale: Optional[np.ndarray] = None,
                    dref: Optional[torch.Tensor] = None,
-                   variant: str = "plain",
+                   variant: str = "plain", mesh=None,
                    anchor: Optional[torch.Tensor] = None,
                    w_glob: Optional[torch.Tensor] = None,
                    w_prev: Optional[torch.Tensor] = None,
@@ -463,7 +470,11 @@ class LocalTrainer:
         against ``dref`` or, without it, the lanes' seed ``params``; like
         ``agg`` it is not metered, as the reference meters the call.
         ``variant`` and its extras: the loss, as in ``train``, the
-        per-lane ones (C, P) stacks."""
+        per-lane ones (C, P) stacks. With ``mesh`` (``launch.mesh``) C
+        must be a multiple of the mesh's axis size (callers ghost-pad);
+        the lanes stay on the trainer's device, every mesh entry's."""
+        if mesh is not None:
+            check_lane_axis(mesh, valid.shape[0], "client", self.device)
         extras = _variant_extras(variant, anchor=anchor, w_glob=w_glob,
                                  w_prev=w_prev, c_glob=c_glob,
                                  c_local=c_local)
@@ -530,7 +541,8 @@ class LocalTrainer:
                        shared_extras: Optional[Dict] = None,
                        stacked_extras: Optional[Dict] = None,
                        reducer: str = "weighted_mean",
-                       trim_frac: float = 0.0, krum_f: int = 0):
+                       trim_frac: float = 0.0, krum_f: int = 0,
+                       mesh=None):
         """An entire block of rounds as ONE call (one dispatch).
 
         ``w_glob`` is the global model as a flat (P,) vector. ``xs`` stacks
@@ -563,8 +575,13 @@ class LocalTrainer:
         lane weights ``aggw`` (n, G, C) and the group weights ``aggg``
         (n, G) in place of ``aggv``, a HierFAVG block reduces each
         iteration by ``wg``'s validity and the last one with the cloud
-        weights ``gwv`` (n, G). Returns the new (P,) global model and the
-        new carry."""
+        weights ``gwv`` (n, G). With ``mesh`` every lane axis C must be a
+        multiple of the mesh's axis size (the engine ghost-pads), as
+        in ``train_many``. Returns the new (P,) global model and the new
+        carry."""
+        if mesh is not None:
+            check_lane_axis(mesh, xs["valid"].shape[2], "schedule",
+                            self.device)
         self.h2d_bytes += sum(_h2d_nbytes(v) for v in xs.values())
         self.dispatches += 1
         dev = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)

@@ -165,8 +165,10 @@ def personalize_fleet(model_cfg: ModelConfig, fl: FLConfig, clients,
     caller asks for another).
 
     ``store`` reuses the experiment engine's ``ClientStore`` when it has
-    one (the fused engine); otherwise a store of the configured residency
-    is built and closed here. A block is one train call plus two
+    one (the fused engine; under ``mesh_data_axis`` its planes are
+    mesh-padded, which the gathers do not see); otherwise a store of the
+    configured residency, without a mesh as in the reference, is built
+    and closed here. A block is one train call plus two
     forwards. ``block`` defaults to the whole fleet under
     ``store="device"`` and to cohorts of 64 under the staged stores."""
     pcfg = fl.personalize

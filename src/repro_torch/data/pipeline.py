@@ -26,6 +26,7 @@ import torch
 
 from repro_torch.data.partition import partition
 from repro_torch.data.synthetic import Dataset
+from repro_torch.launch.mesh import round_up_to_mesh
 
 
 def plan_epoch_indices(
@@ -166,6 +167,14 @@ class DeviceDataPlane:
     ``stack_plan_indices`` and the block's gather are untouched by it. By
     default the plane holds the whole fleet in id order.
 
+    With ``mesh`` (``launch.mesh``) the plane takes the reference's
+    mesh layout: every shard zero-padded to the largest one, ``N_max``,
+    and the shard count rounded up to a multiple of the mesh's axis
+    size, so client ``i`` of the plane starts at ``i * N_max``.
+    Gathers read the same samples; ``nbytes`` counts the padded upload,
+    and ``real_nbytes`` the unpadded shards and the offsets table (equal
+    to ``nbytes`` without a mesh).
+
     ``pinned`` gathers the shards straight into page-locked host buffers
     and copies them with ``non_blocking=True`` on the current CUDA stream
     (the stores' side stream), so the copy overlaps work on other
@@ -174,7 +183,8 @@ class DeviceDataPlane:
 
     def __init__(self, clients: Sequence["ClientData"],
                  device: torch.device, client_ids=None,
-                 fleet_size: Optional[int] = None, pinned: bool = False):
+                 fleet_size: Optional[int] = None, pinned: bool = False,
+                 mesh=None):
         if not clients:
             raise ValueError("DeviceDataPlane needs at least one client shard")
         self.num_clients = len(clients)
@@ -184,18 +194,35 @@ class DeviceDataPlane:
         if fleet_size is None:
             fleet_size = len(clients)
         sizes = [len(c) for c in clients]
-        total = sum(sizes)
         c0 = clients[0]
-        imgs = _host_buffer((total,) + c0.images.shape[1:], c0.images.dtype,
-                            pinned)
-        labs = _host_buffer((total,), np.int32, pinned)
-        np.concatenate([c.images for c in clients], out=imgs.numpy())
-        np.concatenate([c.labels for c in clients], out=labs.numpy())
         offs = _host_buffer((fleet_size,), np.int32, pinned)
         offs.zero_()
-        offs.numpy()[client_ids] = np.cumsum([0] + sizes[:-1])
+        if mesh is None:
+            total = sum(sizes)
+            imgs = _host_buffer((total,) + c0.images.shape[1:],
+                                c0.images.dtype, pinned)
+            labs = _host_buffer((total,), np.int32, pinned)
+            np.concatenate([c.images for c in clients], out=imgs.numpy())
+            np.concatenate([c.labels for c in clients], out=labs.numpy())
+            offs.numpy()[client_ids] = np.cumsum([0] + sizes[:-1])
+        else:
+            n_max = max(sizes)
+            k = round_up_to_mesh(len(clients), mesh)
+            imgs = _host_buffer((k * n_max,) + c0.images.shape[1:],
+                                c0.images.dtype, pinned)
+            labs = _host_buffer((k * n_max,), np.int32, pinned)
+            imgs.zero_()
+            labs.zero_()
+            img_np, lab_np = imgs.numpy(), labs.numpy()
+            for i, c in enumerate(clients):
+                img_np[i * n_max: i * n_max + len(c)] = c.images
+                lab_np[i * n_max: i * n_max + len(c)] = c.labels
+            offs.numpy()[client_ids] = np.arange(len(clients)) * n_max
         host = (imgs, labs, offs)
         self.nbytes = sum(t.numel() * t.element_size() for t in host)
+        self.real_nbytes = (sum(c.images.nbytes + c.labels.size * 4
+                                for c in clients)
+                            + offs.numel() * offs.element_size())
         self.images, self.labels, self.offsets = (
             t.to(device, non_blocking=pinned) for t in host)
 
@@ -238,3 +265,9 @@ def make_clients(
         ClientData(d, train.images[p], train.labels[p])
         for d, p in enumerate(parts)
     ]
+
+
+def client_weights(clients: List[ClientData]) -> np.ndarray:
+    """|D_i| / |D| weights used by every aggregation rule in the paper."""
+    sizes = np.asarray([len(c) for c in clients], np.float64)
+    return sizes / sizes.sum()

@@ -20,6 +20,11 @@ twin of the JAX package's ``data/store.py``; ``FLConfig.store``).
 A block's visited set comes from its pre-drawn plans
 (``Schedule.visited``), so staging never needs a device readback.
 
+With ``mesh`` (the fused engine under ``FLConfig.mesh_data_axis``) every
+plane a store builds, the fleet's or a cohort's, takes
+``DeviceDataPlane``'s mesh layout: shards padded to the plane's largest,
+rows to a mesh multiple.
+
 **Prefetch** (``FLConfig.prefetch=1``): ``prefetch(visited)`` hands the
 next block's gather and upload to a one-worker background thread while
 the current block runs; ``arena(visited)`` consumes a matching prefetch
@@ -64,8 +69,10 @@ class ClientStore:
 
     kind = ""
 
-    def __init__(self, clients: Sequence[ClientData], device: torch.device):
+    def __init__(self, clients: Sequence[ClientData], device: torch.device,
+                 mesh=None):
         self.clients = list(clients)
+        self.mesh = mesh
         self.device = torch.device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
@@ -94,15 +101,16 @@ class DeviceStore(ClientStore):
 
     kind = "device"
 
-    def __init__(self, clients, device):
-        super().__init__(clients, device)
+    def __init__(self, clients, device, mesh=None):
+        super().__init__(clients, device, mesh=mesh)
         self._plane: Optional[DeviceDataPlane] = None
 
     def arena(self, visited=None) -> DeviceDataPlane:
         if self._plane is None:
             with timed(lambda s: setattr(
                     self, "stage_seconds", self.stage_seconds + s)):
-                self._plane = DeviceDataPlane(self.clients, self.device)
+                self._plane = DeviceDataPlane(self.clients, self.device,
+                                              mesh=self.mesh)
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
             self.last_pair_nbytes = self._plane.nbytes
@@ -218,8 +226,8 @@ class _StagedStore(ClientStore):
     """Per-block cohort staging shared by the host and stream stores, which
     differ only in where ``_cohort`` reads the pixels from."""
 
-    def __init__(self, clients, device):
-        super().__init__(clients, device)
+    def __init__(self, clients, device, mesh=None):
+        super().__init__(clients, device, mesh=mesh)
         self._arena: Optional[DeviceDataPlane] = None
         self._visited: Optional[tuple] = None
         self._stager = Stager(self.device, self._gather,
@@ -233,7 +241,8 @@ class _StagedStore(ClientStore):
         """Gather and upload one cohort arena (the stager's build)."""
         return DeviceDataPlane(self._cohort(visited), self.device,
                                client_ids=visited,
-                               fleet_size=len(self.clients), pinned=pinned)
+                               fleet_size=len(self.clients), pinned=pinned,
+                               mesh=self.mesh)
 
     @staticmethod
     def _key(visited: np.ndarray) -> tuple:
@@ -299,8 +308,8 @@ class StreamStore(_StagedStore):
 
     kind = "stream"
 
-    def __init__(self, clients, device):
-        super().__init__(clients, device)
+    def __init__(self, clients, device, mesh=None):
+        super().__init__(clients, device, mesh=mesh)
         self._tmp = tempfile.TemporaryDirectory(prefix="repro_torch_stream_")
         c0 = clients[0]
         sizes = np.asarray([len(c) for c in clients], np.int64)
@@ -364,10 +373,12 @@ class _ShardRef:
 STORES = {"device": DeviceStore, "host": HostStore, "stream": StreamStore}
 
 
-def make_store(name: str, clients: List[ClientData],
-               device: torch.device) -> ClientStore:
-    """Build the residency policy selected by ``FLConfig.store``."""
+def make_store(name: str, clients: List[ClientData], device: torch.device,
+               mesh=None) -> ClientStore:
+    """Build the residency policy selected by ``FLConfig.store``; with
+    ``mesh`` every plane it builds takes the mesh layout
+    (``DeviceDataPlane``)."""
     if name not in STORES:
         raise ValueError(f"unknown FLConfig.store {name!r}; "
                          "expected 'device', 'host' or 'stream'")
-    return STORES[name](clients, device)
+    return STORES[name](clients, device, mesh=mesh)

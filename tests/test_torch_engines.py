@@ -392,10 +392,27 @@ def test_the_default_config_runs(monkeypatch):
 
 @pytest.mark.parametrize("engine", ENGINES)
 @pytest.mark.parametrize("override", [{"mesh_data_axis": "data"}])
-def test_unported_options_raise_under_the_new_engines(engine, override):
+def test_unported_options_raise_under_the_new_engines(monkeypatch, engine,
+                                                     override):
+    """What stays unported of ``mesh_data_axis`` is a mesh over several
+    distinct devices (ROADMAP A5.2): with two cards visible the batched
+    engine raises; the sequential engine takes no mesh, as in the
+    reference, and runs the plain run bit for bit."""
+    import repro_torch.launch.mesh as mesh
+
     _, (pm, pfl) = configs(SMALL, **fl_kwargs(engine=engine, **override))
     _, (ptr, pte) = mnist_tasks(train_per_class=4, test_per_class=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP A[5-7]"):
+    monkeypatch.setattr(mesh, "visible_devices", lambda device=None: [
+        torch.device("cuda", 0), torch.device("cuda", 1)])
+    if engine == "sequential":
+        kw = dict(stop_after=1)
+        got = _port_run(pm, pfl, ptr, pte, None, **kw)
+        plain = _port_run(pm, dataclasses.replace(pfl, mesh_data_axis=None),
+                          ptr, pte, None, **kw)
+        for k in plain.final_model:
+            assert torch.equal(got.final_model[k], plain.final_model[k]), k
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP A5.2"):
         _port_run(pm, pfl, ptr, pte, None)
 
 

@@ -530,12 +530,18 @@ def test_importing_the_port_leaves_jax_unloaded():
 @pytest.mark.parametrize("override", [
     {"engine": "sharded"}, {"mesh_data_axis": "data"},
 ])
-def test_unported_options_raise(override):
+def test_unported_options_raise(monkeypatch, override):
+    """What stays unported of the sharded engine and ``mesh_data_axis`` is
+    a mesh over several distinct devices (ROADMAP A5.2): with two cards
+    visible the run raises instead of shrinking the mesh."""
+    import repro_torch.launch.mesh as mesh
     from repro_torch.core.executor import run_experiment
 
     _, (pm, pfl) = configs(SMALL, **_fl(**override))
     _, (ptr, pte) = _tasks(train_per_class=4, test_per_class=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    monkeypatch.setattr(mesh, "visible_devices", lambda device=None: [
+        torch.device("cuda", 0), torch.device("cuda", 1)])
+    with pytest.raises(NotImplementedError, match="ROADMAP A5.2"):
         run_experiment(task="mnist_like", model_cfg=pm, fl=pfl, train=ptr,
                        test=pte, device="cpu")
 
