@@ -40,11 +40,12 @@
 //   computes on the tile that has arrived: bytes in flight, not one
 //   dependent load per key. A float32 hd-128 ring holds 6 tiles (96 KB),
 //   so a T = 48 slab (48 KB) is requested at once and a long split keeps
-//   80 KB in flight. A block takes kBlockSmem whatever its ring uses, so
-//   exactly two blocks share an SM and the grid runs in waves of 2 * SMs
-//   blocks, which the split rule counts in (at decode_32k's B = 128, 512
-//   blocks are 1.94 waves of 264; three blocks an SM made them 1.29 waves
-//   of 396, whose tail left the card a third idle).
+//   80 KB in flight; a float32 hd-160 ring holds 4 tiles (80 KB). A block
+//   takes kBlockSmem whatever its ring uses, so exactly two blocks share
+//   an SM and the grid runs in waves of 2 * SMs blocks, which the split
+//   rule counts in (at decode_32k's B = 128, 512 blocks are 1.94 waves of
+//   264; three blocks an SM made them 1.29 waves of 396, whose tail left
+//   the card a third idle).
 // - Compute. Each warp takes groups of KPW keys of a tile. Lane j holds
 //   columns [j * hd/32, (j+1) * hd/32) of every query row in registers and
 //   reads the same columns of each key row from shared memory once for all
@@ -99,7 +100,11 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-// N consecutive elements of a shared-memory row as float32
+// N consecutive elements of a shared-memory row as float32. A lane's N
+// columns start at lane * N: 16-, 8- or 4-byte vectors for N = 4, 2, 1;
+// at hd = 160 (N = 5) they start 20 bytes apart (10 in bfloat16), which
+// no vector load fits, so each element is read alone (lanes 5 floats
+// apart hit 32 distinct banks).
 template <int N>
 __device__ __forceinline__ void load_row(const float* p, float (&x)[N]) {
   if constexpr (N == 4) {
@@ -109,7 +114,8 @@ __device__ __forceinline__ void load_row(const float* p, float (&x)[N]) {
     const float2 a = *reinterpret_cast<const float2*>(p);
     x[0] = a.x; x[1] = a.y;
   } else {
-    x[0] = *p;
+#pragma unroll
+    for (int i = 0; i < N; ++i) x[i] = p[i];
   }
 }
 template <int N>
@@ -127,7 +133,8 @@ __device__ __forceinline__ void load_row(const __nv_bfloat16* p,
         __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
     x[0] = a.x; x[1] = a.y;
   } else {
-    x[0] = __bfloat162float(*p);
+#pragma unroll
+    for (int i = 0; i < N; ++i) x[i] = __bfloat162float(p[i]);
   }
 }
 
@@ -207,6 +214,7 @@ decode_split_kernel(const TQ* __restrict__ q, const TC* __restrict__ k,
                     TQ* __restrict__ out, float* __restrict__ part, int T_,
                     int KV, int G, int window, int S, float sqrt_hd) {
   constexpr int EPL = HD / 32;                     // columns a lane
+  static_assert(HD % 32 == 0, "hd must be a multiple of 32");
   constexpr int KPW = 32 / GMAX < kTileKeys / kWarps ? 32 / GMAX
                                                      : kTileKeys / kWarps;
   constexpr int NV = KPW * GMAX;        // (key, row) scores a warp reduces
@@ -406,12 +414,14 @@ __device__ __forceinline__ float block_reduce(float x, float* red) {
 // Merge the S partials of (b, kh, g = blockIdx.x) into out's row:
 // weights c_s = e^(m_s - m) of every split in parallel (0 for an empty
 // split), then thread (j, d) sums c_s acc_s[d] over the splits
-// s = j (mod kGroups), with the loads of several splits in flight.
+// s = j (mod kGroups), with the loads of several splits in flight. At
+// hd = 160 kGroups is 1 and threads 160-255 only join the barriers.
 template <typename TQ, int HD>
 __global__ void __launch_bounds__(kCombineThreads)
 decode_combine_kernel(const float* __restrict__ part, TQ* __restrict__ out,
                       int KV, int G, int S) {
   constexpr int kGroups = kCombineThreads / HD;
+  static_assert(kGroups >= 1);
   extern __shared__ float cs[];            // S weights, then kGroups x HD
   __shared__ float red[kCombineThreads / 32];
   const int g = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
@@ -429,12 +439,15 @@ decode_combine_kernel(const float* __restrict__ part, TQ* __restrict__ out,
   }
   den = block_reduce<false>(den, red);     // its barriers publish cs
   const int j = threadIdx.x / HD, d = threadIdx.x % HD;
+  const bool summing = j < kGroups;
   float num = 0.0f;
-#pragma unroll 8
-  for (int s = j; s < S; s += kGroups)
-    num = fmaf(cs[s], pr[s * stride + d], num);
   float* sums = cs + S;
-  sums[j * HD + d] = num;
+  if (summing) {
+#pragma unroll 8
+    for (int s = j; s < S; s += kGroups)
+      num = fmaf(cs[s], pr[s * stride + d], num);
+    sums[j * HD + d] = num;
+  }
   __syncthreads();
   if (j == 0) {
 #pragma unroll
@@ -491,6 +504,7 @@ int dispatch_hd(const void* q, const void* k, const void* v,
     case 32: return dispatch_g<TQ, TC, 32>(q, k, v, lengths, out, part, B, T_, KV, G, window, S, st);
     case 64: return dispatch_g<TQ, TC, 64>(q, k, v, lengths, out, part, B, T_, KV, G, window, S, st);
     case 128: return dispatch_g<TQ, TC, 128>(q, k, v, lengths, out, part, B, T_, KV, G, window, S, st);
+    case 160: return dispatch_g<TQ, TC, 160>(q, k, v, lengths, out, part, B, T_, KV, G, window, S, st);
     default: return -1;
   }
 }
@@ -501,10 +515,10 @@ int dispatch_hd(const void* q, const void* k, const void* v,
 // q (B, 1, KV * G, hd) and out of q_dtype, k and v (B, T, KV, hd) of
 // cache_dtype (0 = float32, 1 = bfloat16; a float32 q takes only a float32
 // cache), lengths (B,) int32 in [1, T], all contiguous and 16-byte
-// aligned. hd is 32, 64 or 128, G at most 16, B at most 65535 (the grid's
-// z). `splits` (S, 1 to 4096) blocks share each (b, kv head); with S > 1,
-// `partials` is a float32 scratch (B, KV, S, G, hd + 2) and a combine
-// kernel follows the split kernel. Launches on `stream`; returns
+// aligned. hd is 32, 64, 128 or 160, G at most 16, B at most 65535 (the
+// grid's z). `splits` (S, 1 to 4096) blocks share each (b, kv head); with
+// S > 1, `partials` is a float32 scratch (B, KV, S, G, hd + 2) and a
+// combine kernel follows the split kernel. Launches on `stream`; returns
 // cudaGetLastError() (0 = launched) or -1 for a shape or type it does not
 // take.
 extern "C" int decode_attention_fwd(const void* q, const void* k,

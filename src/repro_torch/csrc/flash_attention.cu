@@ -17,7 +17,8 @@
 // Bound: operations. A causal self-attention over S tokens needs about
 // 4 B H hd S (S + 1) / 2 flops (QK^T and PV, upper triangle skipped); for
 // yi-9b's prefill at B=1, S=4096, H=32, hd=128 that is 137.5 GFLOP a
-// layer, 0.139 ms at the H100's 989 TFLOP/s bf16 tensor-core rate.
+// layer, 0.139 ms at the H100's 989 TFLOP/s bf16 tensor-core rate; for
+// stablelm-12b's at H=32, hd=160, 171.8 GFLOP, 0.174 ms.
 //
 // Two routes, chosen by dtype in flash_attention_fwd (not a fallback: each
 // dtype has exactly one):
@@ -33,8 +34,10 @@
 // multiplied. The tensor maps are 4-D over (hd, heads, seq, batch), built
 // on the host for each launch (cuTensorMapEncodeTiled, reached through
 // cudaGetDriverEntryPoint, so no -lcuda); a ragged S or T tile is
-// zero-filled inside its own sequence. Boxes are at most 64 bf16 wide
-// (128 B swizzle; 64 B for hd = 32), so hd = 128 takes two per tile.
+// zero-filled inside its own sequence. Boxes are 64 bf16 wide (128 B
+// swizzle) where hd is a multiple of 64, so hd = 128 takes two per tile,
+// and 32 wide (64 B swizzle) otherwise: hd = 32 takes one, hd = 160 five
+// (Q 40 KB, two stages of K and V 160 KB: 201 KB of shared memory).
 // S = Q K^T is a wgmma m64n128k16 with both operands in shared memory,
 // K-major. The online softmax runs on the accumulator fragment (each row
 // lives in one quad of threads); only the causal diagonal tile, the
@@ -263,10 +266,14 @@ constexpr int kThreads = 384;   // producer warpgroup + two consumers
 
 // Shared-memory geometry for head dim HD: a tile is kBoxes boxes of
 // kBoxCols bf16 columns, each row kRowBytes long and swizzled in groups of
-// 8 rows, as TMA writes it and wgmma's descriptors read it.
+// 8 rows, as TMA writes it and wgmma's descriptors read it. A box is as
+// wide as one swizzle span: 64 columns where HD is a multiple of 64, else
+// 32 (HD = 32 and 160), so every box of a tile shares one swizzle and one
+// descriptor layout.
 template <int HD>
 struct Tile {
-  static constexpr int kBoxCols = HD < 64 ? HD : 64;
+  static constexpr int kBoxCols = HD % 64 == 0 ? 64 : 32;
+  static_assert(HD % kBoxCols == 0, "hd must be a multiple of 32");
   static constexpr int kRowBytes = 2 * kBoxCols;           // swizzle width
   static constexpr int kBoxes = HD / kBoxCols;
   static constexpr int kQBox = kBQ * kRowBytes;
@@ -349,7 +356,8 @@ __device__ __forceinline__ uint64_t desc_k_major(uint32_t addr) {
 }
 
 // MN-major operand (V: 16 key rows at `addr`, N = hd contiguous): the next
-// 8 keys lie 8 rows on (SBO); the next 64 hd columns in the next box (LBO).
+// 8 keys lie 8 rows on (SBO); the next kBoxCols hd columns (one swizzle
+// span) in the next box (LBO).
 template <int HD>
 __device__ __forceinline__ uint64_t desc_mn_major(uint32_t addr) {
   return smem_desc<HD>(addr, Tile<HD>::kKBox, 8 * Tile<HD>::kRowBytes);
@@ -393,6 +401,7 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
   WGMMA_D4(i), WGMMA_D4(i + 4), WGMMA_D4(i + 8), WGMMA_D4(i + 12)
 #define WGMMA_D32 WGMMA_D16(0), WGMMA_D16(16)
 #define WGMMA_D64 WGMMA_D32, WGMMA_D16(32), WGMMA_D16(48)
+#define WGMMA_D80 WGMMA_D64, WGMMA_D16(64)
 #define WGMMA_P16 \
   "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
 #define WGMMA_P32                                                          \
@@ -402,6 +411,9 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
   WGMMA_P32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
             "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "  \
             "%56, %57, %58, %59, %60, %61, %62, %63"
+#define WGMMA_P80                                                           \
+  WGMMA_P64 ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, " \
+            "%76, %77, %78, %79"
 
 __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
                                                      uint64_t db, int scale_d) {
@@ -428,10 +440,13 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
 WGMMA_RS(32, WGMMA_D16(0), WGMMA_P16, "{%16, %17, %18, %19}, %20", "%21")
 WGMMA_RS(64, WGMMA_D32, WGMMA_P32, "{%32, %33, %34, %35}, %36", "%37")
 WGMMA_RS(128, WGMMA_D64, WGMMA_P64, "{%64, %65, %66, %67}, %68", "%69")
+WGMMA_RS(160, WGMMA_D80, WGMMA_P80, "{%80, %81, %82, %83}, %84", "%85")
 #undef WGMMA_RS
+#undef WGMMA_P80
 #undef WGMMA_P64
 #undef WGMMA_P32
 #undef WGMMA_P16
+#undef WGMMA_D80
 #undef WGMMA_D64
 #undef WGMMA_D32
 #undef WGMMA_D16
@@ -444,6 +459,7 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[HD / 2],
   if constexpr (HD == 32) wgmma_m64n32k16_rs(o, a, db);
   if constexpr (HD == 64) wgmma_m64n64k16_rs(o, a, db);
   if constexpr (HD == 128) wgmma_m64n128k16_rs(o, a, db);
+  if constexpr (HD == 160) wgmma_m64n160k16_rs(o, a, db);
 }
 
 __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
@@ -752,10 +768,10 @@ int launch_route(const void* q, const void* k, const void* v, void* out,
 // q (B, S, H, hd), k and v (B, T, KV, hd), out (B, S, H, hd), all
 // contiguous and of one type: dtype 0 = float32 (the CUDA-core route),
 // 1 = bfloat16 (the tensor-core route, whose q, k and v must be 16-byte
-// aligned for TMA). hd is 32, 64 or 128 and H a multiple of KV. Launches
-// on `stream`; returns cudaGetLastError() (0 = launched), -1 for a shape
-// or type it does not take, or -2 when the TMA tensor maps cannot be
-// encoded.
+// aligned for TMA). hd is 32, 64, 128 or 160 and H a multiple of KV.
+// Launches on `stream`; returns cudaGetLastError() (0 = launched), -1 for
+// a shape or type it does not take, or -2 when the TMA tensor maps cannot
+// be encoded.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* out, int dtype,
                                    int B, int S, int T, int H, int KV,
@@ -772,6 +788,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                               window, st);
     case 128:
       return launch_route<128>(q, k, v, out, dtype, B, S, T, H, KV, causal,
+                               window, st);
+    case 160:
+      return launch_route<160>(q, k, v, out, dtype, B, S, T, H, KV, causal,
                                window, st);
     default:
       return -1;

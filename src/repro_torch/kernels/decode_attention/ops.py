@@ -18,7 +18,7 @@ from repro_torch.kernels.decode_attention.ref import (
     decode_attention_reference,
 )
 
-KERNEL_HEAD_DIMS = (32, 64, 128)
+KERNEL_HEAD_DIMS = (32, 64, 128, 160)
 KERNEL_MAX_GROUP = 16
 # (q dtype, cache dtype) pairs the kernel takes; the serving path keeps
 # bfloat16 activations over a float32 cache

@@ -11,7 +11,7 @@ import torch
 
 from repro_torch.kernels.flash_attention.ref import attention_reference
 
-KERNEL_HEAD_DIMS = (32, 64, 128)
+KERNEL_HEAD_DIMS = (32, 64, 128, 160)
 _DTYPES = (torch.float32, torch.bfloat16)
 
 

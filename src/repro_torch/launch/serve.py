@@ -5,8 +5,11 @@ with cache (the twin of the JAX package's ``launch/serve.py``).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b
 
 serves the full-width model on the GPU from random weights drawn from a
-seed on the card; ``--smoke`` serves the reduced config the reference's
-CLI serves, and ``--device cpu`` runs on the CPU. As in the reference, the
+seed on the card. The dense archs are yi-9b, stablelm-12b (head dim 160),
+granite-8b and deepseek-7b (MHA); mamba2-2.7b is the ssm one. Each fits
+one 80 GB card in float32 (stablelm-12b's 48.6 GB the largest).
+``--smoke`` serves the reduced config the reference's CLI serves, and
+``--device cpu`` runs on the CPU. As in the reference, the
 prompt is fed through ``decode_step`` one position at a time, so a Mamba2
 model serves through its O(1) recurrence and never runs the chunked SSD
 scan; that scan is ``launch/steps.py::make_prefill_step``'s. The reference's
@@ -94,7 +97,9 @@ def prefill_and_decode(
 
 def main(argv: Optional[List[str]] = None) -> None:
     ap = argparse.ArgumentParser(description="batched LM serving (PyTorch)")
-    ap.add_argument("--arch", default="yi-9b")
+    ap.add_argument("--arch", default="yi-9b",
+                    help="yi-9b, stablelm-12b, granite-8b, deepseek-7b or "
+                         "mamba2-2.7b")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--new-tokens", type=int, default=32)

@@ -72,6 +72,10 @@ FLASH_CASES = [
     (1, 100, 8, 2, 64, 0, True, 20),      # ragged S (not a tile multiple)
     (1, 100, 8, 2, 64, 30, True, 20),
     (2, 64, 4, 2, 32, 0, False, 32),
+    # hd 160 (stablelm-12b): causal, windowed, ragged S
+    (1, 128, 4, 2, 160, 0, True, 32),
+    (1, 128, 4, 2, 160, 48, True, 32),
+    (1, 100, 8, 2, 160, 0, True, 20),
 ]
 
 
@@ -129,6 +133,11 @@ DECODE_CASES = [
     (2, 8, 2, 256, 32, 0, "bfloat16", "bfloat16"),
     (4, 32, 4, 64, 128, 0, "bfloat16", np.float32),     # yi-9b heads
     (2, 8, 2, 256, 32, 100, "bfloat16", np.float32),
+    # hd 160: stablelm-12b's decode heads (bf16 q over an f32 cache), then
+    # f32 over f32 and a window
+    (4, 32, 8, 48, 160, 0, "bfloat16", np.float32),
+    (2, 8, 2, 256, 160, 0, np.float32, np.float32),
+    (2, 8, 2, 256, 160, 100, np.float32, np.float32),
 ]
 
 
@@ -202,6 +211,8 @@ SPLIT_CASES = [
     (2, 32, 2, 300, 64, 100, [300, 150]),     # G = 16, window inside a split
     (2, 16, 1, 64, 32, 0, [64, 5]),           # G = 16 (MQA), empty splits
     (1, 8, 8, 40, 128, 24, [33]),             # G = 1, window
+    (2, 32, 8, 300, 160, 100, [300, 151]),    # hd 160, G = 4, window
+    (3, 16, 1, 100, 160, 0, [5, 100, 33]),    # hd 160, G = 16, empty splits
 ]
 
 

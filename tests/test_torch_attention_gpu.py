@@ -89,6 +89,13 @@ def _smoke():
     (2, 384, 384, 32, 4, 128, 0, True),
     (1, 1000, 1000, 8, 2, 128, 200, True),
     (2, 64, 320, 4, 2, 128, 0, False),
+    # hd 160 (stablelm-12b): five 32-column boxes a tile under the 64 B
+    # swizzle, an n160 PV product; its heads, ragged S, a window edge
+    # inside a tile, non-causal T > S with a ragged T tile
+    (1, 512, 512, 32, 8, 160, 0, True),
+    (1, 1000, 1000, 8, 2, 160, 0, True),
+    (1, 1000, 1000, 8, 2, 160, 200, True),
+    (2, 64, 320, 4, 2, 160, 0, False),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain_version(cuda, b, s, t, h, kv, hd, window,
@@ -111,7 +118,7 @@ def test_flash_kernel_matches_plain_version(cuda, b, s, t, h, kv, hd, window,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("hd", [32, 64, 128, 160])
 def test_flash_kernel_keeps_probabilities_in_float32(cuda, hd):
     """ROADMAP C3: the bfloat16 kernel feeds P to the PV product as
     bfloat16 hi + lo, never rounded alone; on the probe, bfloat16 P would
@@ -125,7 +132,7 @@ def test_flash_kernel_keeps_probabilities_in_float32(cuda, hd):
     assert smoke.c3_err(out, exact) <= smoke.C3_TOL
 
 
-@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("hd", [32, 64, 128, 160])
 def test_c3_probe_tells_float32_p_from_bfloat16_p(hd):
     """On the CPU the wrapper runs the plain version, whose P is float32:
     it meets the probe's bound, and the output bfloat16 P gives does not."""
@@ -147,6 +154,10 @@ def test_c3_probe_tells_float32_p_from_bfloat16_p(hd):
     (3, 8, 1, 128, 128, 100),
     (4, 32, 4, 48, 128, 0),               # yi-9b serving default
     (2, 32, 2, 300, 128, 0),              # G = 16
+    (4, 32, 8, 48, 160, 0),               # stablelm-12b serving default
+    (3, 8, 1, 128, 160, 100),             # hd 160, MQA, window
+    (4, 32, 32, 48, 128, 0),              # deepseek-7b serving default (G = 1)
+    (4, 32, 8, 48, 128, 0),               # granite-8b serving default
 ])
 @pytest.mark.parametrize("qd,cd", DECODE_DTYPES)
 @pytest.mark.parametrize("edge", [None, "one", "full"])
@@ -187,6 +198,9 @@ def _decode_case(rng, b, h, kv, t, hd, qd, cd, lengths, device):
     # G = 16 over one kv head (MQA); short lengths leave splits empty
     (3, 16, 1, 100, 64, 0, [5, 100, 33]),
     (2, 16, 2, 64, 32, 24, [64, 2]),
+    # hd 160: five columns a lane, a one-group combine
+    (2, 32, 8, 300, 160, 100, [300, 151]),
+    (3, 16, 1, 100, 160, 0, [5, 100, 33]),
 ])
 @pytest.mark.parametrize("splits", [1, 2, 3, 7, 64])
 @pytest.mark.parametrize("qd,cd", DECODE_DTYPES)
@@ -250,9 +264,13 @@ def test_decode_wrapper_never_synchronises(cuda):
 
 @pytest.mark.gpu
 def test_cuda_tensors_never_fall_back_to_the_plain_version(cuda):
-    q = torch.zeros(1, 8, 4, 48, device=cuda)      # hd the kernel lacks
-    with pytest.raises(ValueError):
-        flash_attention(q, q[:, :, :2], q[:, :, :2])
+    for hd in (48, 96, 192):                        # hds the kernels lack
+        q = torch.zeros(1, 8, 4, hd, device=cuda)
+        with pytest.raises(ValueError):
+            flash_attention(q, q[:, :, :2], q[:, :, :2])
+        with pytest.raises(ValueError):
+            decode_attention(q[:, :1], q[:, :, :2], q[:, :, :2],
+                             torch.ones(1, dtype=torch.int32, device=cuda))
     with pytest.raises(ValueError):                 # mixed devices
         flash_attention(torch.zeros(1, 8, 4, 32, device=cuda),
                         torch.zeros(1, 8, 2, 32), torch.zeros(1, 8, 2, 32))

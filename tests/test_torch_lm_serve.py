@@ -155,8 +155,8 @@ def test_registry_and_yi_9b_configs_equal_the_reference():
     assert CONFIG.resolved_head_dim == 128
 
 
-@pytest.mark.parametrize("arch", ["stablelm-12b", "qwen3-moe-30b-a3b",
-                                  "jamba-v0.1-52b", "granite-8b"])
+@pytest.mark.parametrize("arch", ["llava-next-mistral-7b", "qwen3-moe-30b-a3b",
+                                  "jamba-v0.1-52b", "musicgen-large"])
 def test_unported_archs_raise_naming_their_roadmap_item(arch):
     from repro_torch.configs.registry import get_config, get_smoke_config
     for fn in (get_config, get_smoke_config):
