@@ -299,11 +299,26 @@ non-zero at the end, before any result line is printed):
    logged in bfloat16; a profiler pass over one prefill and one decode
    step. The bfloat16 path's shape must take the tensor-core route, and
    the scan's launches of phases 6-7 are logged by route.
+7b. LM fleet serving (ROADMAP A10.2): yi-9b at full width and 2 layers,
+   K = 8 client models (the base model plus 0.01 N(0, 1) each, drawn on
+   the card as one (8, P) arena, 27.85 GB) behind ``FleetParams.from_arena``
+   without a host copy; one batch of 8 requests over six clients (lanes
+   3, 0, 5, 3, 1, 7, 0, 2), 16 + 32 tokens: one dispatch for prefill and
+   one a decode step, 2 x 48 = 96 ``decode_attention`` launches (which the
+   result line adds), each against its plain version on its own inputs;
+   every fleet token a near-maximum of the per-model loop's logits, and in
+   float32 each request's teacher-forced logits within a bound of the
+   loop's, with client 3's wq x1.03 inside the fleet moving requests 0 and
+   3 (and no other) outside it; a seeded temperature run repeated; a
+   host-resident copy serving two batches bit-equal to the resident fleet,
+   the second prefetched; timed against the loop, with a profiled decode
+   step. Then mamba2-2.7b (K = 4, B = 4, 2 layers) against its loop, and
+   the reduced yi-9b fleet (K = 5, B = 6) GPU against CPU in both dtypes.
 8. Kernel times with the L2 cache flushed, against the bound, the plain
    version and one library call where PyTorch has one
    (``scaled_dot_product_attention``; none computes the SSD scan) at the
-   paths' shapes (yi-9b's, then stablelm-12b's at hd 160) and at one layer
-   of decode_32k, at its batch of 128 and at batch 1; flash attention's
+   paths' shapes (yi-9b's, then stablelm-12b's at hd 160, then the
+   fleet's batch of 8 at yi-9b's) and at one layer of decode_32k, at its batch of 128 and at batch 1; flash attention's
    rate in TFLOP/s of the causal products
    the function needs; decode attention's split count, its split and
    combine kernels each from a profiler run, and its time at split counts
@@ -3643,6 +3658,7 @@ DECODE_DTYPES = [(torch.float32, torch.float32),
                  (torch.bfloat16, torch.float32)]
 FLASH_PATH = (1, 4096, 32, 4, 128)          # yi-9b prefill_step, phase 5
 DECODE_PATH = (4, 32, 4, 48, 128)           # yi-9b CLI defaults, phase 5
+FLEET_DECODE = (8, 32, 4, 48, 128)          # yi-9b's fleet, phase 7b
 FLASH_PATH_160 = (1, 4096, 32, 8, 160)      # stablelm-12b, phase 5b
 DECODE_PATH_160 = (4, 32, 8, 48, 160)
 DECODE_32K = (128, 32, 4, 32768, 128)       # one layer of decode_32k
@@ -4288,6 +4304,25 @@ def teacher_forced_logits(cfg, params, toks, device):
 
 
 
+def greedy_near_max(want_tf, toks, other, s0, dtype, what, got_name,
+                    want_name) -> None:
+    """Every generated token of ``toks`` (B, S0 + N) must lie within
+    ``GREEDY_TOL`` of the logit scale of the largest of ``want_tf``, the
+    per-position logits (B, S, V) of another run fed the same tokens; the
+    share equal to ``other``'s tokens is logged."""
+    n = toks.shape[1] - s0
+    tol = GREEDY_TOL[dtype] * max(1.0, want_tf.abs().max().item())
+    prev = want_tf[:, s0 - 1:s0 + n - 1].float()            # (B, N, V)
+    chosen = prev.gather(-1, toks[:, s0:].long().unsqueeze(-1))[..., 0]
+    near = (chosen >= prev.max(-1).values - tol).float().mean().item()
+    same = (toks[:, s0:].cpu() == other[:, s0:].cpu()).float().mean().item()
+    log(f"[serve] {what}: {got_name} tokens equal to the {want_name}'s: "
+        f"{same:.4f}; {got_name} tokens within {tol:.3e} of the "
+        f"{want_name}'s max logit: {near:.4f}")
+    check(near == 1.0, f"{what}: a {got_name} token is not a near-max of "
+          f"the {want_name}'s logits")
+
+
 def serve_two_layers(path: ServePath) -> None:
     """Phases 4 and 6: ``path`` at full width and 2 layers on the GPU and
     on the CPU from the same CPU-drawn weights, in float32 and bfloat16;
@@ -4378,16 +4413,8 @@ def serve_two_layers(path: ServePath) -> None:
             prefill(gpu_params, tokens.cuda())
             teacher_forced_logits(cfg, gpu_params, gt, "cuda")
         check_launch_errs(errs, path.launch_tol[getattr(torch, dtype)], what)
-        tol = GREEDY_TOL[dtype] * max(1.0, c_tf.abs().max().item())
-        prev = c_tf[:, s0 - 1:s0 + n - 1]                  # (B, N, V)
-        chosen = prev.gather(-1, gt[:, s0:].long().unsqueeze(-1))[..., 0]
-        near = (chosen >= prev.max(-1).values - tol).float().mean().item()
-        same = (gt[:, s0:] == ct[:, s0:]).float().mean().item()
-        log(f"[serve] {what} greedy: GPU tokens equal to the CPU's: "
-            f"{same:.4f}; GPU tokens within {tol:.3e} of the CPU's max "
-            f"logit: {near:.4f}")
-        check(near == 1.0, f"{what} greedy: a GPU token is not a near-max "
-              "of the CPU's logits")
+        greedy_near_max(c_tf, gt.cpu(), ct, s0, dtype, f"{what} greedy",
+                        "GPU", "CPU")
     del gpu_params
     torch.cuda.empty_cache()
 
@@ -4510,6 +4537,365 @@ def serve_full_depth(path: ServePath) -> dict:
     del params, cache
     torch.cuda.empty_cache()
     return {k: n_prefill[k] + n_serve[k] for k in path.kernels}
+
+
+# ---------------------------------------------------------------------------
+# phase 7b: LM fleet serving (ROADMAP A10.2)
+
+# yi-9b at full width and 2 layers: K = 8 client models (the base model
+# plus 0.01 N(0, 1) each, the CLI's draw) in one (8, P) arena on the card,
+# and a batch of 8 requests over six distinct clients, two of them shared.
+FLEET_K = 8
+FLEET_LANES = (3, 0, 5, 3, 1, 7, 0, 2)
+FLEET_S0, FLEET_N = 16, 32
+FLEET_CONTROL = 3                   # the routing control's client
+# The host-resident fleet serves two batches of 4 over rows 0-3 (so a
+# fleet of the first 4 rows serves them too): 3 distinct clients each.
+FLEET_HOST_LANES = ((3, 0, 1, 3), (2, 1, 2, 0))
+FLEET_HOST_MEM = 64e9               # MemAvailable under which the host
+                                    # fleet holds 4 rows, not 8
+# FLEET_VS_LOOP: a request's teacher-forced float32 logits through the
+# fleet against the per-model loop's on the card (median, every position,
+# least top-1 agreement over its 48 positions, as compare_logits reads
+# them). Both run the same weights and the same kernels on the same card:
+# only the batched projections' summation order differs from the single
+# model's, so phase 4's float32 GPU-against-CPU bound holds with room, and
+# the top-1 bound leaves one near-tie flip in 48. The routing control
+# (client 3's wq x1.03, every score of its requests moved by 3%) reads
+# medians near 1e-3 at full width (phase 4b), outside it.
+FLEET_VS_LOOP = (1e-4, 1e-2, 0.95)
+# mamba2-2.7b at full width and 2 layers: K = 4, B = 4
+MAMBA_FLEET_LANES = (2, 0, 3, 2)
+# the reduced yi-9b config at the reference test's sizes (K = 5, B = 6,
+# prompts of 8, 6 new tokens), GPU against CPU
+SMOKE_FLEET = (5, 6, 8, 6)
+
+
+def mem_available() -> float:
+    """The host's MemAvailable in bytes (from /proc/meminfo)."""
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            return float(line.split()[1]) * 1024
+    return float("nan")
+
+
+def fleet_teacher_forced(cfg, fleet, lanes, toks):
+    """Per-position logits (B, S, V) of the fleet's decode step fed
+    ``toks``, on the host."""
+    from repro_torch.serve.fleet import FleetDecoder
+
+    dec = FleetDecoder(cfg)
+    stack, local = fleet.rows(lanes)
+    tree = fleet.tree(stack)
+    cache = dec.new_cache(len(lanes), toks.shape[1], device=fleet.device)
+    toks = toks.to(fleet.device)
+    out = []
+    for i in range(toks.shape[1]):
+        logits, cache = dec.decode_step(tree, local, toks[:, i], cache, i)
+        out.append(logits.float().cpu())
+    return torch.stack(out, 1)
+
+
+def loop_teacher_forced(cfg, fleet, lanes, toks):
+    """The same through each request's own model alone (``decode_step`` of
+    ``fleet.model(lane)``, one distinct client at a time)."""
+    lanes = np.asarray(lanes)
+    out = torch.empty(tuple(toks.shape) + (cfg.vocab_size,))
+    for lane in np.unique(lanes):
+        sel = torch.from_numpy(np.flatnonzero(lanes == lane))
+        out[sel] = teacher_forced_logits(cfg, fleet.model(int(lane)),
+                                         toks.cpu()[sel], fleet.device)
+    return out
+
+
+def fleet_vs_loop(fleet_tf, loop_tf, lanes, outside, what) -> None:
+    """Each request's fleet logits within ``FLEET_VS_LOOP`` of the loop's,
+    except the requests of the clients in ``outside``, which must land
+    outside it."""
+    for b, lane in enumerate(lanes):
+        tag = f"{what}, request {b} (client {lane})"
+        if lane in outside:
+            control_outside(fleet_tf[b], loop_tf[b], FLEET_VS_LOOP, tag)
+        else:
+            compare_logits(fleet_tf[b], loop_tf[b], FLEET_VS_LOOP, tag)
+
+
+def fleet_stats_line(stats, n: int) -> str:
+    return (f"prefill {stats['prefill_s'] * 1e3:.3f} ms, decode "
+            f"{stats['decode_s'] * 1e3:.3f} ms ({stats['decode_s'] * 1e3 / n:.3f}"
+            f" ms a step, {stats['decode_tok_s']:.2f} tokens/s), "
+            f"{stats['requests_s']:.3f} requests/s, dispatches "
+            f"{stats['prefill_dispatches']} + "
+            f"{stats['decode_dispatches_per_step']} a step over "
+            f"{stats['distinct_models']} models")
+
+
+def yi_fleet(path: ServePath) -> int:
+    """(a)-(d) of phase 7b: yi-9b's K = 8 fleet at full width and 2 layers.
+    Returns the timed run's decode_attention launches."""
+    from repro_torch.launch.serve import draw_fleet
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.serve.fleet import (
+        FleetDecoder, FleetParams, fleet_prefill_and_decode,
+        loop_prefill_and_decode,
+    )
+
+    cuda = torch.device("cuda")
+    cfg = dataclasses.replace(path.cfg, num_layers=2)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    s0, n, lanes = FLEET_S0, FLEET_N, np.array(FLEET_LANES)
+    what = f"yi-9b fleet K={FLEET_K} 2 layers"
+    # the CLI at full depth: K = 8 models of 35.3 GB cannot fit, and it
+    # must say so before drawing any
+    t0, held = time.perf_counter(), torch.cuda.memory_allocated()
+    try:
+        serve_main(["--fleet", str(FLEET_K)])
+        refused = None
+    except RuntimeError as err:
+        refused = str(err)
+    log(f"[7b] serve --fleet {FLEET_K} (yi-9b, 48 layers) in "
+        f"{time.perf_counter() - t0:.2f}s: {refused}")
+    check(refused is not None and "does not fit" in refused
+          and torch.cuda.memory_allocated() == held,
+          f"serve --fleet {FLEET_K} at full depth did not refuse before "
+          "drawing")
+    t0 = time.perf_counter()
+    arena, layout = draw_fleet(cfg, FLEET_K, cuda)
+    fleet = FleetParams.from_arena(arena, layout, device=cuda)
+    torch.cuda.synchronize()
+    log(f"[7b] {what}: {arena.shape[1]:,} parameters a model, the arena "
+        f"{tuple(arena.shape)} {arena.numel() * 4 / 1e9:.2f} GB float32 drawn "
+        f"on the card in {time.perf_counter() - t0:.2f}s; {cfg.dtype} "
+        "activations")
+    check(fleet.rows([0])[0].data_ptr() == arena.data_ptr(),
+          f"{what}: from_arena copied the card's arena")
+    rng = np.random.default_rng(0)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (8, s0))
+                               .astype(np.int32)).to(cuda)
+    decoder = FleetDecoder(cfg)
+    # warm-up (library handles, first launches): not timed or counted
+    fleet_prefill_and_decode(cfg, fleet, lanes, prompts[:, :2], max_len=4,
+                             new_tokens=2, decoder=decoder)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    d0 = decoder.dispatches
+    reset_launches(path)
+    toks, stats = fleet_prefill_and_decode(cfg, fleet, lanes, prompts,
+                                           max_len=s0 + n, new_tokens=n,
+                                           decoder=decoder)
+    launches = read_launches(path)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[7b] {what}, B=8 {s0}+{n}: {fleet_stats_line(stats, n)}; launches "
+        f"{launches}; peak device memory {peak:.2f} GB; gathered "
+        f"{decoder.gathered_bytes / 1e9:.3f} GB a decode step")
+    check(stats["prefill_dispatches"] == 1
+          and stats["decode_dispatches_per_step"] == 1.0
+          and decoder.dispatches - d0 == 1 + n
+          and stats["distinct_models"] == 6,
+          f"{what}: dispatches {stats}")
+    want = {"flash_attention": 0,
+            "decode_attention": cfg.num_layers * (s0 + n)}
+    check(launches == want, f"{what}: launches {launches}, expected {want}")
+    check(tuple(toks.shape) == (8, s0 + n) and torch.equal(toks[:, :s0],
+                                                           prompts)
+          and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size,
+          f"{what}: tokens out of shape or range, or the prompts not echoed")
+
+    # the per-model loop: its wall, and routing: every fleet token a
+    # near-maximum of its own model's logits along the fleet's tokens
+    loop_toks, loop_stats = loop_prefill_and_decode(
+        cfg, fleet, lanes, prompts, max_len=s0 + n, new_tokens=n)
+    log(f"[7b] {what}: the per-model loop over the same batch "
+        f"{loop_stats['total_s'] * 1e3:.3f} ms ({loop_stats['requests_s']:.3f}"
+        f" requests/s, {loop_stats['distinct_models']} models) against the "
+        f"fleet's {(stats['prefill_s'] + stats['decode_s']) * 1e3:.3f} ms")
+    loop_tf = loop_teacher_forced(cfg, fleet, lanes, toks)
+    greedy_near_max(loop_tf, toks.cpu(), loop_toks, s0, cfg.dtype,
+                    f"{what} {cfg.dtype} greedy", "fleet", "per-model loop")
+    del loop_tf
+    # every launch against its plain version on its own inputs; the rerun
+    # gives the same tokens
+    errs = {k: [] for k in path.kernels}
+    with checked_calls(path, errs):
+        again, _ = fleet_prefill_and_decode(cfg, fleet, lanes, prompts,
+                                            max_len=s0 + n, new_tokens=n)
+    check_launch_errs({"decode_attention": errs["decode_attention"]},
+                      path.launch_tol[torch.bfloat16], what)
+    check(len(errs["decode_attention"]) == want["decode_attention"]
+          and torch.equal(again, toks),
+          f"{what}: the checked rerun launched "
+          f"{len(errs['decode_attention'])} times or gave other tokens")
+
+    # float32: the fleet's teacher-forced logits against the loop's, each
+    # request within FLEET_VS_LOOP; then client 3's wq x1.03 inside the
+    # fleet must move requests 0 and 3 outside it and no other
+    loop32 = loop_teacher_forced(cfg32, fleet, lanes, toks)
+    fleet32 = fleet_teacher_forced(cfg32, fleet, lanes, toks)
+    fleet_vs_loop(fleet32, loop32, FLEET_LANES, (),
+                  f"{what} float32 teacher forced, fleet vs loop")
+    wq = fleet.tree(arena)["blocks"]["pos0"]["attn"]["wq"][FLEET_CONTROL]
+    saved = wq.clone()
+    wq.mul_(LR_CONTROL)
+    ctl32 = fleet_teacher_forced(cfg32, fleet, lanes, toks)
+    wq.copy_(saved)
+    del saved
+    fleet_vs_loop(ctl32, loop32, FLEET_LANES, (FLEET_CONTROL,),
+                  f"{what} float32, client {FLEET_CONTROL}'s wq x1.03 in the "
+                  "fleet (control) vs loop")
+    del loop32, fleet32, ctl32
+
+    # seeded temperature sampling repeats
+    hot = [fleet_prefill_and_decode(cfg, fleet, lanes, prompts,
+                                    max_len=s0 + n, new_tokens=n,
+                                    temperature=0.8, seed=3)[0]
+           for _ in range(2)]
+    log(f"[7b] {what}: temperature 0.8, seed 3, twice: equal "
+        f"{torch.equal(*hot)}; tokens equal to the greedy run's "
+        f"{(hot[0][:, s0:] == toks[:, s0:]).float().mean().item():.4f}")
+    check(torch.equal(*hot) and torch.equal(hot[0][:, :s0], prompts),
+          f"{what}: seeded temperature runs differ or lose the prompts")
+
+    # the host-resident fleet: two batches staged, the second prefetched
+    avail = mem_available()
+    rows = FLEET_K if avail >= FLEET_HOST_MEM else 4
+    t0 = time.perf_counter()
+    host = FleetParams.from_arena(arena[:rows], layout, resident=False,
+                                  device=cuda)
+    log(f"[7b] {what}: host MemAvailable {avail / 1e9:.1f} GB, so the "
+        f"host-resident fleet holds {rows} of the {FLEET_K} rows "
+        f"({rows * arena.shape[1] * 4 / 1e9:.2f} GB), copied in "
+        f"{time.perf_counter() - t0:.2f}s")
+    try:
+        for i, batch in enumerate(FLEET_HOST_LANES):
+            hl = np.array(batch)
+            hp = prompts[4 * i:4 * i + 4]
+            if i:
+                host.prefetch(hl)       # staged while the resident run goes
+            want_t, _ = fleet_prefill_and_decode(
+                cfg, fleet, hl, hp, max_len=s0 + n, new_tokens=n)
+            staged = host.stage_seconds
+            got_t, hstats = fleet_prefill_and_decode(
+                cfg, host, hl, hp, max_len=s0 + n, new_tokens=n)
+            log(f"[7b] {what}, host-resident batch {i} lanes {batch}"
+                f"{' (prefetched)' if i else ''}: "
+                f"{fleet_stats_line(hstats, n)}; staged "
+                f"{host.stage_seconds - staged:.3f}s "
+                f"({len(np.unique(hl))} x {arena.shape[1] * 4 / 1e9:.2f} GB),"
+                f" overlapped {host.overlapped_stage_seconds:.3f}s in all; "
+                f"bit-equal to the resident fleet {torch.equal(want_t, got_t)}")
+            check(torch.equal(want_t, got_t), f"{what}: host-resident batch "
+                  f"{i} differs from the resident fleet's tokens")
+        check(host.overlapped_stage_seconds > 0,
+              f"{what}: the prefetched cohort was not staged ahead")
+    finally:
+        host.close()
+        del host
+    torch.cuda.empty_cache()
+
+    stack, local = fleet.rows(lanes)
+    tree = fleet.tree(stack)
+    cache = decoder.new_cache(8, s0 + n, device=cuda)
+    profiled(lambda i: decoder.decode_step(tree, local, toks[:, s0 + i],
+                                           cache, s0 + i),
+             f"one {what} decode step, B=8", path.decode_kernels)
+    del arena, fleet, tree, stack, cache
+    torch.cuda.empty_cache()
+    return launches["decode_attention"]
+
+
+def mamba_fleet(path: ServePath) -> None:
+    """(e) of phase 7b: mamba2-2.7b's K = 4 fleet at full width and 2
+    layers, B = 4: tokens near-maxima of the per-model loop's logits, the
+    float32 logits against the loop's, no kernel launched."""
+    from repro_torch.launch.serve import draw_fleet
+    from repro_torch.serve.fleet import (
+        FleetParams, fleet_prefill_and_decode, loop_prefill_and_decode,
+    )
+
+    cuda = torch.device("cuda")
+    cfg = dataclasses.replace(path.cfg, num_layers=2)
+    s0, n, lanes = FLEET_S0, FLEET_N, np.array(MAMBA_FLEET_LANES)
+    what = "mamba2-2.7b fleet K=4 2 layers"
+    arena, layout = draw_fleet(cfg, 4, cuda)
+    fleet = FleetParams.from_arena(arena, layout, device=cuda)
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (4, s0)).astype(np.int32)).to(cuda)
+    fleet_prefill_and_decode(cfg, fleet, lanes, prompts[:, :2], max_len=4,
+                             new_tokens=2)
+    reset_launches(path)
+    toks, stats = fleet_prefill_and_decode(cfg, fleet, lanes, prompts,
+                                           max_len=s0 + n, new_tokens=n)
+    launches = read_launches(path)
+    log(f"[7b] {what}, B=4 {s0}+{n}: {fleet_stats_line(stats, n)}; launches "
+        f"{launches}")
+    check(stats["prefill_dispatches"] == 1
+          and stats["decode_dispatches_per_step"] == 1.0
+          and not any(launches.values()),
+          f"{what}: dispatches {stats}, launches {launches}")
+    loop_toks, loop_stats = loop_prefill_and_decode(
+        cfg, fleet, lanes, prompts, max_len=s0 + n, new_tokens=n)
+    log(f"[7b] {what}: the per-model loop {loop_stats['total_s'] * 1e3:.3f} "
+        f"ms")
+    greedy_near_max(loop_teacher_forced(cfg, fleet, lanes, toks), toks.cpu(),
+                    loop_toks, s0, cfg.dtype, f"{what} {cfg.dtype} greedy",
+                    "fleet", "per-model loop")
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    fleet_vs_loop(fleet_teacher_forced(cfg32, fleet, lanes, toks),
+                  loop_teacher_forced(cfg32, fleet, lanes, toks),
+                  MAMBA_FLEET_LANES, (),
+                  f"{what} float32 teacher forced, fleet vs loop")
+    del arena, fleet
+    torch.cuda.empty_cache()
+
+
+def smoke_fleet(path: ServePath, smoke_cfg) -> None:
+    """(e) of phase 7b: the reduced yi-9b config at the reference test's
+    sizes, GPU against CPU from one CPU-drawn arena, in both dtypes."""
+    from repro_torch.launch.serve import draw_fleet
+    from repro_torch.serve.fleet import FleetParams, fleet_prefill_and_decode
+
+    k, b, s0, n = SMOKE_FLEET
+    arena, layout = draw_fleet(smoke_cfg, k, torch.device("cpu"))
+    rng = np.random.default_rng(0)
+    lanes = rng.integers(0, k, size=b)
+    prompts = torch.from_numpy(rng.integers(0, smoke_cfg.vocab_size, (b, s0))
+                               .astype(np.int32))
+    fleets = {"cuda": FleetParams.from_arena(arena.cuda(), layout,
+                                             device="cuda"),
+              "cpu": FleetParams.from_arena(arena, layout, device="cpu")}
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(smoke_cfg, dtype=dtype)
+        what = f"yi-9b reduced fleet K={k} B={b} {dtype}"
+        toks = {}
+        for device, fleet in fleets.items():
+            reset_launches(path)
+            toks[device], _ = fleet_prefill_and_decode(
+                cfg, fleet, lanes, prompts, max_len=s0 + n, new_tokens=n)
+            got = read_launches(path)["decode_attention"]
+            want = cfg.num_layers * (s0 + n) if device == "cuda" else 0
+            check(got == want, f"{what} {device}: {got} decode_attention "
+                  f"launches, expected {want}")
+        g = toks["cuda"].cpu()
+        cpu_tf = fleet_teacher_forced(cfg, fleets["cpu"], lanes, g)
+        logit_gap(fleet_teacher_forced(cfg, fleets["cuda"], lanes, g), cpu_tf,
+                  f"{what}, teacher forced, GPU vs CPU (logged)")
+        greedy_near_max(cpu_tf, g, toks["cpu"], s0, dtype, f"{what} greedy",
+                        "GPU", "CPU")
+
+
+def fleet_path(yi: ServePath, mamba: ServePath, smoke_cfg) -> int:
+    """Phase 7b. Returns the decode_attention launches of yi-9b's timed
+    fleet run, which the kernels line adds."""
+    t0 = time.perf_counter()
+    launches = yi_fleet(yi)
+    t1 = time.perf_counter()
+    mamba_fleet(mamba)
+    t2 = time.perf_counter()
+    smoke_fleet(yi, smoke_cfg)
+    log(f"[7b] phase 7b in {time.perf_counter() - t0:.1f}s (yi-9b "
+        f"{t1 - t0:.1f}s, mamba2-2.7b {t2 - t1:.1f}s, reduced "
+        f"{time.perf_counter() - t2:.1f}s)")
+    return launches
 
 
 def _bound(nbytes: float, flops: float, peak: float):
@@ -4694,6 +5080,7 @@ def main() -> int:
     from repro_torch.configs.mamba2_2_7b import CONFIG as MAMBA
     from repro_torch.configs.stablelm_12b import CONFIG as STABLELM
     from repro_torch.configs.yi_9b import CONFIG as YI
+    from repro_torch.configs.yi_9b import SMOKE as YI_SMOKE
     from repro_torch.core.executor import run_experiment
     from repro_torch.kernels import build
     from repro_torch.kernels.decode_attention.ops import (
@@ -4990,6 +5377,8 @@ def main() -> int:
     check(path_route == "tensor_cores" and ssd_scan.routes["tensor_cores"] > 0,
           f"the mamba2 path's bfloat16 scan does not run on the tensor "
           f"cores: {path_route}, {dict(ssd_scan.routes)}")
+    # phase 7b: LM fleet serving, yi-9b's K = 8 fleet at full width
+    launches["decode_attention"] += fleet_path(yi, mamba, YI_SMOKE)
 
     # phase 8: kernel times
     time_flash(flash_attention, flash_attention_plain, (1, 256, 32, 4, 128),
@@ -5004,6 +5393,8 @@ def main() -> int:
     time_flash(flash_attention, flash_attention_plain, FLASH_PATH_160,
                torch.bfloat16, 20)
     time_decode(decode_attention, decode_attention_plain, DECODE_PATH_160, 50,
+                (3,))
+    time_decode(decode_attention, decode_attention_plain, FLEET_DECODE, 50,
                 (3,))
     times["ssd_scan"] = time_ssd(ssd_scan, ssd_scan_plain, SSD_PATH,
                                  torch.bfloat16, 20)

@@ -12,13 +12,21 @@ one 80 GB card in float32 (stablelm-12b's 48.6 GB the largest).
 ``--device cpu`` runs on the CPU. As in the reference, the
 prompt is fed through ``decode_step`` one position at a time, so a Mamba2
 model serves through its O(1) recurrence and never runs the chunked SSD
-scan; that scan is ``launch/steps.py::make_prefill_step``'s. The reference's
-``--fleet`` mode (``FleetDecoder``) is not ported yet (ROADMAP A10.2);
-classifier fleets serve through ``serve.fleet.FleetClassifier``.
+scan; that scan is ``launch/steps.py::make_prefill_step``'s.
+
+``--fleet K`` serves a personalized fleet instead of one model: client
+k's model is the base model plus ``0.01 * N(0, 1)`` drawn from a
+generator seeded k + 1 on the device, the K models are one ``(K, P)``
+arena, and each request routes to its client's row, so prefill and every
+decoded token are one call whatever the batch spans
+(``serve.fleet.fleet_prefill_and_decode``). ``--fleet-host`` keeps the
+arena in host memory and stages each batch's distinct clients. A fleet
+that cannot fit the card raises before drawing, naming the bytes.
 """
 from __future__ import annotations
 
 import argparse
+import math
 import time
 from typing import List, Optional, Tuple
 
@@ -27,13 +35,30 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.registry import get_config, get_smoke_config
-from repro_torch.models.transformer import decode_step, init_cache, init_model
+from repro_torch.models.transformer import (
+    decode_step, init_cache, init_model, model_specs, num_repeats,
+)
 from repro_torch.utils.device import resolve_device
+from repro_torch.utils.tree import Layout, flatten_tree, unravel
 
 
-def _fence(device: torch.device) -> None:
+def fence(device: torch.device) -> float:
+    """Wait for the device's queued work, then read the clock."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+    return time.perf_counter()
+
+
+def next_tokens(logits: torch.Tensor, temperature: float,
+                gen: Optional[torch.Generator]) -> torch.Tensor:
+    """The next tokens (B,) int32 of last logits (B, V): the argmax, or a
+    draw from ``gen`` at ``temperature`` > 0."""
+    if temperature > 0:
+        probs = torch.softmax(logits.float() / temperature, dim=-1)
+        nxt = torch.multinomial(probs, 1, generator=gen)[:, 0]
+    else:
+        nxt = torch.argmax(logits, dim=-1)
+    return nxt.to(torch.int32)
 
 
 def _prefill(params, prompts: torch.Tensor, cache, cfg: ModelConfig):
@@ -67,32 +92,115 @@ def prefill_and_decode(
     gen = (torch.Generator(device=device).manual_seed(seed)
            if temperature > 0 else None)
 
-    _fence(device)
-    t0 = time.perf_counter()
+    t0 = fence(device)
     last_logits, cache = _prefill(params, prompts, cache, cfg)
-    _fence(device)
-    t1 = time.perf_counter()
+    t1 = fence(device)
 
     new: List[torch.Tensor] = []
     for i in range(new_tokens):
-        if temperature > 0:
-            probs = torch.softmax(last_logits.float() / temperature, dim=-1)
-            nxt = torch.multinomial(probs, 1, generator=gen)[:, 0]
-        else:
-            nxt = torch.argmax(last_logits, dim=-1)
-        nxt = nxt.to(torch.int32)
+        nxt = next_tokens(last_logits, temperature, gen)
         new.append(nxt)
         logits, cache = decode_step(params, nxt[:, None], cache, s0 + i, cfg)
         last_logits = logits[:, -1]
     toks = torch.cat([prompts] + [n[:, None] for n in new], dim=1)
-    _fence(device)
-    t2 = time.perf_counter()
+    t2 = fence(device)
     decode_s = t2 - t1
     return toks, {
         "prefill_s": t1 - t0,
         "decode_s": decode_s,
         "decode_tok_s": b * new_tokens / max(decode_s, 1e-9),
     }
+
+
+def fleet_layout(cfg: ModelConfig) -> Layout:
+    """One model of ``cfg`` as a fleet row: its leaves under ``/``-joined
+    names, sorted (``FleetParams``' layout of a nested tree)."""
+    flat = flatten_tree(model_specs(cfg))
+    return tuple((k, tuple(flat[k].shape)) for k in sorted(flat))
+
+
+def check_fleet_fits(cfg: ModelConfig, rows: int, batch: int,
+                     free_bytes: int) -> None:
+    """Raise, naming the bytes, unless ``rows`` float32 models of ``cfg``,
+    the base model they are drawn from and the largest leaf's rows for
+    ``batch`` requests (what a fleet decode step gathers at once) fit in
+    ``free_bytes``."""
+    layout, reps = fleet_layout(cfg), num_repeats(cfg)
+    model = 4 * sum(math.prod(shape) for _, shape in layout)
+    gathered = 4 * batch * max(
+        math.prod(shape) // (reps if name.startswith("blocks/") else 1)
+        for name, shape in layout)
+    need = (rows + 1) * model + gathered
+    if need > free_bytes:
+        raise RuntimeError(
+            f"a fleet of {rows} resident {cfg.name} models does not fit: it "
+            f"needs {need / 1e9:.2f} GB ({rows} + 1 models of "
+            f"{model / 1e9:.2f} GB float32 and {gathered / 1e9:.2f} GB of "
+            f"rows gathered for {batch} requests), {free_bytes / 1e9:.2f} GB "
+            "are free; serve fewer clients, --fleet-host or --smoke")
+
+
+# each client's model: the base model plus FLEET_NOISE * N(0, 1), a
+# stand-in for a personalized fine-tune, as the reference's CLI draws it
+FLEET_NOISE = 0.01
+
+
+def draw_fleet(cfg: ModelConfig, clients: int, device: torch.device,
+               host: bool = False):
+    """The CLI's fleet as one ``(K, P)`` float32 arena in
+    ``fleet_layout(cfg)``: client k is the base model (``init_model`` from a
+    generator seeded 0 on ``device``) plus ``FLEET_NOISE * N(0, 1)`` from a
+    generator seeded k + 1 on ``device``, each row drawn on the device.
+    The arena stays there, or with ``host`` is a host numpy array. Returns
+    (arena, layout)."""
+    layout = fleet_layout(cfg)
+    width = sum(math.prod(shape) for _, shape in layout)
+    base = flatten_tree(init_model(
+        torch.Generator(device=device).manual_seed(0), cfg, device))
+    arena = (np.empty((clients, width), np.float32) if host else
+             torch.empty((clients, width), dtype=torch.float32,
+                         device=device))
+    row = (torch.empty(width, dtype=torch.float32, device=device) if host
+           else None)
+    for k in range(clients):
+        r = row if host else arena[k]
+        for name, view in unravel(r, layout).items():
+            view.copy_(base[name])
+        gen = torch.Generator(device=device).manual_seed(k + 1)
+        r.add_(torch.randn(width, generator=gen, device=device),
+               alpha=FLEET_NOISE)
+        if host:
+            arena[k] = r.cpu().numpy()
+    return arena, layout
+
+
+def _serve_fleet(args, cfg: ModelConfig, device: torch.device) -> None:
+    """``--fleet``: K client variants in one arena, the batch's requests
+    routed by lane, one call a step across all of them."""
+    from repro_torch.serve.fleet import FleetParams, fleet_prefill_and_decode
+
+    rng = np.random.default_rng(0)
+    lanes = rng.integers(0, args.fleet, size=args.batch)
+    prompts = rng.integers(0, cfg.vocab_size,
+                           size=(args.batch, args.prompt_len)).astype(np.int32)
+    if device.type == "cuda":
+        rows = len(np.unique(lanes)) if args.fleet_host else args.fleet
+        check_fleet_fits(cfg, rows, args.batch,
+                         torch.cuda.mem_get_info(device)[0])
+    arena, layout = draw_fleet(cfg, args.fleet, device, host=args.fleet_host)
+    fleet = FleetParams.from_arena(arena, layout, resident=not args.fleet_host,
+                                   device=device)
+    try:
+        toks, stats = fleet_prefill_and_decode(
+            cfg, fleet, lanes, prompts,
+            max_len=args.prompt_len + args.new_tokens,
+            new_tokens=args.new_tokens)
+    finally:
+        fleet.close()
+    print(f"fleet={args.fleet} generated shape: {tuple(toks.shape)} on "
+          f"{device}")
+    print({k: round(v, 3) if isinstance(v, float) else v
+           for k, v in stats.items()})
 
 
 def main(argv: Optional[List[str]] = None) -> None:
@@ -106,10 +214,19 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--smoke", action="store_true",
                     help="serve the reduced config (get_smoke_config)")
+    ap.add_argument("--fleet", type=int, default=0,
+                    help=">0: serve a K-model personalized fleet, requests "
+                         "routed by lane id (serve.fleet)")
+    ap.add_argument("--fleet-host", action="store_true",
+                    help="keep the fleet arena in host memory and stage "
+                         "only each batch's clients")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
+    if args.fleet > 0:
+        _serve_fleet(args, cfg, device)
+        return
     params = init_model(torch.Generator(device=device).manual_seed(0), cfg,
                         device)
     rng = np.random.default_rng(0)

@@ -14,6 +14,11 @@ cache and ``decode_attention`` with one. The reference's jnp attention
 rounds the softmax probabilities to the activation dtype before the PV
 product; the kernels' contract keeps them in float32, so in bfloat16 the
 two differ by that rounding (ROADMAP C3).
+
+The ``*_lanes`` functions are the decode path of a model fleet
+(``serve/fleet.py``): every parameter leaf carries a leading request axis
+B, request b's own model in row b, so the projections are batched matrix
+products.
 """
 from __future__ import annotations
 
@@ -96,6 +101,35 @@ def _project(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out.view(*h.shape[:-1], *w.shape[1:])
 
 
+def _attend_cached(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   cache: dict, cfg: ModelConfig,
+                   decode_pos: Optional[int]) -> torch.Tensor:
+    """Write the new token's k and v into the cache in place and attend q
+    over it with ``decode_attention`` (looked up in this module when
+    called, so a comparison harness can swap it)."""
+    if decode_pos is None:
+        raise ValueError("decoding with a cache needs decode_pos")
+    width = cache["k"].shape[1]
+    if cfg.rolling_cache and cfg.sliding_window > 0:
+        # ring buffer of window size: softmax is permutation-invariant
+        # and keys carry absolute RoPE phases, so slot order is irrelevant
+        insert_at = decode_pos % width
+        attend_pos = min(decode_pos, width - 1)
+        window = 0                     # the whole buffer is the window
+    else:
+        if not 0 <= decode_pos < width:
+            raise ValueError(f"decode_pos {decode_pos} is outside the "
+                             f"cache of {width} positions")
+        insert_at = attend_pos = decode_pos
+        window = cfg.sliding_window
+    s = k.shape[1]
+    cache["k"][:, insert_at:insert_at + s] = k.to(cache["k"].dtype)
+    cache["v"][:, insert_at:insert_at + s] = v.to(cache["v"].dtype)
+    lengths = torch.full((q.shape[0],), attend_pos + 1, dtype=torch.int32,
+                         device=q.device)
+    return decode_attention(q, cache["k"], cache["v"], lengths, window=window)
+
+
 def attention_block(
     params: dict,
     x: torch.Tensor,
@@ -119,31 +153,36 @@ def attention_block(
         attn = flash_attention(q, k, v, causal=True,
                                window=cfg.sliding_window)
     else:
-        if decode_pos is None:
-            raise ValueError("decoding with a cache needs decode_pos")
-        width = cache["k"].shape[1]
-        if cfg.rolling_cache and cfg.sliding_window > 0:
-            # ring buffer of window size: softmax is permutation-invariant
-            # and keys carry absolute RoPE phases, so slot order is irrelevant
-            insert_at = decode_pos % width
-            attend_pos = min(decode_pos, width - 1)
-            window = 0                     # the whole buffer is the window
-        else:
-            if not 0 <= decode_pos < width:
-                raise ValueError(f"decode_pos {decode_pos} is outside the "
-                                 f"cache of {width} positions")
-            insert_at = attend_pos = decode_pos
-            window = cfg.sliding_window
-        s = k.shape[1]
-        cache["k"][:, insert_at:insert_at + s] = k.to(cache["k"].dtype)
-        cache["v"][:, insert_at:insert_at + s] = v.to(cache["v"].dtype)
-        lengths = torch.full((x.shape[0],), attend_pos + 1, dtype=torch.int32,
-                             device=x.device)
-        attn = decode_attention(q, cache["k"], cache["v"], lengths,
-                                window=window)
+        attn = _attend_cached(q, k, v, cache, cfg, decode_pos)
     b, s = attn.shape[:2]
     out = attn.reshape(b, s, -1) @ params["wo"].to(attn.dtype).reshape(
         -1, params["wo"].shape[-1])
+    return x + out, cache
+
+
+def _project_lanes(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``_project`` with a request axis: h (B, S, d), w (B, d, ...), one
+    batched matrix product."""
+    out = h @ w.to(h.dtype).reshape(w.shape[0], w.shape[1], -1)
+    return out.view(*h.shape[:-1], *w.shape[2:])
+
+
+def attention_block_lanes(params, x: torch.Tensor, cfg: ModelConfig, *,
+                          positions: torch.Tensor, cache: dict,
+                          decode_pos: int) -> Tuple[torch.Tensor, dict]:
+    """``attention_block``'s decode with every leaf carrying a leading
+    request axis B (request b's own model in row b): the projections are
+    batched matrix products, and each request's cache row is its own, so
+    ``decode_attention`` runs at batch B as for one model."""
+    h = rmsnorm(x, params["norm"][:, None], cfg.norm_eps)
+    q = apply_rope(_project_lanes(h, params["wq"]), positions, cfg.rope_theta)
+    k = apply_rope(_project_lanes(h, params["wk"]), positions, cfg.rope_theta)
+    v = _project_lanes(h, params["wv"])
+    attn = _attend_cached(q, k, v, cache, cfg, decode_pos)
+    b, s = attn.shape[:2]
+    wo = params["wo"]
+    out = attn.reshape(b, s, -1) @ wo.to(attn.dtype).reshape(
+        b, -1, wo.shape[-1])
     return x + out, cache
 
 
@@ -163,6 +202,16 @@ def ffn_specs(cfg: ModelConfig, stack: Tuple[int, ...] = ()) -> dict:
 
 def ffn_block(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     h = rmsnorm(x, params["norm"], cfg.norm_eps)
+    gate = h @ params["w_gate"].to(h.dtype)
+    up = h @ params["w_up"].to(h.dtype)
+    return x + (F.silu(gate) * up) @ params["w_down"].to(h.dtype)
+
+
+def ffn_block_lanes(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """``ffn_block`` with a leading request axis on every leaf: the (B, d, f)
+    weights are batched matrix products as written; the norm broadcasts
+    over (B, 1, d)."""
+    h = rmsnorm(x, params["norm"][:, None], cfg.norm_eps)
     gate = h @ params["w_gate"].to(h.dtype)
     up = h @ params["w_up"].to(h.dtype)
     return x + (F.silu(gate) * up) @ params["w_down"].to(h.dtype)
@@ -191,4 +240,20 @@ def embed_tokens(params: dict, tokens: torch.Tensor,
 def unembed(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    return x @ w.to(x.dtype)
+
+
+def embed_tokens_lanes(embed: torch.Tensor, lanes: torch.Tensor,
+                       tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Request b's tokens (B, S) looked up in its own model's table: the
+    ``(K, V, d)`` fleet tables are indexed at ``[lanes[b], token]``, never
+    gathered whole."""
+    return embed[lanes[:, None], tokens.long()].to(activation_dtype(cfg))
+
+
+def unembed_lanes(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """``unembed`` with a leading request axis on every leaf."""
+    x = rmsnorm(x, params["final_norm"][:, None], cfg.norm_eps)
+    w = (params["embed"].transpose(-1, -2) if cfg.tie_embeddings
+         else params["unembed"])
     return x @ w.to(x.dtype)

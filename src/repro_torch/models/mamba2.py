@@ -79,6 +79,30 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor,
     return F.silu(out + b.float()).to(xbc.dtype)
 
 
+def _decode_recurrence(xbc, dt, a, d_skip, conv_w, conv_b, cache, cfg,
+                       dtype) -> torch.Tensor:
+    """One decode token's conv and SSM recurrence: rolls the conv window and
+    writes the new state into ``cache`` in place; returns y (B, 1, H, P)
+    in float32. ``conv_w`` (W, C) or (B, W, C), ``conv_b``, ``a`` and
+    ``d_skip`` of one model or with a leading request axis: both
+    broadcast."""
+    dims = mamba_dims(cfg)
+    bsz, gn = xbc.shape[0], NGROUPS * cfg.ssm_state
+    conv_state = cache["conv"]                           # (B, W-1, C)
+    window = torch.cat([conv_state, xbc.to(conv_state.dtype)], dim=1)
+    conv_out = (window.float() * conv_w.float()).sum(dim=1)
+    xbc_t = F.silu(conv_out + conv_b.float()).to(dtype)
+    conv_state.copy_(window[:, 1:, :])                   # drop the oldest column
+    x_t = xbc_t[..., :dims["d_inner"]].reshape(
+        bsz, dims["nheads"], cfg.ssm_headdim)
+    bc = xbc_t[..., dims["d_inner"]:]
+    b_t = bc[..., :gn].reshape(bsz, NGROUPS, cfg.ssm_state)
+    c_t = bc[..., gn:].reshape(bsz, NGROUPS, cfg.ssm_state)
+    y_t, new_ssm = ssd_decode_step(cache["ssm"], x_t, dt[:, 0, :], a, b_t, c_t)
+    cache["ssm"].copy_(new_ssm)
+    return y_t[:, None] + d_skip * x_t[:, None].float()
+
+
 def mamba_block(
     params: dict,
     x: torch.Tensor,
@@ -111,25 +135,36 @@ def mamba_block(
         y = ssd_scan(x_heads, dt, a, b_mat, c_mat, chunk=cfg.ssm_chunk)
         y = y + d_skip * x_heads.float()
     else:
-        # decode: rolling conv state + O(1) SSM recurrence
-        conv_state = cache["conv"]                       # (B, W-1, C)
-        window = torch.cat([conv_state, xbc.to(conv_state.dtype)], dim=1)
-        conv_out = (window.float() * params["conv_w"].float()).sum(dim=1)
-        xbc_t = F.silu(conv_out + params["conv_b"].float()).to(x.dtype)
-        conv_state.copy_(window[:, 1:, :])               # drop the oldest column
-        x_t = xbc_t[..., :dims["d_inner"]].reshape(
-            bsz, dims["nheads"], cfg.ssm_headdim)
-        bc = xbc_t[..., dims["d_inner"]:]
-        b_t = bc[..., :gn].reshape(bsz, NGROUPS, cfg.ssm_state)
-        c_t = bc[..., gn:].reshape(bsz, NGROUPS, cfg.ssm_state)
-        y_t, new_ssm = ssd_decode_step(cache["ssm"], x_t, dt[:, 0, :], a,
-                                       b_t, c_t)
-        cache["ssm"].copy_(new_ssm)
-        y = y_t[:, None] + d_skip * x_t[:, None].float()
-
+        y = _decode_recurrence(xbc, dt, a, d_skip, params["conv_w"],
+                               params["conv_b"], cache, cfg, x.dtype)
     y = y.reshape(bsz, l, dims["d_inner"]).to(x.dtype)
     gated = y * F.silu(z.float()).to(x.dtype)
     gated = rmsnorm(gated, params["gate_norm"], cfg.norm_eps)
+    out = gated @ params["out_proj"].to(x.dtype)
+    return x + out, cache
+
+
+def mamba_block_lanes(params, x: torch.Tensor, cfg: ModelConfig, *,
+                      cache: Dict[str, torch.Tensor]
+                      ) -> Tuple[torch.Tensor, dict]:
+    """``mamba_block``'s one-token decode with every leaf carrying a leading
+    request axis B (request b's own model in row b): ``in_proj`` and
+    ``out_proj`` are batched matrix products, ``conv_w`` (B, W, C),
+    ``conv_b`` (B, C), ``a_log``, ``dt_bias`` and ``d_skip`` (B, H). Each
+    request's cache row is its own."""
+    dims = mamba_dims(cfg)
+    bsz, l, _ = x.shape
+    h = rmsnorm(x, params["norm"][:, None], cfg.norm_eps)
+    zxbcdt = h @ params["in_proj"].to(h.dtype)
+    z, xbc, dt = _split_proj(zxbcdt, cfg)
+    a = -torch.exp(params["a_log"].float())
+    dt = F.softplus(dt.float() + params["dt_bias"].float()[:, None])
+    d_skip = params["d_skip"].float()[:, None, :, None]
+    y = _decode_recurrence(xbc, dt, a, d_skip, params["conv_w"],
+                           params["conv_b"], cache, cfg, x.dtype)
+    y = y.reshape(bsz, l, dims["d_inner"]).to(x.dtype)
+    gated = y * F.silu(z.float()).to(x.dtype)
+    gated = rmsnorm(gated, params["gate_norm"][:, None], cfg.norm_eps)
     out = gated @ params["out_proj"].to(x.dtype)
     return x + out, cache
 

@@ -12,12 +12,14 @@ Parameters for each pattern position are stacked over a leading
 weights loads one-to-one (``lm_params_from_numpy``). The reference applies
 the stack with ``lax.scan``; here a Python loop walks it, one layer's
 slice at a time. The decode cache (KV for attention, conv window and SSM
-state for Mamba2) is updated in place. The other families (moe, hybrid,
-vlm, audio) raise ``NotImplementedError`` naming their ROADMAP item.
+state for Mamba2) is updated in place. ``decode_step_lanes`` decodes a
+batch whose every request runs under its own model of a fleet. The other
+families (moe, hybrid, vlm, audio) raise ``NotImplementedError`` naming
+their ROADMAP item.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Mapping, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,7 +27,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.mamba2 import (
-    mamba_block, mamba_cache_shape, mamba_specs,
+    mamba_block, mamba_block_lanes, mamba_cache_shape, mamba_specs,
 )
 from repro_torch.nn.module import init_params
 
@@ -204,4 +206,90 @@ def decode_step(params: Params, tokens: torch.Tensor, cache: Params,
             centry = _layer(cache[f"pos{p}"], i)
             x = _apply_block_position(entry, x, cfg, positions, centry, pos)
     logits = L.unembed(params["embed"], x, cfg)
+    return logits, cache
+
+
+# ---------------------------------------------------------------------------
+# fleet decode: every request under its own model
+
+
+class LaneRows(Mapping):
+    """Request rows of a fleet's stacked tree, gathered when read.
+
+    ``tree`` holds ``(K, ...)`` leaves (one model a row: views of a fleet's
+    ``(K, P)`` stack) and ``lanes`` (B,) picks request b's row. Reading a
+    leaf gathers its B rows with one ``index_select`` (of layer ``layer``
+    when the leaf is stacked over layers, at dim 1), so a step holds at
+    most the leaf being used; ``meter[0]`` adds up the bytes gathered."""
+
+    def __init__(self, tree: Mapping[str, Any], lanes: torch.Tensor,
+                 layer: Optional[int] = None, meter: Optional[list] = None):
+        self._tree, self._lanes, self._layer = tree, lanes, layer
+        self._meter = [0] if meter is None else meter
+
+    def __getitem__(self, key: str):
+        v = self._tree[key]
+        if isinstance(v, Mapping):
+            return LaneRows(v, self._lanes, self._layer, self._meter)
+        if self._layer is not None:
+            v = v[:, self._layer]
+        out = torch.index_select(v, 0, self._lanes)
+        self._meter[0] += out.numel() * out.element_size()
+        return out
+
+    def __contains__(self, key) -> bool:     # no gather to test a key
+        return key in self._tree
+
+    def __iter__(self) -> Iterator[str]:
+        return iter(self._tree)
+
+    def __len__(self) -> int:
+        return len(self._tree)
+
+
+def _apply_block_position_lanes(entry, x, cfg, positions, cache_entry,
+                                decode_pos) -> torch.Tensor:
+    """``_apply_block_position``'s decode with a request axis on every
+    leaf."""
+    if "attn" in entry:
+        x, _ = L.attention_block_lanes(entry["attn"], x, cfg,
+                                       positions=positions,
+                                       cache=cache_entry["attn"],
+                                       decode_pos=decode_pos)
+    if "ssm" in entry:
+        x, _ = mamba_block_lanes(entry["ssm"], x, cfg,
+                                 cache=cache_entry["ssm"])
+    if "ffn" in entry:
+        x = L.ffn_block_lanes(entry["ffn"], x, cfg)
+    return x
+
+
+def decode_step_lanes(stack: Params, lanes: torch.Tensor,
+                      tokens: torch.Tensor, cache: Params, pos: int,
+                      cfg: ModelConfig, meter: Optional[list] = None
+                      ) -> Tuple[torch.Tensor, Params]:
+    """``decode_step`` for a batch whose request b runs under model
+    ``lanes[b]`` of a fleet: ``stack`` is the fleet's tree of ``(K, ...)``
+    leaves. Each layer's B rows are gathered just before the layer runs
+    (``LaneRows``) and each embedding row is indexed in the fleet's
+    tables, so the step never holds the B models whole (the reference
+    gathers them once a call and ``vmap``s ``decode_step``). The cache is
+    ``init_cache(cfg, B, ...)``'s, (reps, B, T, ...), one row a request;
+    the reference's fleet cache is (B, reps, 1, T, ...), and no checkpoint
+    or test reads a cache across the packages. Returns (logits (B, 1, V),
+    cache); ``meter[0]`` adds up the bytes gathered."""
+    meter = [0] if meter is None else meter
+    pattern = block_pattern(cfg)
+    embed = stack["embed"]["embed"]
+    x = L.embed_tokens_lanes(embed, lanes, tokens, cfg)
+    meter[0] += x.numel() * embed.element_size()
+    positions = torch.full((x.shape[0], 1), pos, device=x.device)
+    for i in range(num_repeats(cfg)):
+        for p in range(len(pattern)):
+            entry = LaneRows(stack["blocks"][f"pos{p}"], lanes, i, meter)
+            centry = _layer(cache[f"pos{p}"], i)
+            x = _apply_block_position_lanes(entry, x, cfg, positions, centry,
+                                            pos)
+    logits = L.unembed_lanes(LaneRows(stack["embed"], lanes, None, meter), x,
+                             cfg)
     return logits, cache

@@ -1,5 +1,10 @@
-"""Fleet serving: many clients' personalized classifiers behind one
-forward per request batch (see ``repro_torch.serve.fleet``)."""
-from repro_torch.serve.fleet import FleetClassifier, FleetParams, loop_classify
+"""Fleet serving: many clients' personalized models behind one call a
+step, LMs and classifiers (see ``repro_torch.serve.fleet``)."""
+from repro_torch.serve.fleet import (
+    FleetClassifier, FleetDecoder, FleetParams, fleet_prefill_and_decode,
+    loop_classify, loop_prefill_and_decode,
+)
 
-__all__ = ["FleetClassifier", "FleetParams", "loop_classify"]
+__all__ = ["FleetClassifier", "FleetDecoder", "FleetParams",
+           "fleet_prefill_and_decode", "loop_classify",
+           "loop_prefill_and_decode"]

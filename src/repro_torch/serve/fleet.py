@@ -1,15 +1,17 @@
-"""Classifier fleet serving: many clients' models, one forward a request
-batch (the port's twin of the JAX package's ``serve/fleet.py``, its
-``FleetParams``, ``FleetClassifier`` and ``loop_classify``).
+"""Fleet serving: many clients' models behind one call a step (the port's
+twin of the JAX package's ``serve/fleet.py``).
 
 The personalization stage (``core.personalize``) ends with a ``(K, P)``
 arena of flat models, one row a client. Serving it with a Python loop
-over models costs one forward per distinct client in a batch; here a
-batch is one forward whatever it spans:
+over models costs one call per distinct client in a batch; here a batch
+is one call a step whatever it spans:
 
-* **routing** — each request carries a lane (its client id); the batch's
-  rows are gathered from the fleet stack with one ``index_select`` and run
-  as a lane-stacked forward with one image a lane;
+* **routing** — each request carries a lane (its client id). A classifier
+  batch's rows are gathered from the fleet stack with one
+  ``index_select`` and run as a lane-stacked forward with one image a
+  lane. An LM batch runs ``models.transformer.decode_step_lanes``, which
+  gathers each layer's rows just before the layer runs, so prefill is one
+  call and each decoded token one call for the whole batch;
 * **residency** — ``FleetParams`` keeps the stack on the device, or in a
   host numpy arena for fleets larger than device memory. A host-resident
   batch uploads only its distinct clients' rows as a ``(V, P)`` cohort
@@ -23,9 +25,10 @@ batch is one forward whatever it spans:
   the batch's kernels still read it. The cohort has no dump row. A
   failure of the staging thread is raised by ``rows``.
 
-The reference's ``FleetDecoder``, ``fleet_prefill_and_decode``,
-``loop_prefill_and_decode`` and ``launch/serve.py --fleet`` serve LM
-fleets; they are not ported yet (ROADMAP A10.2).
+Two consumers: ``FleetDecoder``/``fleet_prefill_and_decode`` serve LM
+fleets, ``FleetClassifier`` the paper's personalized MLP/CNN fleets. The
+per-model loops (``loop_prefill_and_decode``, ``loop_classify``) are the
+parity and timing baselines.
 """
 from __future__ import annotations
 
@@ -36,9 +39,13 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.store import Stager
+from repro_torch.launch.serve import fence, next_tokens, prefill_and_decode
 from repro_torch.models.small import small_model_apply, small_model_apply_lanes
+from repro_torch.models.transformer import (
+    block_pattern, decode_step_lanes, init_cache,
+)
 from repro_torch.utils.device import resolve_device
-from repro_torch.utils.tree import Layout, unravel
+from repro_torch.utils.tree import Layout, flatten_tree, nest_tree, unravel
 
 
 def _numpy(x) -> np.ndarray:
@@ -48,12 +55,15 @@ def _numpy(x) -> np.ndarray:
 
 
 class FleetParams:
-    """A fleet of K flat models (one ``(K, P)`` stack in ``layout``, the
+    """A fleet of K models (one flat ``(K, P)`` stack in ``layout``, the
     sorted-leaf order) with a residency policy.
 
     ``stacked`` is the reference's stacked-params fleet, ``{leaf name:
-    (K, *shape)}`` (numpy arrays or tensors); ``from_arena`` takes a flat
-    ``(K, P)`` arena and its layout without a copy. The reference's
+    (K, *shape)}`` (numpy arrays or tensors), or a nested LM tree of such
+    leaves, laid out under ``/``-joined names (``blocks/pos0/attn/wq``);
+    ``model`` and ``tree`` hand an LM fleet's models back nested.
+    ``from_arena`` takes a flat ``(K, P)`` arena and its layout without a
+    copy (a CUDA tensor stays where it is). The reference's
     ``device: bool`` flag is ``resident`` here (``device=`` is the torch
     device, the GPU unless the caller asks for another): ``resident=True``
     keeps the stack on the device, where lane ids are stack rows and
@@ -64,6 +74,7 @@ class FleetParams:
 
     def __init__(self, stacked: Mapping, resident: bool = True, *,
                  device=None):
+        stacked = flatten_tree(stacked)
         if not stacked:
             raise ValueError("FleetParams needs a non-empty params dict")
         names = sorted(stacked)
@@ -90,17 +101,20 @@ class FleetParams:
     @classmethod
     def from_trees(cls, trees: Sequence[Mapping], resident: bool = True, *,
                    device=None) -> "FleetParams":
-        """Stack a list of per-client parameter dicts into a fleet."""
+        """Stack a list of per-client parameter dicts (flat or nested) into
+        a fleet."""
         if not trees:
             raise ValueError("FleetParams needs at least one model")
-        return cls({k: np.stack([_numpy(t[k]) for t in trees])
-                    for k in trees[0]}, resident, device=device)
+        flat = [flatten_tree(t) for t in trees]
+        return cls({k: np.stack([_numpy(t[k]) for t in flat])
+                    for k in flat[0]}, resident, device=device)
 
     def _setup(self, arena, layout: Layout, resident: bool, device) -> None:
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
         self.layout = layout
+        self.nested = any("/" in name for name, _ in layout)
         self.resident = resident
         width = sum(int(np.prod(s)) for _, s in layout)
         if arena.ndim != 2 or arena.shape[1] != width or len(arena) == 0:
@@ -124,12 +138,18 @@ class FleetParams:
 
     def model(self, lane: int) -> Dict[str, torch.Tensor]:
         """One client's parameter dict on the device (the loop baseline's
-        model)."""
+        model), nested for an LM fleet."""
         if self.resident:
             row = self._stack[int(lane)]
         else:
             row = torch.from_numpy(self._arena[int(lane)]).to(self.device)
-        return unravel(row, self.layout)
+        return self.tree(row)
+
+    def tree(self, stack: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Per-leaf views of a ``(..., P)`` stack in this fleet's layout,
+        nested for an LM fleet."""
+        flat = unravel(stack, self.layout)
+        return nest_tree(flat) if self.nested else flat
 
     @staticmethod
     def _ids(lanes) -> np.ndarray:
@@ -229,3 +249,151 @@ def loop_classify(cfg: ModelConfig, fleet: FleetParams, lanes,
         out[sel] = small_model_apply(fleet.model(int(lane)),
                                      torch.index_select(x, 0, sel), cfg)
     return out
+
+
+# ---------------------------------------------------------------------------
+# LM fleets: prefill and per-token decode, one call a step
+
+
+def _tokens(x, device: torch.device) -> torch.Tensor:
+    """Token ids as an int32 tensor on ``device``."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.asarray(x, np.int32))
+    return x.to(device=device, dtype=torch.int32)
+
+
+class FleetDecoder:
+    """Fleet decode steps for one ``ModelConfig``: every request of a batch
+    decodes under its own model (``decode_step_lanes``) with its own cache
+    row, and the whole batch is one call a token. ``prefill`` is one call
+    too: like ``launch/serve.py``'s, it feeds the prompt through the decode
+    step one position at a time. ``dispatches`` counts calls, as the
+    reference's counts compiled calls; ``gathered_bytes`` is the rows the
+    last call's steps gathered, a step on average."""
+
+    def __init__(self, cfg: ModelConfig):
+        block_pattern(cfg)          # the unported families raise, naming A10
+        self.cfg = cfg
+        self.dispatches = 0
+        self.gathered_bytes = 0
+
+    def new_cache(self, batch: int, max_len: int, dtype=torch.float32,
+                  device=None):
+        """One cache row a request: ``init_cache(cfg, batch, ...)``."""
+        return init_cache(self.cfg, batch, max_len, dtype=dtype,
+                          device=device)
+
+    def prefill(self, stack, lanes: torch.Tensor, prompts: torch.Tensor,
+                cache):
+        """Fill every request's cache with its prompt (B, S0). ``stack`` is
+        the fleet's tree of ``(K, ...)`` leaves (``FleetParams.tree``) and
+        ``lanes`` the requests' rows in it. Returns (last logits (B, V),
+        cache)."""
+        self.dispatches += 1
+        meter = [0]
+        for i in range(prompts.shape[1]):
+            logits, cache = decode_step_lanes(stack, lanes, prompts[:, i:i + 1],
+                                              cache, i, self.cfg, meter)
+        self.gathered_bytes = meter[0] // prompts.shape[1]
+        return logits[:, 0], cache
+
+    def decode_step(self, stack, lanes: torch.Tensor, tok: torch.Tensor,
+                    cache, pos: int):
+        """Decode ``tok`` (B,) at position ``pos``: (logits (B, V), cache)."""
+        self.dispatches += 1
+        meter = [0]
+        logits, cache = decode_step_lanes(stack, lanes, tok[:, None], cache,
+                                          pos, self.cfg, meter)
+        self.gathered_bytes = meter[0]
+        return logits[:, 0], cache
+
+
+@torch.no_grad()
+def fleet_prefill_and_decode(
+    cfg: ModelConfig,
+    fleet: FleetParams,
+    lanes,                        # (B,) int client ids: request routing
+    prompts,                      # (B, S0) int32
+    *,
+    max_len: int,
+    new_tokens: int,
+    temperature: float = 0.0,
+    seed: int = 0,
+    decoder: Optional[FleetDecoder] = None,
+) -> Tuple[torch.Tensor, dict]:
+    """Batched generation across many clients' models: one prefill call,
+    then one call a decoded token for the whole batch, request b under
+    client ``lanes[b]``'s model throughout. Returns (tokens (B, S0 + N) on
+    the fleet's device, stats). Temperature sampling draws from a
+    ``torch.Generator`` seeded with ``seed`` on that device; every clock
+    read is fenced by a device synchronize."""
+    device = fleet.device
+    prompts = _tokens(prompts, device)
+    b, s0 = prompts.shape
+    decoder = FleetDecoder(cfg) if decoder is None else decoder
+    stack, local = fleet.rows(lanes)
+    tree = fleet.tree(stack)
+    cache = decoder.new_cache(b, max_len, device=device)
+    gen = (torch.Generator(device=device).manual_seed(seed)
+           if temperature > 0 else None)
+
+    t0 = fence(device)
+    d0 = decoder.dispatches
+    last_logits, cache = decoder.prefill(tree, local, prompts, cache)
+    t1 = fence(device)
+    prefill_dispatches = decoder.dispatches - d0
+
+    d0 = decoder.dispatches
+    new = []
+    for i in range(new_tokens):
+        nxt = next_tokens(last_logits, temperature, gen)
+        new.append(nxt)
+        last_logits, cache = decoder.decode_step(tree, local, nxt, cache,
+                                                 s0 + i)
+    toks = torch.cat([prompts] + [n[:, None] for n in new], dim=1)
+    t2 = fence(device)
+    decode_s = t2 - t1
+    return toks, {
+        "prefill_s": t1 - t0,
+        "decode_s": decode_s,
+        "decode_tok_s": b * new_tokens / max(decode_s, 1e-9),
+        "requests_s": b / max(t2 - t0, 1e-9),
+        "prefill_dispatches": prefill_dispatches,
+        "decode_dispatches_per_step": (decoder.dispatches - d0)
+        / max(new_tokens, 1),
+        "distinct_models": int(len(np.unique(np.asarray(lanes)))),
+    }
+
+
+@torch.no_grad()
+def loop_prefill_and_decode(
+    cfg: ModelConfig,
+    fleet: FleetParams,
+    lanes,
+    prompts,
+    *,
+    max_len: int,
+    new_tokens: int,
+) -> Tuple[torch.Tensor, dict]:
+    """The per-model baseline (greedy only): group the requests by client
+    and run ``launch/serve.py::prefill_and_decode`` once per distinct
+    model. Returns (tokens (B, S0 + N) on the fleet's device, stats)."""
+    device = fleet.device
+    lanes = np.asarray(lanes, np.int64)
+    prompts = _tokens(prompts, device)
+    out = torch.empty((len(lanes), prompts.shape[1] + new_tokens),
+                      dtype=torch.int32, device=device)
+    t0 = fence(device)
+    models = 0
+    for lane in np.unique(lanes):
+        sel = torch.from_numpy(np.flatnonzero(lanes == lane)).to(device)
+        out[sel], _ = prefill_and_decode(
+            cfg, fleet.model(int(lane)), torch.index_select(prompts, 0, sel),
+            max_len=max_len, new_tokens=new_tokens)
+        models += 1
+    t1 = fence(device)
+    return out, {
+        "total_s": t1 - t0,
+        "requests_s": len(lanes) / max(t1 - t0, 1e-9),
+        "distinct_models": models,
+    }

@@ -10,7 +10,7 @@ one contiguous buffer that every per-leaf view writes through.
 from __future__ import annotations
 
 import math
-from typing import Dict, Sequence, Tuple
+from typing import Any, Dict, Mapping, Sequence, Tuple
 
 import torch
 
@@ -42,6 +42,30 @@ def unravel(flat: torch.Tensor, layout: Layout) -> Dict[str, torch.Tensor]:
         off += n
     if off != flat.shape[-1]:
         raise ValueError(f"flat width {flat.shape[-1]} != layout size {off}")
+    return out
+
+
+def flatten_tree(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
+    """A nested dict's leaves under ``/``-joined names (an LM tree's
+    ``blocks/pos0/attn/wq``); a flat dict comes back as it is."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(flatten_tree(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def nest_tree(flat: Mapping[str, Any]) -> Dict[str, Any]:
+    """The inverse of ``flatten_tree``: ``/``-joined names as nested dicts."""
+    out: Dict[str, Any] = {}
+    for name, v in flat.items():
+        *path, leaf = name.split("/")
+        node = out
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = v
     return out
 
 
