@@ -8,10 +8,11 @@ Run from the repository root on a machine with one NVIDIA GPU:
 Phases (a failed check is reported and the run goes on; any failure exits
 non-zero at the end, before any result line is printed):
 
-1. Device and build: the card's name and power limit, then the CUDA
+1. Device and build: the card's name and power limit, then the five CUDA
    kernels built from ``src/repro_torch/csrc`` (nvcc, ``sm_90a``, all
    sources at once), with ptxas's registers and spills for each kernel of
-   the SSD scan, each flash kernel and the decode kernels at hd 160; ``cuobjdump -sass`` of the flash library must show
+   the SSD scan, each flash kernel (forward and backward) and the decode
+   kernels at hd 160; ``cuobjdump -sass`` of the flash library must show
    tensor-core (``HGMMA``) and TMA (``UTMALDG``) instructions in each of
    its bfloat16 kernels, and that of the SSD-scan library ``HGMMA`` in
    each of its tensor-core passes.
@@ -28,7 +29,12 @@ non-zero at the end, before any result line is printed):
    empty splits, B=1 over a 32k cache); each bfloat16
    flash row also within 2^-7 of its own largest value, and a probe of
    ROADMAP C3 (P kept in float32 for the PV product) at hd 32, 64, 128
-   and 160;
+   and 160; the flash forward with its ``lse`` output bit-equal to the
+   serving call without it at yi-9b's and stablelm-12b's prefill shapes,
+   and ``lse`` within 1e-5 of the plain one; the flash backward
+   (``flash_attention_bwd``) against the plain backward in float64 at
+   every hd, both types, G = 1, 4, 8, causal and windowed, S = 100, 257,
+   1024, 4096 (``BWD_TOL``), a rerun bit-equal;
    float32 decode attention at yi-9b's score scale, kernel and plain
    version each against float64 (the kernel within 1e-4);
    ``ssd_scan`` within 1e-5 (float32) / 1e-2 (bfloat16) of the output
@@ -324,6 +330,29 @@ non-zero at the end, before any result line is printed):
    combine kernels each from a profiler run, and its time at split counts
    the rule does not pick; the SSD scan's three passes each from a
    profiler run.
+9. LM training (ROADMAP A10.3): (a) ``launch/train.py::train_loop`` on
+   fedsr-lm-100m at full width and depth (120,602,240 parameters), the
+   reference's 4-lane layout (a host mesh of 8 entries of the card), batch
+   4, seq 256, 30 steps, a cloud sync every 5, ``fused_sgd``, as ``main``
+   sets it (lr 0.3): the loss must fall; launches counted from 0 (one
+   ``fused_sgd`` a step, 12 x 4 flash forwards and backwards a step); the
+   first step's 48 flash forwards (and ``lse``), 48 backwards and its
+   ``fused_sgd`` launch each against its plain version on its own inputs;
+   fused against unfused on the same 3 steps within 1e-6; the ms a step
+   unprofiled, a profiled step's busy share, peak memory. (b) the same
+   model at 2 layers, 4 lanes, batch 2, seq 128, 3 steps across one cloud
+   sync, GPU against CPU (the CPU run in phase 3g's pool): step 1's params
+   and step 2's loss within bounds that the 1.03x learning rate lands
+   outside (``TRAIN_GAP``), step 3 logged. (c) yi-9b at full width, 2
+   layers, one lane, B=1, S=4096, bfloat16: the step's gradient against
+   autograd of the plain route on the card (``YI_GRAD_TOL``, with wq and wk
+   scaled to O(1) scores; the reference's scale logged beside a float64
+   control), two steps with every flash launch held against its plain
+   version, the step's time and peak memory. Then the backward's time at
+   the main path's lane and at yi-9b's shape against its bound, the plain
+   backward and SDPA's backward; the forward with and without ``lse``;
+   ``fused_sgd`` at (4, 120,602,240) and (1, 870,338,560) with the
+   models' 12 leaves.
 
 The last lines of standard output are one JSON line describing every
 kernel, the card's ``nvidia-smi`` name and power limit, and the result
@@ -5068,6 +5097,626 @@ def time_ssd(ssd, ssd_plain, shape, dtype, reps):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+# ---------------------------------------------------------------------------
+# phase 9: LM training (ROADMAP A10.3)
+
+# The backward kernel against the plain backward computed in float64 from
+# the same inputs, max |diff| relative to the largest |value| of each
+# gradient: float32 sums over up to S keys in another order (1e-4);
+# bfloat16 adds one rounding of each output (2**-8) and P rebuilt from the
+# tensor-core forward's lse (2e-2). lse within 1e-5 of the plain one,
+# relative to max(1, max |lse|): scores of a thousand (yi-9b's at full
+# width) summed in another order differ by a few 1e-3.
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+LSE_TOL = 1e-5
+BWD_SWEEP_H = 8
+BWD_SWEEP = [(s, g, hd, window) for hd in (32, 64, 128, 160)
+             for g in (1, 4, 8) for window in (0, 48)
+             for s in (100, 257, 1024, 4096)]
+BWD_PATH = (4, 256, 10, 10, 64)         # a fedsr-lm-100m lane, float32
+TRAIN_LANES = 4          # the reference's layout on 8 host devices
+TRAIN_HOST_MESH = 8      # _host_mesh_shape(8) = (4, 2): 4 client lanes
+TRAIN_RUN = {"steps": 30, "batch_per_client": 4, "seq_len": 256}
+TRAIN_SYNC = 5
+# fused against unfused on the same steps: the reference's own bound
+# (tests/test_serial_ring.py:48-52)
+FUSED_VS_UNFUSED_TOL = 1e-6
+# (b): full width, 2 layers, 4 lanes, batch 2, seq 128, 3 steps across one
+# cloud sync (after step 2), GPU against CPU from one CPU-drawn state. At
+# the reference's initial scale the gradient is ill-conditioned: most
+# attention rows are one-hot and a near-tie turns a rounding-size change
+# into a large one (yi-9b: another rounding of the same float32 attention
+# moves the step's gradient by 0.86% in norm, PR 34), and lr 0.3 makes
+# the embedding's update 1e5 times its initial scale. So what is held is
+# what one step's rounding can move: after step 1 (from the same state)
+# the params' gap over the step's update, ||p_gpu - p_cpu|| / ||p_cpu -
+# p_0||, where the 1.03x learning rate moves it by 0.03; and the loss of
+# step 2 (computed from step 1's params), where the control moves it by
+# ~1e-3. Step 3 (after the cloud sync) is logged.
+TRAIN_GAP = {"layers": 2, "lanes": 4, "batch": 2, "seq": 128, "steps": 3,
+             "sync": 2}
+TRAIN_STEP1_TOL = 1e-2   # step 1's params: ||diff|| / ||update||
+TRAIN_LOSS2_TOL = 1e-4   # step 2's loss, absolute (losses near 10.9)
+# (c): yi-9b's training step at full width, 2 layers, one lane, B=1, S=4096.
+# Its gradient at the reference's scale is as far from the plain route's
+# as the plain route is from itself with the attention computed in
+# float64 (both ~0.35 in norm, bfloat16); so the bound is held with wq and
+# wk scaled by YI_QK_SCALE (scores O(1), rows no longer one-hot), and the
+# reference's scale is logged beside that control.
+YI_TRAIN = {"layers": 2, "batch": 1, "seq": 4096, "steps": 2}
+YI_QK_SCALE = 0.03
+YI_GRAD_TOL = 2e-2       # each leaf's ||diff|| / ||grad||, bfloat16
+
+
+def train_tcfg(**kw):
+    """``launch/train.py::main``'s TrainConfig (lr 0.3, momentum 0.5)."""
+    from repro_torch.configs.base import TrainConfig
+
+    return TrainConfig(**{"param_dtype": "float32", "learning_rate": 0.3,
+                          "momentum": 0.5, "cloud_sync_every": TRAIN_SYNC,
+                          "fused_sgd": True, **kw})
+
+
+def _lse_err(lse, want) -> float:
+    """max |diff| of two lse tensors over max(1, max |want|)."""
+    return float((lse - want).abs().max()) / max(1.0,
+                                                 float(want.abs().max()))
+
+
+def _grad_err(got, want) -> float:
+    """max |diff| over max |want|, the largest over a gradient tuple."""
+    return max(float((g.double() - w.double()).abs().max()
+                     / w.double().abs().max().clamp_min(1e-30))
+               for g, w in zip(got, want))
+
+
+def flash_bwd_sweep(flash_bwd) -> float:
+    """Phase 2 for the flash backward: every hd the kernels take, both
+    types, G = 1, 4, 8 over H = 8 query heads, causal and with a 48-key
+    window, S = 100, 257, 1024, 4096, against the plain backward in
+    float64; lse against the plain one; a rerun bit-equal. Returns the
+    largest |diff|."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_lse
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_lse_plain, flash_attention_bwd_plain,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    worst_abs, worst = 0.0, {torch.float32: 0.0, torch.bfloat16: 0.0}
+    t0 = time.perf_counter()
+    for s, g, hd, window in BWD_SWEEP:
+        kv = BWD_SWEEP_H // g
+        for dtype in (torch.float32, torch.bfloat16):
+            q, do = (_randn(gen, (1, s, BWD_SWEEP_H, hd), dtype)
+                     for _ in range(2))
+            k, v = (_randn(gen, (1, s, kv, hd), dtype) for _ in range(2))
+            _, lse = flash_attention_lse(q, k, v, causal=True, window=window)
+            got = flash_bwd(q, k, v, do, lse, causal=True, window=window)
+            exact = flash_attention_bwd_plain(q, k, v, do, causal=True,
+                                              window=window,
+                                              dtype=torch.float64)
+            lse_err = _lse_err(lse, attention_lse_plain(
+                q, k, causal=True, window=window))
+            rel = _grad_err(got, exact)
+            err = max(float((a.double() - e).abs().max())
+                      for a, e in zip(got, exact))
+            worst[dtype] = max(worst[dtype], rel)
+            worst_abs = max(worst_abs, err)
+            log(f"[sweep] flash_bwd s={s} h={BWD_SWEEP_H} kv={kv} hd={hd} "
+                f"window={window} {str(dtype)[6:]}: max_abs_err {err:.3e}, "
+                f"relative {rel:.3e}, lse {lse_err:.3e}")
+            check(rel <= BWD_TOL[dtype] and lse_err <= LSE_TOL
+                  and all(a.dtype == dtype for a in got),
+                  f"flash_attention_bwd != plain version at s={s} kv={kv} "
+                  f"hd={hd} window={window} {dtype}: {rel}, lse {lse_err}")
+            if (s, hd) == (1024, 128):
+                again = flash_bwd(q, k, v, do, lse, causal=True,
+                                  window=window)
+                check(all(torch.equal(a, b) for a, b in zip(again, got)),
+                      f"flash_attention_bwd is not deterministic at s={s} "
+                      f"hd={hd} {dtype}")
+            del q, k, v, do, lse, got, exact
+    log(f"[sweep] {2 * len(BWD_SWEEP)} flash_bwd cases in "
+        f"{time.perf_counter() - t0:.1f}s; worst relative "
+        f"{ {str(d)[6:]: f'{e:.3e}' for d, e in worst.items()} }, worst "
+        f"|diff| {worst_abs:.3e}")
+    return worst_abs
+
+
+def lse_bit_check(flash) -> None:
+    """The forward with its lse output against the serving call without it
+    at the serving shapes (yi-9b's and stablelm-12b's prefill, bfloat16,
+    and a float32 one): the output bit for bit; lse against the plain."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_lse
+    from repro_torch.kernels.flash_attention.ref import attention_lse_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    for shape, dtype in ((FLASH_PATH, torch.bfloat16),
+                         (FLASH_PATH_160, torch.bfloat16),
+                         (BWD_PATH, torch.float32)):
+        b, s, h, kv, hd = shape
+        q = _randn(gen, (b, s, h, hd), dtype)
+        k, v = (_randn(gen, (b, s, kv, hd), dtype) for _ in range(2))
+        before = flash.launches
+        with torch.no_grad():
+            serve = flash(q, k, v)
+        out, lse = flash_attention_lse(q, k, v, causal=True, window=0)
+        flash.launches = before
+        lse_err = _lse_err(lse, attention_lse_plain(q, k))
+        same = torch.equal(out, serve)
+        log(f"[sweep] flash forward {shape} {str(dtype)[6:]} with lse: "
+            f"output bit-equal to the serving call {same}, lse against the "
+            f"plain {lse_err:.3e}")
+        check(same and lse_err <= LSE_TOL,
+              f"flash forward with lse at {shape} {dtype}: bit-equal {same}, "
+              f"lse {lse_err}")
+
+
+class checked_train_launches:
+    """Within the block, each launch of the training route's kernels — the
+    flash forward with lse, the flash backward, ``fused_sgd`` — also runs
+    its plain version on the same inputs, while ``active``: throughout, or
+    (``first_step``) until the first ``fused_sgd`` call ends the first
+    step. Records each kernel's worst error (relative to max(1, max |plain|)
+    for the forward and lse, to max |plain| per gradient for the backward,
+    max |diff| for ``fused_sgd``, which must be 0) and the calls checked.
+    The kernels' own outputs go on."""
+
+    def __init__(self, first_step: bool = True):
+        self.first_step, self.active = first_step, True
+        self.worst = {"flash_attention": 0.0, "lse": 0.0,
+                      "flash_attention_bwd": 0.0, "fused_sgd": 0.0}
+        self.calls = Counter()
+
+    def _note(self, name, err):
+        self.worst[name] = max(self.worst[name], err)
+
+    def __enter__(self):
+        from repro_torch.kernels.flash_attention import ops
+        from repro_torch.kernels.flash_attention.ref import (
+            attention_lse_plain, flash_attention_bwd_plain,
+        )
+        from repro_torch.kernels.fused_sgd.ref import sgd_lanes_reference
+        from repro_torch.launch import steps
+
+        self.ops, self.steps = ops, steps
+        self.saved = fwd0, bwd0, sgd0 = (ops.flash_attention_lse,
+                                         ops.flash_attention_bwd,
+                                         steps.fused_sgd_lanes)
+
+        def fwd(q, k, v, *, causal, window):
+            out, lse = fwd0(q, k, v, causal=causal, window=window)
+            if self.active:
+                want = ops.flash_attention_plain(q, k, v, causal=causal,
+                                                 window=window)
+                scale = max(1.0, float(want.abs().max()))
+                self._note("flash_attention", float(
+                    (out.float() - want.float()).abs().max()) / scale)
+                self._note("lse", _lse_err(lse, attention_lse_plain(
+                    q, k, causal=causal, window=window)))
+                self.calls["flash_attention"] += 1
+            return out, lse
+
+        def bwd(q, k, v, dout, lse, *, causal, window):
+            got = bwd0(q, k, v, dout, lse, causal=causal, window=window)
+            if self.active:
+                want = flash_attention_bwd_plain(q, k, v, dout, causal=causal,
+                                                 window=window)
+                self._note("flash_attention_bwd", _grad_err(got, want))
+                self.calls["flash_attention_bwd"] += 1
+            return got
+
+        def sgd(p, grads, m, ok, lr, *, reset, momentum, nesterov=False):
+            kw = dict(reset=reset, momentum=momentum, nesterov=nesterov)
+            if not self.active:
+                return sgd0(p, grads, m, ok, lr, **kw)
+            want_p, want_m = sgd_lanes_reference(p, grads, m, ok, lr, **kw)
+            sgd0(p, grads, m, ok, lr, **kw)
+            self._note("fused_sgd", float(torch.maximum(
+                (p - want_p).abs().max(), (m - want_m).abs().max())))
+            self.calls["fused_sgd"] += 1
+            del want_p, want_m
+            self.active = not self.first_step
+
+        ops.flash_attention_lse, ops.flash_attention_bwd = fwd, bwd
+        steps.fused_sgd_lanes = sgd
+        return self
+
+    def __exit__(self, *exc):
+        (self.ops.flash_attention_lse, self.ops.flash_attention_bwd,
+         self.steps.fused_sgd_lanes) = self.saved
+
+    def check(self, dtype, what: str) -> None:
+        w = self.worst
+        log(f"[train] {what}: launches held against their plain versions "
+            f"{dict(self.calls)}; worst: forward {w['flash_attention']:.3e}, "
+            f"lse {w['lse']:.3e}, backward {w['flash_attention_bwd']:.3e} "
+            f"(bounds {LAUNCH_TOL[dtype]:g}, {LSE_TOL:g}, {BWD_TOL[dtype]:g}),"
+            f" fused_sgd {w['fused_sgd']:.3e} (bit for bit)")
+        check(w["flash_attention"] <= LAUNCH_TOL[dtype]
+              and w["lse"] <= LSE_TOL
+              and w["flash_attention_bwd"] <= BWD_TOL[dtype]
+              and w["fused_sgd"] == 0.0,
+              f"{what}: a training launch differs from its plain version: "
+              f"{w}")
+
+
+def train_state(cfg, tcfg, lanes: int, device, seed: int = 0, gen=None):
+    """A fresh (lanes, P) state of ``cfg``'s weights drawn from a torch
+    generator seeded ``seed`` (a CPU one unless ``gen`` is given, so the
+    GPU and the CPU start from the same weights), every lane alike."""
+    from repro_torch.launch.steps import train_layout
+    from repro_torch.models.transformer import init_model
+    from repro_torch.utils.tree import flatten_tree
+
+    gen = gen or torch.Generator().manual_seed(seed)
+    leaves = flatten_tree(init_model(gen, cfg, torch.device(device)))
+    flat = torch.cat([leaves.pop(k).reshape(-1)
+                      for k, _ in train_layout(cfg)]).to(
+        getattr(torch, tcfg.param_dtype))
+    params = flat.expand(lanes, -1).clone()
+    return {"params": params, "mom": torch.zeros_like(params), "step": 0}
+
+
+def train_steps(cfg, tcfg, state, batches, device, timed=False, keep=()):
+    """``make_train_step``'s steps over ``batches`` ((C, B, S + 1) token
+    arrays), with the cloud sync every ``cloud_sync_every`` steps: (state,
+    losses, ms of each step when ``timed``); ``keep``: steps after which a
+    CPU copy of the params goes into ``state["kept"]``."""
+    from repro_torch.launch.steps import make_train_step
+
+    step, sync = make_train_step(cfg, tcfg)
+    losses, ms, kept = [], [], {}
+    for t, toks in enumerate(batches):
+        toks = torch.from_numpy(toks).to(device)
+        t0 = time.perf_counter()
+        state, loss = step(state, {"inputs": toks[..., :-1],
+                                   "labels": toks[..., 1:]})
+        if (t + 1) % tcfg.cloud_sync_every == 0:
+            state = sync(state)
+        losses.append(float(loss))
+        if timed:
+            torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if t + 1 in keep:     # a copy: the next step updates in place
+            kept[t + 1] = state["params"].to("cpu", copy=True)
+    return {**state, "kept": kept}, losses, ms
+
+
+def token_batches(cfg, lanes, batch, seq, steps, seed=0):
+    from repro_torch.launch.train import ClientTokenStore
+
+    store = ClientTokenStore(cfg, lanes, batch, seq, steps, seed)
+    return [store.step_batch(t) for t in range(steps)]
+
+
+def _cpu_train_gap(cfg, tcfg):
+    """Phase 9 (b)'s CPU run, in a worker: (losses, {step: params as
+    numpy} after steps 1 and 3)."""
+    g = TRAIN_GAP
+    state = train_state(cfg, tcfg, g["lanes"], "cpu")
+    state, losses, _ = train_steps(
+        cfg, tcfg, state, token_batches(cfg, g["lanes"], g["batch"],
+                                        g["seq"], g["steps"]), "cpu",
+        keep=(1, g["steps"]))
+    return losses, {t: p.numpy() for t, p in state["kept"].items()}
+
+
+def gap_cfgs(lm_cfg):
+    g = TRAIN_GAP
+    return (dataclasses.replace(lm_cfg, num_layers=g["layers"]),
+            train_tcfg(cloud_sync_every=g["sync"]))
+
+
+def train_jobs(pool, lm_cfg) -> dict:
+    """Phase 9 (b)'s CPU run, submitted to phase 3g's pool."""
+    return {"gap": pool.submit(_cpu_train_gap, *gap_cfgs(lm_cfg))}
+
+
+def train_gap(lm_cfg, job) -> None:
+    """(b): fedsr-lm-100m at full width and 2 layers, GPU against the CPU
+    run of the pool, and the 1.03x learning rate's GPU run against the
+    CPU's (the control): step 1's params and step 2's loss held, step 3
+    logged (see ``TRAIN_GAP``)."""
+    cfg, tcfg = gap_cfgs(lm_cfg)
+    g = TRAIN_GAP
+    batches = token_batches(cfg, g["lanes"], g["batch"], g["seq"],
+                            g["steps"])
+    p0 = train_state(cfg, tcfg, g["lanes"], "cpu")["params"]
+    runs = {}
+    for name, t in (("gpu", tcfg), ("control", dataclasses.replace(
+            tcfg, learning_rate=tcfg.learning_rate * LR_CONTROL))):
+        state, losses, _ = train_steps(
+            cfg, t, train_state(cfg, t, g["lanes"], "cuda"), batches, "cuda",
+            keep=(1, g["steps"]))
+        runs[name] = (losses, state["kept"])
+        del state
+    cpu_losses, cpu_kept = job.result()
+    gaps = {}
+    for name, (losses, kept) in runs.items():
+        rel = {}
+        for t, p in kept.items():
+            want = torch.from_numpy(cpu_kept[t])
+            rel[t] = (float((p - want).norm() / (want - p0).norm()),
+                      float((p - want).abs().max() / want.abs().max()))
+        gaps[name] = (rel[1][0], abs(losses[1] - cpu_losses[1]))
+        log(f"[train] (b) 2 layers, {g['lanes']} lanes, {name} against the "
+            f"CPU: params after step 1 ||diff|| / ||update|| {rel[1][0]:.3e}"
+            f" (max |diff| / max |param| {rel[1][1]:.3e}), after step "
+            f"{g['steps']} (past the cloud sync; logged) {rel[g['steps']][0]:.3e}"
+            f" ({rel[g['steps']][1]:.3e}); losses "
+            f"{[round(x, 6) for x in losses]} against "
+            f"{[round(x, 6) for x in cpu_losses]}")
+    log(f"[train] (b) bounds: step 1's params {TRAIN_STEP1_TOL:g}, step 2's "
+        f"loss {TRAIN_LOSS2_TOL:g}; GPU {gaps['gpu'][0]:.3e}, "
+        f"{gaps['gpu'][1]:.3e}; control {gaps['control'][0]:.3e}, "
+        f"{gaps['control'][1]:.3e}")
+    check(gaps["gpu"][0] <= TRAIN_STEP1_TOL
+          and gaps["gpu"][1] <= TRAIN_LOSS2_TOL,
+          f"(b) GPU against CPU: {gaps['gpu']}")
+    check(gaps["control"][0] > TRAIN_STEP1_TOL
+          and gaps["control"][1] > TRAIN_LOSS2_TOL,
+          f"(b) the bounds do not tell {LR_CONTROL}x the learning rate from "
+          f"the CPU's run: {gaps['control']}")
+
+
+def train_main_path(lm_cfg, kernels) -> dict:
+    """(a): ``train_loop`` on fedsr-lm-100m at full width and depth, the
+    reference's 4-lane layout (a host mesh of 8 entries of the card),
+    30 steps, fused_sgd; the first step's launches against their plain
+    versions; the counts from 0. Returns the launches."""
+    from repro_torch.launch.train import train_loop
+    from repro_torch.utils.logging import MetricLogger
+
+    tcfg = train_tcfg()
+    reps = lm_cfg.num_layers * TRAIN_LANES * TRAIN_RUN["steps"]
+    with sim_mesh(TRAIN_HOST_MESH, "cuda"), checked_train_launches() as chk:
+        torch.cuda.reset_peak_memory_stats()
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        out = train_loop(lm_cfg, tcfg, log=MetricLogger(), device="cuda",
+                         **TRAIN_RUN)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {name: k.launches for name, k in kernels.items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    want = {"fused_sgd": TRAIN_RUN["steps"], "flash_attention": reps,
+            "flash_attention_bwd": reps}
+    log(f"[train] (a) fedsr-lm-100m ({out['params_m']:.3f} M params, "
+        f"{TRAIN_LANES} lanes, batch {TRAIN_RUN['batch_per_client']}, seq "
+        f"{TRAIN_RUN['seq_len']}, {TRAIN_RUN['steps']} steps, sync every "
+        f"{TRAIN_SYNC}, fused_sgd): loss {out['first_loss']:.4f} -> "
+        f"{out['final_loss']:.4f}; {wall:.2f} s ({out['seconds']:.2f} s in "
+        f"train_loop's steps); peak {peak:.2f} GB; launches {counts} "
+        f"(expected {want})")
+    check(counts == want, f"(a) launches {counts}, expected {want}")
+    check(np.isfinite(out["final_loss"])
+          and out["final_loss"] < out["first_loss"],
+          f"(a) training did not reduce the loss: {out}")
+    chk.check(torch.float32, "(a) the first step")
+    check(chk.calls == Counter({"flash_attention": reps // TRAIN_RUN["steps"],
+                                "flash_attention_bwd":
+                                    reps // TRAIN_RUN["steps"],
+                                "fused_sgd": 1}),
+          f"(a) the first step's checked launches: {dict(chk.calls)}")
+    return counts
+
+
+def train_fused_and_times(lm_cfg) -> None:
+    """(a) continued: fused against unfused on the same 3 steps; the ms a
+    step unprofiled; a profiled step's device-busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    batches = token_batches(lm_cfg, TRAIN_LANES,
+                            TRAIN_RUN["batch_per_client"],
+                            TRAIN_RUN["seq_len"], 8)
+    finals = {}
+    for fused in (True, False):
+        tcfg = train_tcfg(fused_sgd=fused)
+        state = train_state(lm_cfg, tcfg, TRAIN_LANES, "cuda")
+        state, losses, _ = train_steps(lm_cfg, tcfg, state, batches[:3],
+                                       "cuda")
+        finals[fused] = (state, losses)
+    err = float((finals[True][0]["params"] - finals[False][0]["params"])
+                .abs().max())
+    loss_gap = max(abs(a - b) for a, b in zip(finals[True][1],
+                                              finals[False][1]))
+    log(f"[train] (a) fused against unfused, 3 steps: params max |diff| "
+        f"{err:.3e}, losses max gap {loss_gap:.3e} (bound "
+        f"{FUSED_VS_UNFUSED_TOL:g})")
+    check(err <= FUSED_VS_UNFUSED_TOL and loss_gap <= FUSED_VS_UNFUSED_TOL,
+          f"(a) fused against unfused: {err}, {loss_gap}")
+    state = finals[True][0]
+    del finals
+    tcfg = train_tcfg()
+    state, _, ms = train_steps(lm_cfg, tcfg, state, batches[3:7], "cuda",
+                               timed=True)
+    from repro_torch.launch.steps import make_train_step
+
+    step, _ = make_train_step(lm_cfg, tcfg)
+    toks = torch.from_numpy(batches[7]).cuda()
+    batch = {"inputs": toks[..., :-1], "labels": toks[..., 1:]}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    log(f"[train] (a) ms a step unprofiled (4 steady steps, synchronised): "
+        f"{[round(x, 3) for x in ms]}, median {float(np.median(ms)):.3f}")
+    busy = profile_report(prof, wall_us, "one fedsr-lm-100m training step",
+                          ("flash_attention_kernel", "flash_bwd",
+                           "fused_sgd_kernel", "gemm", "Gemm"))
+    log(f"[train] (a) a profiled step: busy {100 * busy:.1f}% of its wall "
+        f"({100 * busy * wall_us / 1e3 / float(np.median(ms)):.1f}% of the "
+        f"unprofiled median)")
+
+
+def attention_plain64(q, k, v, *, causal=True, window=0):
+    """The plain attention computed in float64 and rounded to q's dtype
+    once: another rounding of the same function (phase 9 (c)'s control)."""
+    from repro_torch.kernels.flash_attention.ref import attention_reference
+
+    t = (0, 2, 1, 3)
+    return attention_reference(q.permute(t), k.permute(t), v.permute(t),
+                               causal=causal, window=window,
+                               dtype=torch.float64).permute(t)
+
+
+def route_grads(cfg, route, params, batch):
+    """One lane's loss and gradient leaves with ``route`` at the layers'
+    attention call site."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.launch.steps import lane_grads, train_layout
+    from repro_torch.models import layers
+
+    layers.flash_attention = route
+    try:
+        loss, grads = lane_grads(params, batch, cfg, train_layout(cfg), False)
+    finally:
+        layers.flash_attention = flash_attention
+    return float(loss[0]), grads
+
+
+def _norm_gaps(a, b, layout) -> dict:
+    return {name: float((x - y).norm() / y.norm().clamp_min(1e-30))
+            for (name, _), x, y in zip(layout, a, b)}
+
+
+def yi_train_check(yi_cfg) -> None:
+    """(c): yi-9b at full width, 2 layers, one lane, B=1, S=4096, bfloat16
+    activations: the step's gradient against autograd of the plain route
+    on the card (bounded with wq, wk scaled by ``YI_QK_SCALE``; at the
+    reference's scale logged beside the float64-attention control); two
+    steps, each flash launch held against its plain version; the step's
+    time and peak memory."""
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_plain,
+    )
+    from repro_torch.launch.steps import state_tree, train_layout
+
+    y = YI_TRAIN
+    cfg = dataclasses.replace(yi_cfg, num_layers=y["layers"])
+    tcfg = train_tcfg()
+    layout = train_layout(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = train_state(cfg, tcfg, 1, "cuda",
+                        gen=torch.Generator(device="cuda").manual_seed(0))
+    n_params = state["params"].shape[1]
+    batches = token_batches(cfg, 1, y["batch"], y["seq"], y["steps"])
+    toks = torch.from_numpy(batches[0]).cuda()
+    batch = {"inputs": toks[..., :-1], "labels": toks[..., 1:]}
+    tempered = state["params"].clone()
+    attn = state_tree(tempered, layout)["blocks"]["pos0"]["attn"]
+    attn["wq"].mul_(YI_QK_SCALE)
+    attn["wk"].mul_(YI_QK_SCALE)
+    lk, gk = route_grads(cfg, flash_attention, tempered, batch)
+    lp, gp = route_grads(cfg, flash_attention_plain, tempered, batch)
+    gaps = _norm_gaps(gk, gp, layout)
+    worst = max(gaps.values())
+    del tempered, gk, gp
+    log(f"[train] (c) yi-9b, {y['layers']} layers ({n_params:,} params), "
+        f"B={y['batch']} S={y['seq']} bfloat16, wq and wk x{YI_QK_SCALE}: "
+        f"loss kernels {lk:.6f}, plain {lp:.6f}; gradient kernels against "
+        f"the plain route, each leaf's ||diff|| / ||grad||: worst "
+        f"{worst:.3e} (bound {YI_GRAD_TOL:g}); "
+        + ", ".join(f"{k.split('/')[-1]} {v:.2e}" for k, v in gaps.items()))
+    check(worst <= YI_GRAD_TOL, f"(c) yi-9b gradient: {gaps}")
+    lk, gk = route_grads(cfg, flash_attention, state["params"], batch)
+    lp, gp = route_grads(cfg, flash_attention_plain, state["params"], batch)
+    kernel_gap = max(_norm_gaps(gk, gp, layout).values())
+    del gk
+    l6, g6 = route_grads(cfg, attention_plain64, state["params"], batch)
+    control_gap = max(_norm_gaps(g6, gp, layout).values())
+    del gp, g6
+    log(f"[train] (c) at the reference's scale (logged): losses kernels "
+        f"{lk:.6f}, plain {lp:.6f}, plain in float64 {l6:.6f}; gradient "
+        f"kernels against plain {kernel_gap:.3e}, plain in float64 against "
+        f"plain {control_gap:.3e} (worst leaf, ||diff|| / ||grad||): one-hot "
+        f"rows and near-ties make any rounding move it this far")
+    with checked_train_launches(first_step=False) as chk:
+        state, losses, ms = train_steps(cfg, tcfg, state, batches, "cuda",
+                                        timed=True)
+    chk.check(torch.bfloat16, "(c) yi-9b's two steps")
+    check(all(np.isfinite(losses)), f"(c) yi-9b losses {losses}")
+    del state
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = train_state(cfg, tcfg, 1, "cuda",
+                        gen=torch.Generator(device="cuda").manual_seed(0))
+    _, losses, ms = train_steps(cfg, tcfg, state, batches, "cuda",
+                                timed=True)
+    log(f"[train] (c) yi-9b's two steps, unchecked: "
+        f"{[round(x, 1) for x in ms]} ms, losses "
+        f"{[round(x, 4) for x in losses]}, peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del state
+    torch.cuda.empty_cache()
+
+
+def time_flash_bwd(flash_bwd, shape, dtype, reps):
+    """The backward's cold-L2 time at ``shape`` against its bound, the
+    plain backward and SDPA's backward (autograd of
+    ``scaled_dot_product_attention``, causal, GQA); the forward's time with
+    and without lse."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_lse,
+    )
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_plain,
+    )
+
+    b, s, h, kv, hd = shape
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    q, do = (_randn(gen, (b, s, h, hd), dtype) for _ in range(2))
+    k, v = (_randn(gen, (b, s, kv, hd), dtype) for _ in range(2))
+    f0, b0 = flash_attention.launches, flash_bwd.launches
+    _, lse = flash_attention_lse(q, k, v, causal=True, window=0)
+    ms = time_launch(lambda: flash_bwd(q, k, v, do, lse), reps)
+    fwd_ms = time_launch(lambda: flash_attention(q, k, v), reps)
+    fwd_lse_ms = time_launch(lambda: flash_attention_lse(
+        q, k, v, causal=True, window=0), reps)
+    flash_attention.launches, flash_bwd.launches = f0, b0
+    plain_ms = time_launch(lambda: flash_attention_bwd_plain(q, k, v, do),
+                           max(3, reps // 5))
+    leaves = [x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                         enable_gqa=True)
+    dot = do.transpose(1, 2)
+    library_ms = time_launch(lambda: torch.autograd.grad(
+        out, leaves, dot, retain_graph=True), reps)
+    esize = q.element_size()
+    nbytes = esize * (3 * b * s * h * hd + 4 * b * s * kv * hd) + 4 * b * h * s
+    flops = 2.5 * 4 * b * h * hd * s * (s + 1) // 2
+    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
+    bound_ms, bound_by = _bound(nbytes, flops, peak)
+    log(f"[time] flash_attention_bwd {shape} {str(dtype)[6:]}: kernel "
+        f"{ms:.5f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+        f"{100 * bound_ms / ms:.2f}% of the bound), plain {plain_ms:.5f} ms, "
+        f"SDPA backward {library_ms:.5f} ms, bound {bound_ms:.5f} ms "
+        f"({bound_by}: {flops / 1e9:.1f} GFLOP, 2.5x the forward's causal "
+        f"products, {nbytes / 1e6:.1f} MB); the forward {fwd_ms:.5f} ms, "
+        f"with lse {fwd_lse_ms:.5f} ms")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def time_train_sgd(fused_sgd_lanes, sgd_lanes_reference, cfg, lanes, what):
+    """``fused_sgd`` at a training state's shape with its model's leaves."""
+    from repro_torch.launch.steps import train_layout
+
+    shapes = [shape for _, shape in train_layout(cfg)]
+    P = sum(int(np.prod(s)) for s in shapes)
+    row = time_kernels(fused_sgd_lanes, sgd_lanes_reference, (lanes, P),
+                       shapes, what)
+    torch.cuda.empty_cache()
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5087,7 +5736,7 @@ def main() -> int:
         decode_attention, decode_attention_plain,
     )
     from repro_torch.kernels.flash_attention.ops import (
-        flash_attention, flash_attention_plain,
+        flash_attention, flash_attention_bwd, flash_attention_plain,
     )
     from repro_torch.kernels.fused_sgd.ops import fused_sgd_lanes
     from repro_torch.kernels.fused_sgd.ref import sgd_lanes_reference
@@ -5096,6 +5745,7 @@ def main() -> int:
     from repro_torch.kernels.ssd_scan.ops import (
         kernel_route, ssd_scan, ssd_scan_plain,
     )
+    from repro_torch.launch.train import lm_100m_config
     from repro_torch.models import layers, mamba2
     from repro_torch.models.small import init_small_model, params_to_numpy
 
@@ -5108,7 +5758,8 @@ def main() -> int:
         f"{torch.cuda.device_count()}")
 
     # phase 1: build every kernel, one nvcc per source, all at once
-    names = ["fused_sgd", "flash_attention", "decode_attention", "ssd_scan"]
+    names = ["fused_sgd", "flash_attention", "flash_attention_bwd",
+             "decode_attention", "ssd_scan"]
     t0 = time.perf_counter()
     build.build(names)
     log(f"[build] {', '.join(names)} in {time.perf_counter() - t0:.1f}s")
@@ -5117,11 +5768,13 @@ def main() -> int:
     for kernel, report in ptxas_by_kernel(
             build.BUILD_LOGS.get("ssd_scan") or "").items():
         log(f"[build] ssd_scan {kernel}: {report}")
-    # every flash kernel, and the decode kernels at stablelm-12b's hd 160
-    for name in ("flash_attention", "decode_attention"):
+    # every flash kernel, forward and backward, and the decode kernels at
+    # stablelm-12b's hd 160
+    for name in ("flash_attention", "flash_attention_bwd",
+                 "decode_attention"):
         for kernel, report in ptxas_by_kernel(
                 build.BUILD_LOGS.get(name) or "").items():
-            if name == "flash_attention" or re.search(r"\b160\b", kernel):
+            if name != "decode_attention" or re.search(r"\b160\b", kernel):
                 log(f"[build] {name} {kernel}: {report}")
     check_tensor_core_sass(build)
 
@@ -5131,6 +5784,8 @@ def main() -> int:
     max_abs_err.update(attention_sweep(flash_attention, flash_attention_plain,
                                        decode_attention,
                                        decode_attention_plain))
+    lse_bit_check(flash_attention)
+    max_abs_err["flash_attention_bwd"] = flash_bwd_sweep(flash_attention_bwd)
     max_abs_err["ssd_scan"] = ssd_sweep(ssd_scan, ssd_scan_plain,
                                         kernel_route)
     ssd_pass_check(
@@ -5267,6 +5922,7 @@ def main() -> int:
         jobs_3i = dp_jobs(pool, fl)
         jobs_3j = pers_jobs(pool, fl)
         jobs_3k = mesh_jobs(pool, fl)
+        jobs_9 = train_jobs(pool, lm_100m_config())
         t0 = time.perf_counter()
         scenario_launches, steady = scenario_path(
             run_experiment, fused_sgd_lanes, CONFIG, fl, init, jobs_3g,
@@ -5399,6 +6055,29 @@ def main() -> int:
     times["ssd_scan"] = time_ssd(ssd_scan, ssd_scan_plain, SSD_PATH,
                                  torch.bfloat16, 20)
     time_ssd(ssd_scan, ssd_scan_plain, SSD_PATH, torch.float32, 10)
+
+    # phase 9: LM training, fedsr-lm-100m's main path, (b) GPU against CPU,
+    # (c) yi-9b's bfloat16 step; then the training kernels' times
+    t0 = time.perf_counter()
+    lm = lm_100m_config()
+    train_launches = train_main_path(lm, {
+        "fused_sgd": fused_sgd_lanes, "flash_attention": flash_attention,
+        "flash_attention_bwd": flash_attention_bwd})
+    launches["fused_sgd"] += train_launches["fused_sgd"]
+    launches["flash_attention"] += train_launches["flash_attention"]
+    launches["flash_attention_bwd"] = train_launches["flash_attention_bwd"]
+    train_fused_and_times(lm)
+    train_gap(lm, jobs_9["gap"])
+    yi_train_check(YI)
+    times["flash_attention_bwd"] = time_flash_bwd(
+        flash_attention_bwd, BWD_PATH, torch.float32, 20)
+    time_flash_bwd(flash_attention_bwd, FLASH_PATH, torch.bfloat16, 5)
+    time_train_sgd(fused_sgd_lanes, sgd_lanes_reference, lm, TRAIN_LANES,
+                   "fedsr-lm-100m's 12 leaves (4 lanes)")
+    time_train_sgd(fused_sgd_lanes, sgd_lanes_reference,
+                   dataclasses.replace(YI, num_layers=YI_TRAIN["layers"]), 1,
+                   "yi-9b's 12 leaves (2 layers)")
+    log(f"[train] phase 9 in {time.perf_counter() - t0:.1f}s")
     log(f"[done] all phases in {time.perf_counter() - t_start:.1f}s")
 
     if FAILURES:
@@ -5406,8 +6085,11 @@ def main() -> int:
         for what in FAILURES:
             print(f"  {what}", file=sys.stderr)
         return 1
+    # the backward has no Pallas twin: the reference differentiates its jnp
+    # attention (models/layers.py::causal_attention)
     sources = {"fused_sgd": "src/repro/kernels/fused_sgd/kernel.py:33",
                "flash_attention": "src/repro/kernels/flash_attention/kernel.py:96",
+               "flash_attention_bwd": "src/repro/models/layers.py:85",
                "decode_attention":
                    "src/repro/kernels/decode_attention/kernel.py:80",
                "ssd_scan": "src/repro/kernels/ssd_scan/kernel.py:77"}

@@ -1,6 +1,7 @@
 """Config dataclasses of the PyTorch port — its own copy of the JAX
-package's ``ModelConfig``, ``FLConfig`` and the frozen sub-configs
-``FLConfig`` holds, with the same fields, defaults and validation.
+package's ``ModelConfig``, ``FLConfig``, the frozen sub-configs
+``FLConfig`` holds and ``TrainConfig``, with the same fields, defaults and
+validation.
 
 The port imports nothing of the JAX package, so the two packages keep two
 copies; ``tests/test_torch_fedsr.py`` pins that their fields and defaults
@@ -256,3 +257,36 @@ class FLConfig:
                 f"num_edges={self.num_edges} must divide "
                 f"num_devices={self.num_devices} evenly")
         return self.num_devices // self.num_edges
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Large-architecture runtime knobs (``launch/train.py``,
+    ``launch/steps.py::make_train_step``). The LM step reads
+    ``learning_rate``, ``momentum``, ``remat``, ``ring_mode``,
+    ``cloud_sync_every`` (the loop), ``param_dtype``, ``fused_sgd`` and
+    ``hop_momentum``; like the reference's, it ignores ``optimizer``,
+    ``weight_decay``, ``compute_dtype``, ``dp_clip`` and ``dp_noise_mult``
+    (ROADMAP C11)."""
+    optimizer: str = "sgd"           # sgd (faithful FedSR client opt) | adamw
+    learning_rate: float = 0.01
+    momentum: float = 0.5
+    weight_decay: float = 0.0
+    remat: str = "none"              # none | full | selective
+    ring_mode: str = "pipelined"     # pipelined: Q incremental chains in
+                                     #   flight, ring hop = a roll of the
+                                     #   client stack (the baseline);
+                                     # serial: ONE chain over the ring
+                                     #   positions inside the step — literal
+                                     #   Alg. 1 semantics
+    cloud_sync_every: int = 5        # R: ring laps between cloud aggregations
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+    fused_sgd: bool = False
+    dp_clip: float = 0.0             # >0 opts the large-model runtime into
+                                     # DP-SGD (per-device L2 gradient clip)
+    dp_noise_mult: float = 0.0       # Gaussian noise std = dp_noise_mult * clip
+    hop_momentum: bool = True        # baseline: momentum travels with the
+                                     # model on the ring hop; False = it
+                                     # stays device-local (paper Alg. 1 keeps
+                                     # optimizer state on the device)

@@ -51,6 +51,11 @@
 // heads that share a kv head are adjacent, so their K/V reads meet in L2,
 // and the query tiles run heaviest (longest causal row) first.
 //
+// Both routes also write lse (B, H, S), float32, when given a pointer for
+// it: each row's log-sum-exp of its scaled scores, m + log(l) in natural
+// units, which the backward (flash_attention_bwd.cu) reads to rebuild P.
+// Without the pointer (serving) nothing else changes.
+//
 // float32: CUDA cores (namespace simt), the first design of this kernel,
 // kept as it was: the float32 parity bounds of the on-card checks were set
 // against it, and a float32 product on tensor cores would need a 3xTF32
@@ -99,9 +104,9 @@ constexpr int smem_floats() {
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int S,
-                       int T_, int H, int KV, int causal, int window,
-                       float sqrt_hd) {
+                       const T* __restrict__ v, T* __restrict__ out,
+                       float* __restrict__ lse, int S, int T_, int H, int KV,
+                       int causal, int window, float sqrt_hd) {
   constexpr int LD = HD + 1;
   constexpr int NJ = HD / 16;
   extern __shared__ float smem[];
@@ -229,6 +234,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int s = q0 + ty + 16 * i;
     if (s >= S) continue;
     const float denom = fmaxf(l[i], 1e-30f);
+    // m and l are the row's over its whole half-warp
+    if (lse != nullptr && tx == 0)
+      lse[(int64_t(b) * H + h) * S + s] = m[i] + logf(l[i]);
     T* o = out + ((int64_t(b) * S + s) * H + h) * HD;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) o[tx + 16 * j] = from_f32<T>(acc[i][j] / denom);
@@ -236,9 +244,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int S, int T_, int H, int KV, int causal, int window,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int B, int S, int T_, int H, int KV, int causal,
+           int window, cudaStream_t stream) {
   const int smem = smem_floats<HD>() * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
       flash_attention_kernel<T, HD>,
@@ -247,8 +255,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
   flash_attention_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), S, T_, H, KV, causal,
-      window, sqrtf(static_cast<float>(HD)));
+      static_cast<const T*>(v), static_cast<T*>(out), lse, S, T_, H, KV,
+      causal, window, sqrtf(static_cast<float>(HD)));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -473,8 +481,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v,
-                       __nv_bfloat16* __restrict__ out, int S, int T_, int H,
-                       int KV, int causal, int window, float scale_log2) {
+                       __nv_bfloat16* __restrict__ out,
+                       float* __restrict__ lse, int S, int T_, int H, int KV,
+                       int causal, int window, float scale_log2) {
   using L = Tile<HD>;
   constexpr int NS = kBK / 2;        // score registers a thread
   constexpr int KS = kBK / 16;       // 16-key steps of a tile
@@ -659,6 +668,10 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tm_q,
       const int row = row0 + 8 * r;
       if (row >= S) continue;
       const float denom = fmaxf(l[r], 1e-30f);
+      // m is in units of log2: the natural log-sum-exp is m ln 2 + log(l)
+      if (lse != nullptr && col0 == 0)
+        lse[(int64_t(b) * H + h) * S + row] =
+            m[r] * 0.6931471805599453f + logf(l[r]);
       __nv_bfloat16* dst = out + ((int64_t(b) * S + row) * H + h) * HD + col0;
 #pragma unroll
       for (int j = 0; j < HD / 8; ++j)
@@ -723,9 +736,9 @@ bool encode_map(CUtensorMap* map, const void* ptr, int batch, int seq,
 }
 
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int S, int T_, int H, int KV, int causal, int window,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int B, int S, int T_, int H, int KV, int causal,
+           int window, cudaStream_t stream) {
   using L = Tile<HD>;
   CUtensorMap tm_q, tm_k, tm_v;
   if (!encode_map(&tm_q, q, B, S, H, HD, L::kBoxCols, kBQ) ||
@@ -740,7 +753,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   const float scale_log2 =
       static_cast<float>(1.4426950408889634 / sqrt(static_cast<double>(HD)));
   flash_attention_kernel<HD><<<grid, kThreads, L::kSmem, stream>>>(
-      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(out), S, T_, H, KV,
+      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(out), lse, S, T_, H, KV,
       causal, window, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
@@ -751,13 +764,13 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 // cores. Each dtype has exactly one route; neither falls back to the other.
 template <int HD>
 int launch_route(const void* q, const void* k, const void* v, void* out,
-                 int dtype, int B, int S, int T_, int H, int KV, int causal,
-                 int window, cudaStream_t stream) {
+                 float* lse, int dtype, int B, int S, int T_, int H, int KV,
+                 int causal, int window, cudaStream_t stream) {
   if (dtype == 0)
-    return simt::launch<float, HD>(q, k, v, out, B, S, T_, H, KV, causal,
-                                   window, stream);
+    return simt::launch<float, HD>(q, k, v, out, lse, B, S, T_, H, KV,
+                                   causal, window, stream);
   if (dtype == 1)
-    return tc::launch<HD>(q, k, v, out, B, S, T_, H, KV, causal, window,
+    return tc::launch<HD>(q, k, v, out, lse, B, S, T_, H, KV, causal, window,
                           stream);
   return -1;
 }
@@ -768,30 +781,32 @@ int launch_route(const void* q, const void* k, const void* v, void* out,
 // q (B, S, H, hd), k and v (B, T, KV, hd), out (B, S, H, hd), all
 // contiguous and of one type: dtype 0 = float32 (the CUDA-core route),
 // 1 = bfloat16 (the tensor-core route, whose q, k and v must be 16-byte
-// aligned for TMA). hd is 32, 64, 128 or 160 and H a multiple of KV.
+// aligned for TMA); lse (B, H, S) float32, or null to skip it. hd is 32,
+// 64, 128 or 160 and H a multiple of KV.
 // Launches on `stream`; returns cudaGetLastError() (0 = launched), -1 for
 // a shape or type it does not take, or -2 when the TMA tensor maps cannot
 // be encoded.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* out, int dtype,
-                                   int B, int S, int T, int H, int KV,
-                                   int hd, int causal, int window,
+                                   const void* v, void* out, void* lse,
+                                   int dtype, int B, int S, int T, int H,
+                                   int KV, int hd, int causal, int window,
                                    void* stream) {
   if (B <= 0 || S <= 0 || T <= 0 || KV <= 0 || H % KV != 0) return -1;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   switch (hd) {
     case 32:
-      return launch_route<32>(q, k, v, out, dtype, B, S, T, H, KV, causal,
+      return launch_route<32>(q, k, v, out, l, dtype, B, S, T, H, KV, causal,
                               window, st);
     case 64:
-      return launch_route<64>(q, k, v, out, dtype, B, S, T, H, KV, causal,
+      return launch_route<64>(q, k, v, out, l, dtype, B, S, T, H, KV, causal,
                               window, st);
     case 128:
-      return launch_route<128>(q, k, v, out, dtype, B, S, T, H, KV, causal,
-                               window, st);
+      return launch_route<128>(q, k, v, out, l, dtype, B, S, T, H, KV,
+                               causal, window, st);
     case 160:
-      return launch_route<160>(q, k, v, out, dtype, B, S, T, H, KV, causal,
-                               window, st);
+      return launch_route<160>(q, k, v, out, l, dtype, B, S, T, H, KV,
+                               causal, window, st);
     default:
       return -1;
   }

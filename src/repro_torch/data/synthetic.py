@@ -1,9 +1,10 @@
-"""Synthetic class-conditional image tasks (the port's copy of the JAX
-package's ``data/synthetic.py``).
+"""Synthetic class-conditional image tasks and the LM driver's token
+streams (the port's copy of the JAX package's ``data/synthetic.py``).
 
 Each class is a smooth random template; samples are shifted, scaled and
 noised copies of it. The numpy generator is consumed in the reference's
-order, so the same seed gives byte-identical datasets in both packages.
+order, so the same seed gives byte-identical datasets and token streams in
+both packages.
 """
 from __future__ import annotations
 
@@ -94,3 +95,28 @@ def make_task(
         seed=seed * 17 + seed_offset,
         **spec,
     )
+
+
+def make_token_stream(
+    *, vocab_size: int, num_tokens: int, seed: int = 0, branch: int = 4
+) -> np.ndarray:
+    """Order-1 Markov token stream: each token has ``branch`` likely
+    successors (85%) plus uniform noise (15%). A small decoder can learn the
+    bigram structure -> loss drops from ln(V) toward
+    0.85*ln(branch) + 0.15*ln(V). Different seeds give different transition
+    tables, so per-client streams are genuinely non-IID. The reference's
+    draws, in its order, so the stream is the same token for token."""
+    rng = np.random.default_rng(seed)
+    table = rng.integers(0, vocab_size, size=(vocab_size, branch))
+    noise = rng.random(num_tokens)
+    pick = rng.integers(0, branch, size=num_tokens)
+    uni = rng.integers(0, vocab_size, size=num_tokens)
+    toks = np.empty(num_tokens, np.int32)
+    prev = int(uni[0])
+    for i in range(num_tokens):
+        if noise[i] < 0.85:
+            prev = int(table[prev, pick[i]])
+        else:
+            prev = int(uni[i])
+        toks[i] = prev
+    return toks

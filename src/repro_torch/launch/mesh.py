@@ -18,8 +18,11 @@ unmeshed arithmetic on the padded shapes. A test sets the mesh size by
 replacing ``visible_devices`` (e.g. with ``[device] * 8``). A split of the
 lane axis across several distinct devices is ROADMAP A5.2 and raises.
 
-The reference's production and host meshes (``make_production_mesh``,
-``make_host_mesh``) are TPU-pod tooling, ROADMAP A11.
+The LM trainer's host mesh (``make_host_mesh``, ``HostMesh``) lays the
+visible devices out as (data, model) with ``_host_mesh_shape``, as the
+reference does; the trainer stacks ``shape["data"]`` client lanes. A host
+mesh over several distinct devices raises (ROADMAP A5.2). The reference's
+production mesh (``make_production_mesh``) is TPU-pod tooling, ROADMAP A11.
 """
 from __future__ import annotations
 
@@ -80,6 +83,47 @@ def make_sim_mesh(num_clients: Optional[int] = None, *, axis: str = "data",
             "split the lane axis across cards, which is not ported yet "
             "(ROADMAP A5.2); make only one device visible")
     return SimMesh(tuple(devices), axis)
+
+
+def _host_mesh_shape(n: int) -> Tuple[int, int]:
+    """(data, model) factorization of ``n`` host devices that strands none:
+    model=2 only when it divides evenly (4 -> (2,2), 8 -> (4,2)); odd or
+    tiny counts keep every device on "data" (5 -> (5,1), 2 -> (2,1))."""
+    model = 2 if (n >= 4 and n % 2 == 0) else 1
+    return (n // model, model)
+
+
+@dataclasses.dataclass(frozen=True)
+class HostMesh:
+    """A 2-D (data, model) layout of ``devices``, ``_host_mesh_shape`` of
+    their count; ``shape`` reads as a ``jax.sharding.Mesh``'s does."""
+
+    devices: Tuple[torch.device, ...]
+    axis_names: Tuple[str, str] = ("data", "model")
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, _host_mesh_shape(len(self.devices))))
+
+
+def make_host_mesh(device=None) -> HostMesh:
+    """Whatever fits the host (the twin of the reference's
+    ``make_host_mesh``): every device ``visible_devices(device)`` lists,
+    odd counts included; one device gives (1, 1). Only the "data" size
+    means something here: the LM trainer stacks that many client lanes.
+    The reference shards each client's model over "model" (tensor
+    parallelism inside one participant); on one card every lane's model
+    runs whole, so the "model" size sets nothing. Raises
+    ``NotImplementedError`` when the list holds more than one distinct
+    device (ROADMAP A5.2)."""
+    devices = tuple(torch.device(d) for d in visible_devices(device))
+    if len(set(devices)) > 1:
+        raise NotImplementedError(
+            f"a host mesh over {len(set(devices))} distinct devices "
+            f"({', '.join(str(d) for d in dict.fromkeys(devices))}) would "
+            "split the client stack across cards, which is not ported yet "
+            "(ROADMAP A5.2); make only one device visible")
+    return HostMesh(devices)
 
 
 def check_lane_axis(mesh, C: int, what: str, device: torch.device) -> None:

@@ -9,7 +9,9 @@ Parameters for each pattern position are stacked over a leading
 (``blocks/pos0/attn/{wq,wk,wv,wo,norm}``, ``blocks/pos0/ffn/...``,
 ``blocks/pos0/ssm/{in_proj,conv_w,...}``,
 ``embed/{embed,unembed,final_norm}``), so a numpy tree of the reference's
-weights loads one-to-one (``lm_params_from_numpy``). The reference applies
+weights loads one-to-one (``lm_params_from_numpy``). ``lm_loss`` is the
+training loss; autograd differentiates it, attention through the flash
+kernel's own backward on the card. The reference applies
 the stack with ``lax.scan``; here a Python loop walks it, one layer's
 slice at a time. The decode cache (KV for attention, conv window and SSM
 state for Mamba2) is updated in place. ``decode_step_lanes`` decodes a
@@ -23,6 +25,7 @@ from typing import Any, Dict, Iterator, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -110,6 +113,15 @@ def _layer(tree: Mapping[str, Any], i: int) -> Dict[str, Any]:
             for k, v in tree.items()}
 
 
+def _layers(tree: Mapping[str, Any], n: int) -> List[Dict[str, Any]]:
+    """Every layer's slice of a stacked tree, from one ``unbind`` a leaf:
+    its backward stacks the layers' gradients once, where indexing layer
+    by layer would add a whole zero-padded leaf per layer."""
+    split = {k: (_layers(v, n) if isinstance(v, Mapping) else v.unbind(0))
+             for k, v in tree.items()}
+    return [{k: v[i] for k, v in split.items()} for i in range(n)]
+
+
 # ---------------------------------------------------------------------------
 # forward (prefill)
 
@@ -136,20 +148,63 @@ def _apply_block_position(
     return x
 
 
-def forward(params: Params, inputs: torch.Tensor,
-            cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+def forward(params: Params, inputs: torch.Tensor, cfg: ModelConfig, *,
+            remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward. inputs: int tokens (B, S). Returns
     (logits (B, S, V) in the activation dtype, aux_loss) — the aux loss is
-    the reference's MoE term, 0 for the dense and ssm families."""
+    the reference's MoE term, 0 for the dense and ssm families.
+
+    ``remat`` recomputes each layer's activations in the backward instead
+    of keeping them: the layer's positions run under
+    ``torch.utils.checkpoint`` (non-reentrant), where the reference wraps
+    them in ``jax.checkpoint``."""
     pattern = block_pattern(cfg)
     x = L.embed_tokens(params["embed"], inputs, cfg)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    for i in range(num_repeats(cfg)):
+
+    reps = num_repeats(cfg)
+    blocks = [_layers(params["blocks"][f"pos{pos}"], reps)
+              for pos in range(len(pattern))]
+
+    def layer(x, i):
         for pos in range(len(pattern)):
-            entry = _layer(params["blocks"][f"pos{pos}"], i)
-            x = _apply_block_position(entry, x, cfg, positions, None, None)
+            x = _apply_block_position(blocks[pos][i], x, cfg, positions,
+                                      None, None)
+        return x
+
+    for i in range(reps):
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(layer, x, i,
+                                                  use_reentrant=False)
+        else:
+            x = layer(x, i)
     logits = L.unembed(params["embed"], x, cfg)
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+# ---------------------------------------------------------------------------
+# loss
+
+
+def lm_loss(params: Params, batch: Mapping[str, torch.Tensor],
+            cfg: ModelConfig, *, remat: bool = False) -> torch.Tensor:
+    """Next-token cross-entropy (+ the MoE aux term, 0 here), in float32.
+    batch: {"inputs" (B, S), "labels" (B, S)} and an optional "mask"
+    (B, S): the mean over the masked positions (at least one), as in the
+    reference."""
+    logits, aux = forward(params, batch["inputs"], cfg, remat=remat)
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    label_logit = torch.gather(logits, -1,
+                               batch["labels"].long()[..., None])[..., 0]
+    nll = lse - label_logit
+    mask = batch.get("mask")
+    if mask is not None:
+        nll = nll * mask
+        denom = torch.clamp(torch.sum(mask), min=1.0)
+    else:
+        denom = nll.numel()
+    return torch.sum(nll) / denom + aux
 
 
 # ---------------------------------------------------------------------------

@@ -49,7 +49,8 @@ _tasks = mnist_tasks
 
 
 @pytest.mark.parametrize("name", ["ModelConfig", "FLConfig", "ScenarioConfig",
-                                  "AdversaryConfig", "PersonalizeConfig"])
+                                  "AdversaryConfig", "PersonalizeConfig",
+                                  "TrainConfig"])
 def test_config_copies_have_the_reference_fields_and_defaults(name):
     import repro.configs.base as ref
     import repro_torch.configs.base as port
