@@ -12,10 +12,11 @@ non-zero at the end, before any result line is printed):
    kernels built from ``src/repro_torch/csrc`` (nvcc, ``sm_90a``, all
    sources at once), with ptxas's registers and spills for each kernel of
    the SSD scan, each flash kernel (forward and backward) and the decode
-   kernels at hd 160; ``cuobjdump -sass`` of the flash library must show
-   tensor-core (``HGMMA``) and TMA (``UTMALDG``) instructions in each of
-   its bfloat16 kernels, and that of the SSD-scan library ``HGMMA`` in
-   each of its tensor-core passes.
+   kernels at hd 160; ``cuobjdump -sass`` of the flash forward and
+   backward libraries must show tensor-core (``HGMMA``) and TMA
+   (``UTMALDG``) instructions in each of their bfloat16 kernels at every
+   hd (the backward's dq and dkdv kernels), and that of the SSD-scan
+   library ``HGMMA`` in each of its tensor-core passes.
 2. Every kernel against its plain PyTorch version on the card:
    ``fused_sgd`` bit for bit over the sweep of the JAX package's kernel
    tests, with the gradient as one (C, P) tensor and as leaf lists in each
@@ -349,8 +350,9 @@ non-zero at the end, before any result line is printed):
    scaled to O(1) scores; the reference's scale logged beside a float64
    control), two steps with every flash launch held against its plain
    version, the step's time and peak memory. Then the backward's time at
-   the main path's lane and at yi-9b's shape against its bound, the plain
-   backward and SDPA's backward; the forward with and without ``lse``;
+   the main path's lane and at yi-9b's and stablelm-12b's shapes in
+   bfloat16 (its tensor-core route) against its bound, the plain backward
+   and SDPA's backward; the forward with and without ``lse``;
    ``fused_sgd`` at (4, 120,602,240) and (1, 870,338,560) with the
    models' 12 leaves.
 
@@ -426,18 +428,23 @@ SSD_KERNELS = ("chunk_states", "state_passing", "chunk_outputs")
 DECODE_KERNELS = ("decode_split_kernel", "decode_combine_kernel")
 
 
-ATTN_KERNELS = ("flash_attention_kernel",) + DECODE_KERNELS
+BWD_TC_KERNELS = ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")
+ATTN_KERNELS = (("flash_attention_kernel",) + BWD_TC_KERNELS
+                + ("sum_group_heads",) + DECODE_KERNELS)
 
 
 def kernel_label(mangled: str) -> str:
     """A short name for a mangled kernel of the SSD-scan or attention
     libraries, its template arguments in order, e.g.
     ``tc::chunk_outputs<128,2>``, ``simt::chunk_states<bf16>`` or
-    ``decode_split_kernel<bf16,f32,160,4>``."""
+    ``decode_split_kernel<bf16,f32,160,4>`` (no ``<>`` for a kernel that
+    is no template, ``tc::sum_group_heads``)."""
     base = next((k for k in SSD_KERNELS + ATTN_KERNELS if k in mangled),
                 mangled)
     ns = ("tc::" if f"2tc{len(base)}{base}" in mangled else
           "simt::" if f"4simt{len(base)}{base}" in mangled else "")
+    if not mangled.split(base, 1)[-1].startswith("I"):
+        return f"{ns}{base}"
     targs, last = [], ""
     tail = mangled.split(base, 1)[-1][1:].split("EEv")[0] + "E"
     for m in re.finditer(r"13__nv_bfloat16|S\d*_|Li(\d+)E|f", tail):
@@ -483,12 +490,30 @@ def sass_sections(build, name: str) -> dict:
     return sections
 
 
+def check_flash_bwd_sass(build) -> None:
+    """The flash backward's bfloat16 kernels (``tc::``, dq and dkdv) show
+    ``HGMMA`` and ``UTMALDG`` at every hd."""
+    bwd = {}        # label -> instruction counts of the backward's tc kernels
+    for name, body in sass_sections(build, "flash_attention_bwd").items():
+        label = kernel_label(name)
+        if label.split("<")[0] in {f"tc::{k}" for k in BWD_TC_KERNELS}:
+            bwd[label] = {op: body.count(op) for op in ("HGMMA", "UTMALDG")}
+    log(f"[build] flash_attention_bwd bfloat16 kernels' SASS: {bwd}")
+    want = {f"tc::{k}<{hd}>" for k in BWD_TC_KERNELS
+            for hd in (32, 64, 128, 160)}
+    check(set(bwd) == want
+          and all(n > 0 for c in bwd.values() for n in c.values()),
+          f"flash_attention_bwd's bfloat16 kernels lack HGMMA or UTMALDG: "
+          f"{bwd}")
+
+
 def check_tensor_core_sass(build) -> None:
-    """Phase 1: each bfloat16 kernel of the flash library (``tc::``)
+    """Phase 1: each bfloat16 kernel of the flash forward and backward
+    libraries (``tc::``: the forward, the backward's dq and dkdv kernels)
     multiplies on the tensor cores (wgmma, SASS ``HGMMA``) and loads
-    through TMA (``UTMALDG``), and each tensor-core pass of the SSD scan
-    (``tc::``, its bfloat16 route) shows ``HGMMA``, as ``cuobjdump -sass``
-    of the libraries shows."""
+    through TMA (``UTMALDG``) at every hd, and each tensor-core pass of the
+    SSD scan (``tc::``, its bfloat16 route) shows ``HGMMA``, as
+    ``cuobjdump -sass`` of the libraries shows."""
     counts = {}     # hd -> instruction counts of tc::flash_attention_kernel<hd>
     for name, body in sass_sections(build, "flash_attention").items():
         if "tc22flash_attention_kernel" in name:
@@ -499,6 +524,7 @@ def check_tensor_core_sass(build) -> None:
           and all(n > 0 for c in counts.values() for n in c.values()),
           f"flash_attention's bfloat16 kernels lack HGMMA or UTMALDG: "
           f"{counts}")
+    check_flash_bwd_sass(build)
     ssd = {kernel_label(name): body.count("HGMMA")
            for name, body in sass_sections(build, "ssd_scan").items()}
     log(f"[build] ssd_scan kernels' HGMMA counts: {ssd}")
@@ -5677,6 +5703,11 @@ def time_flash_bwd(flash_bwd, shape, dtype, reps):
     f0, b0 = flash_attention.launches, flash_bwd.launches
     _, lse = flash_attention_lse(q, k, v, causal=True, window=0)
     ms = time_launch(lambda: flash_bwd(q, k, v, do, lse), reps)
+    # each of the call's kernels by the profiler; the sum over a kv head's
+    # query heads runs in bfloat16 when H > KV
+    names = ["flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel"] + (
+        ["sum_group_heads"] if dtype == torch.bfloat16 and h > kv else [])
+    split = kernel_times(lambda: flash_bwd(q, k, v, do, lse), names)
     fwd_ms = time_launch(lambda: flash_attention(q, k, v), reps)
     fwd_lse_ms = time_launch(lambda: flash_attention_lse(
         q, k, v, causal=True, window=0), reps)
@@ -5699,8 +5730,9 @@ def time_flash_bwd(flash_bwd, shape, dtype, reps):
         f"{100 * bound_ms / ms:.2f}% of the bound), plain {plain_ms:.5f} ms, "
         f"SDPA backward {library_ms:.5f} ms, bound {bound_ms:.5f} ms "
         f"({bound_by}: {flops / 1e9:.1f} GFLOP, 2.5x the forward's causal "
-        f"products, {nbytes / 1e6:.1f} MB); the forward {fwd_ms:.5f} ms, "
-        f"with lse {fwd_lse_ms:.5f} ms")
+        f"products, {nbytes / 1e6:.1f} MB); its kernels by the profiler "
+        + ", ".join(f"{n} {t:.5f} ms" for n, (t, _) in split.items())
+        + f"; the forward {fwd_ms:.5f} ms, with lse {fwd_lse_ms:.5f} ms")
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
 
@@ -6071,7 +6103,8 @@ def main() -> int:
     yi_train_check(YI)
     times["flash_attention_bwd"] = time_flash_bwd(
         flash_attention_bwd, BWD_PATH, torch.float32, 20)
-    time_flash_bwd(flash_attention_bwd, FLASH_PATH, torch.bfloat16, 5)
+    time_flash_bwd(flash_attention_bwd, FLASH_PATH, torch.bfloat16, 20)
+    time_flash_bwd(flash_attention_bwd, FLASH_PATH_160, torch.bfloat16, 20)
     time_train_sgd(fused_sgd_lanes, sgd_lanes_reference, lm, TRAIN_LANES,
                    "fedsr-lm-100m's 12 leaves (4 lanes)")
     time_train_sgd(fused_sgd_lanes, sgd_lanes_reference,

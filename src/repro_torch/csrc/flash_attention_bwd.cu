@@ -19,12 +19,10 @@
 //   dK_c  = sum_{r, heads of c's group} dS_rc q_r / sqrt(hd)
 //   dV_c  = sum_{r, heads of c's group} P_rc dO_r
 // A key c is visible to row r when c < T and, when causal, c <= r and,
-// when window > 0, r - c < window: the forward's mask. The scores are
-// summed in the float32 forward's order and divided by sqrt(hd) as it
-// divides them, so in float32 they are the forward's bits and s - lse <= 0;
-// the exponent is clamped at 0 all the same (P <= 1), so where the
-// bfloat16 forward's tensor-core sums round otherwise, or the scores are
-// so large that lse rounds to the row's maximum, P cannot overflow.
+// when window > 0, r - c < window: the forward's mask. The exponent is
+// clamped at 0 (P <= 1), so where the scores round otherwise than the
+// forward's, or are so large that lse rounds to the row's maximum, P
+// cannot overflow.
 //
 // Bound: operations. The function needs 2.5x the forward's causal FLOPs
 // (QK^T, dO V^T, dS^T Q, P^T dO, dS K against QK^T and PV); at yi-9b's
@@ -39,9 +37,13 @@
 // exactly 0, while rowsum(dO * O) rounds apart from dP and leaves a
 // residue that the huge K then multiplies into dQ and dK.
 //
-// Design: the first one, simple and deterministic, on CUDA cores for both
-// types (bfloat16 is widened to float32 on load). Two kernels, with no
-// atomics, so a rerun gives the same bits:
+// Two routes, chosen by dtype (not a fallback: each dtype has exactly one;
+// no atomics in either, so a rerun gives the same bits):
+//
+// float32: CUDA cores (namespace simt), the first design, kept as it was:
+// its scores are summed in the float32 forward's order and divided by
+// sqrt(hd) as it divides them, so they are the forward's bits, s - lse <=
+// 0, and a saturated row's D cancels its dP exactly. Two kernels:
 // 1. dq: one block of 256 threads a (b, h, 64-row query tile), walking the
 //    key tiles the forward walks twice: first for D (written out for the
 //    dkdv kernel), then recomputing P and dP for dS and dQ, which
@@ -50,24 +52,75 @@
 //    K and V of its tile in shared memory and walks every 64-row query
 //    tile of every head of the kv head's group that can see the tile (the
 //    causal triangle and the window bound the walk), recomputing P from
-//    lse; dK and dV accumulate in registers across the group's heads, so
-//    the G heads that share a K/V tile need no reduction across blocks.
-// The thread layout is the forward's float32 route: thread (ty, tx) of
-// 16 x 16 owns rows ty + 16 i (i < 4) and score columns tx + 16 j (j < 4)
-// of a 64 x 64 tile, and output columns tx + 16 j (j < hd / 16) of its
-// rows. Shared-memory rows of hd are padded to hd + 1 floats, so 16 lanes
-// reading 16 rows hit 16 banks. The P / dS tile is one 64 x 65 buffer,
-// rewritten between the dV and dK products. At hd 160 a block holds
-// 182 KB of shared memory. Performance is later work: this design runs on
-// the CUDA cores' 67 TFLOP/s float32 FMAs and computes QK^T and dO V^T
-// three times (twice in dq, once in dkdv): 3.5x the forward's products.
+//    lse; dK and dV accumulate in registers across the group's heads.
+// Thread (ty, tx) of 16 x 16 owns rows ty + 16 i (i < 4) and score columns
+// tx + 16 j (j < 4) of a 64 x 64 tile, and output columns tx + 16 j
+// (j < hd / 16) of its rows. Shared-memory rows of hd are padded to hd + 1
+// floats, so 16 lanes reading 16 rows hit 16 banks. It multiplies with
+// plain float32 FMAs (67 TFLOP/s peak) and computes QK^T and dO V^T three
+// times: 3.5x the forward's products.
+//
+// bfloat16: tensor cores (namespace tc), on the forward's skeleton
+// (hopper_tc.cuh): blocks of 384 threads, warpgroup 0 the producer whose
+// one thread issues TMA loads (setmaxnreg 24), warpgroups 1 and 2 the
+// consumers (240) with 64 M-rows each; operands in shared memory in the
+// forward's swizzled boxes, rings of stages with a "full" mbarrier (the
+// TMA transaction count) and an "empty" one (the 256 consumer threads).
+// Three kernels:
+// A. dq: one block a (b, h, 128-row query tile), grid ordered heaviest
+//    first as the forward's. Q and dO are loaded once; K and V tiles of BK
+//    keys (128; 64 at hd 160, where two stages of 128-key K and V beside Q
+//    and dO would take 240 KB) go through a 2-stage ring, over the
+//    forward's key range, twice. S = Q K^T is the forward's wgmma
+//    sequence (m64nBKk16, both operands K-major, kk in hd order), and
+//    dP = dO V^T the same form. Walk 1 sums D_r = sum P dP, with
+//    P = exp2(min(S log2(e) / sqrt(hd) - lse log2(e), 0)), masked per
+//    element only on the edge tiles, in a fixed order over the quad, and
+//    writes D and lse log2(e) into rows padded to a multiple of 128.
+//    Walk 2 forms dS = P (dP - D) and accumulates dQ += dS K, a
+//    register-A wgmma with K MN-major (the forward's P V). dQ is scaled
+//    and rounded once at the end.
+// B. dkdv: one block a (b, h, 128-key tile), keys the M dimension: 64 a
+//    consumer, whose K and V are loaded once. Query tiles of BQ rows (64;
+//    32 at hd 160, where dK and dV take 160 registers a thread) of Q and
+//    dO, with their padded lse and D rows (a bulk copy), stream through a
+//    3-stage ring over the rows that can see the key tile (the float32
+//    route's causal and window bounds). S^T = K Q^T and dP^T = V dO^T are
+//    shared-memory wgmmas; P^T and dS^T, taken from the accumulators (the
+//    accumulator's 16-column step is a register A fragment), feed
+//    dV += P^T dO and dK += dS^T Q as register-A wgmmas with dO and Q
+//    MN-major, so P never goes through shared memory (FlashAttention-2/3's
+//    layout). The grid runs the first key tiles (the most rows) first.
+//    With G = H / KV = 1 it writes dK and dV; otherwise each query head
+//    writes its own in float32 to a (2, B, T, H, hd) scratch, and
+// C. sum_group_heads sums each kv head's G heads in head order and rounds
+//    once (at yi-9b, about 268 MB of extra traffic, ~0.08 ms). A block per
+//    query head keeps 1,024 blocks at yi-9b's shape where one per kv head
+//    would give 128 on 132 SMs, the first doing 32x the last's work.
+// Precision: P and dS are rounded once to bf16 as operands of the dQ, dK
+// and dV products (D and dS are formed in float32). In bfloat16 the
+// transposed products of B round S and dP otherwise than A does, so the
+// D that B reads is not the sum of B's own P dP bits; neither route
+// reproduces the bfloat16 forward's S bits (lse clamps P <= 1). The exact
+// cancellation of a saturated row holds in float32, the training route
+// that needs it. Work: S and dP twice in A and once in B, plus dQ, dV and
+// dK: 9 product passes against the bound's 5 (1.8x).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+// tc's geometry (kBQ, kBK, kStages, kThreads, Tile), its TMA, mbarrier and
+// wgmma helpers and encode_map
+#include "hopper_tc.cuh"
+
 namespace {
+
+// ---------------------------------------------------------------------------
+// float32 route: CUDA-core FMAs
+
+namespace simt {
 
 constexpr int kBQ = 64;         // query rows per tile
 constexpr int kBK = 64;         // keys per tile
@@ -432,17 +485,566 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
+}  // namespace simt
+
+// ---------------------------------------------------------------------------
+// bfloat16 route: wgmma fed by TMA
+
+namespace tc {
+
+constexpr int kKeysB = 128;    // keys per kernel-B block, 64 per consumer
+constexpr int kStagesB = 3;    // kernel B's ring of query tiles
+constexpr int kRowPad = 128;   // lse and D rows are padded to a multiple
+constexpr float kLog2e = 1.4426950408889634f;
+static_assert(kKeysB == kBK, "kernel B's K and V tiles are Tile's kBK rows");
+
+// Shared-memory geometry of kernels A and B at head dim HD (Tile's boxes).
 template <int HD>
-int launch_dtype(int dtype, const void* q, const void* k, const void* v,
-                 const void* dout, const float* lse, float* delta, void* dq,
-                 void* dk, void* dv, int B, int S, int T_, int H, int KV,
-                 int causal, int window, cudaStream_t stream) {
+struct BwdTile {
+  using L = Tile<HD>;
+  static constexpr int BK = HD == 160 ? 64 : kBK;   // A's keys a stage
+  static constexpr int BQ = HD == 160 ? 32 : 64;    // B's rows a stage
+  // A: Q and dO (kBQ rows), then kStages stages of K, then of V (BK rows)
+  static constexpr int kKBoxA = BK * L::kRowBytes;
+  static constexpr int kKVBytesA = L::kBoxes * kKBoxA;
+  static constexpr int kSmemA = 2 * L::kQBytes + 2 * kStages * kKVBytesA +
+                                8 * (1 + 2 * kStages) + 1024;
+  // B: K and V (kKeysB rows), kStagesB stages of Q, then of dO (BQ rows),
+  // then of the lse and D rows (BQ floats each)
+  static constexpr int kQBoxB = BQ * L::kRowBytes;
+  static constexpr int kQBytesB = L::kBoxes * kQBoxB;
+  static constexpr int kRowsB = 2 * BQ * 4;
+  static constexpr int kSmemB = 2 * L::kKVBytes +
+                                kStagesB * (2 * kQBytesB + kRowsB) +
+                                8 * (1 + 2 * kStagesB) + 1024;
+  static_assert(kSmemA <= 232448 && kSmemB <= 232448, "shared memory");
+};
+
+// d = A B^T (64 x N) over hd, A's 64 and B's N rows K-major in tiles whose
+// boxes are ABOX and BBOX bytes: the forward's sequence, kk in hd order.
+template <int HD, int N, int ABOX, int BBOX>
+__device__ __forceinline__ void product_k_major(float (&d)[N / 2], uint32_t a,
+                                                uint32_t b) {
+  using L = Tile<HD>;
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint32_t box = (kk * 16) / L::kBoxCols;
+    const uint32_t col = (kk * 16) % L::kBoxCols * 2;
+    wgmma_ss<N>(d, desc_k_major<HD>(a + box * ABOX + col),
+                desc_k_major<HD>(b + box * BBOX + col), kk > 0);
+  }
+}
+
+// A float32 fragment (64 x 16 KS, rows and columns as wgmma's accumulator)
+// rounded to bf16 as KS register A fragments: the accumulator's 16-column
+// step kk is the A fragment of step kk.
+template <int KS>
+__device__ __forceinline__ void to_a_frags(const float (&x)[8 * KS],
+                                           uint32_t (&a)[KS][4]) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      a[kk][c] = bf16x2_bits(
+          __floats2bfloat162_rn(x[8 * kk + 2 * c], x[8 * kk + 2 * c + 1]));
+}
+
+// Kernel A's S = Q K^T and dP = dO V^T for one stage's K and V tiles
+// (BK keys), once the stage's loads have landed.
+template <int HD>
+__device__ __forceinline__ void scores_a(
+    float (&s)[BwdTile<HD>::BK / 2], float (&dp)[BwdTile<HD>::BK / 2],
+    uint32_t q_wg, uint32_t do_wg, uint32_t k_t, uint32_t v_t,
+    uint32_t full, uint32_t parity) {
+  using W = BwdTile<HD>;
+  mbar_wait(full, parity);
+  wgmma_fence();
+  product_k_major<HD, W::BK, Tile<HD>::kQBox, W::kKBoxA>(s, q_wg, k_t);
+  product_k_major<HD, W::BK, Tile<HD>::kQBox, W::kKBoxA>(dp, do_wg, v_t);
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(s);
+  fence_regs(dp);
+}
+
+// Whether some (row, key) of a consumer's 64 rows from r_lo by the BK keys
+// from k0 is invisible: the diagonal, the window's edge, the ragged end of
+// T. Only such tiles are masked per element.
+template <int BK>
+__device__ __forceinline__ bool edge_a(int k0, int r_lo, int T_, int causal,
+                                       int window) {
+  return k0 + BK > T_ || (causal && k0 + BK - 1 > r_lo) ||
+         (window > 0 && r_lo + 63 - k0 >= window);
+}
+
+// P of one score (unscaled) given its row's lse in units of log2; 0 for an
+// invisible (row, col) of an edge tile.
+__device__ __forceinline__ float prob(float s, float scale_log2, float l2,
+                                      bool edge, int row, int col, int S,
+                                      int T_, int causal, int window) {
+  const float p = exp2f(fminf(fmaf(s, scale_log2, -l2), 0.0f));
+  return edge && !simt::visible(row, col, S, T_, causal, window) ? 0.0f : p;
+}
+
+// A: dQ, and D and lse log2(e) (rows padded to S_pad) for B.
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_do,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const float* __restrict__ lse, float* __restrict__ lse2,
+                    float* __restrict__ dsum, __nv_bfloat16* __restrict__ dq,
+                    int S, int S_pad, int T_, int H, int KV, int causal,
+                    int window, float scale_log2, float scale) {
+  using L = Tile<HD>;
+  using W = BwdTile<HD>;
+  constexpr int BK = W::BK;
+  constexpr int NS = BK / 2;         // score registers a thread
+  constexpr int KS = BK / 16;        // 16-key steps of a tile
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t q_s = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t do_s = q_s + L::kQBytes;
+  const uint32_t k_s = do_s + L::kQBytes;           // stage st: + st * kKVBytesA
+  const uint32_t v_s = k_s + kStages * W::kKVBytesA;
+  const uint32_t q_full = v_s + kStages * W::kKVBytesA;
+  const uint32_t kv_full = q_full + 8;               // + 8 st
+  const uint32_t empty = kv_full + 8 * kStages;
+
+  const int h = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // heaviest tiles first
+  const int b = blockIdx.z;
+  const int kvh = h / (H / KV);
+  // keys this query tile can see: [kv_begin, kv_end), as in the forward
+  const int kv_end = causal ? min(T_, q0 + kBQ) : T_;
+  const int kv_begin = window > 0 ? max(0, q0 - window + 1) / BK * BK : 0;
+  const int n_tiles = (kv_end - kv_begin + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(kv_full + 8 * st, 1);
+      mbar_init(empty + 8 * st, 2 * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // producer: Q and dO once, then the key tiles twice (walks 1 and 2)
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, 2 * L::kQBytes);
+      for (int c = 0; c < L::kBoxes; ++c) {
+        tma_load(q_s + c * L::kQBox, &tm_q, q_full, c * L::kBoxCols, h, q0,
+                 b);
+        tma_load(do_s + c * L::kQBox, &tm_do, q_full, c * L::kBoxCols, h, q0,
+                 b);
+      }
+      for (int i = 0; i < 2 * n_tiles; ++i) {
+        const int st = i % kStages;
+        const uint32_t parity = (i / kStages) & 1;
+        const int k0 = kv_begin + (i % n_tiles) * BK;
+        mbar_wait(empty + 8 * st, parity ^ 1);   // round 0 passes at once
+        mbar_expect_tx(kv_full + 8 * st, 2 * W::kKVBytesA);
+        for (int c = 0; c < L::kBoxes; ++c) {
+          tma_load(k_s + st * W::kKVBytesA + c * W::kKBoxA, &tm_k,
+                   kv_full + 8 * st, c * L::kBoxCols, kvh, k0, b);
+          tma_load(v_s + st * W::kKVBytesA + c * W::kKBoxA, &tm_v,
+                   kv_full + 8 * st, c * L::kBoxCols, kvh, k0, b);
+        }
+      }
+    }
+  } else {
+    // consumers: warpgroup wg - 1 owns query rows q0 + 64 (wg - 1) + [0, 64)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int lt = threadIdx.x % 128;
+    const int r_lo = q0 + 64 * (wg - 1);
+    const int row0 = r_lo + 16 * (lt / 32) + (lt % 32) / 4;  // and row0 + 8
+    const int col0 = 2 * (lt % 4);
+    const uint32_t q_wg = q_s + 64 * (wg - 1) * L::kRowBytes;
+    const uint32_t do_wg = do_s + 64 * (wg - 1) * L::kRowBytes;
+    const int64_t bh = int64_t(b) * H + h;
+    // lse of rows row0 and row0 + 8 in units of log2 (0 past S, where Q
+    // and dO are zero-filled, so P dP and dS are 0)
+    float l2[2], d[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      l2[r] = row < S ? lse[bh * S + row] * kLog2e : 0.0f;
+    }
+    mbar_wait(q_full, 0);
+
+    // walk 1: D_r = sum_c P_rc dP_rc
+    for (int i = 0; i < n_tiles; ++i) {
+      const int st = i % kStages;
+      const int k0 = kv_begin + i * BK;
+      float s[NS], dp[NS];
+      scores_a<HD>(s, dp, q_wg, do_wg, k_s + st * W::kKVBytesA,
+                   v_s + st * W::kKVBytesA, kv_full + 8 * st,
+                   (i / kStages) & 1);
+      mbar_arrive(empty + 8 * st);   // K and V are no longer read
+      const bool edge = edge_a<BK>(k0, r_lo, T_, causal, window);
+#pragma unroll
+      for (int j = 0; j < NS / 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const float p = prob(s[4 * j + e], scale_log2, l2[r], edge,
+                               row0 + 8 * r, k0 + 8 * j + col0 + (e & 1), S,
+                               T_, causal, window);
+          d[r] = fmaf(p, dp[4 * j + e], d[r]);
+        }
+    }
+    // each quad's four partial sums in a fixed order
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      d[r] += __shfl_xor_sync(0xffffffffu, d[r], 1);
+      d[r] += __shfl_xor_sync(0xffffffffu, d[r], 2);
+      // every row of the tile lies below S_pad; past S, 0 and 0
+      if (col0 == 0) {
+        lse2[bh * S_pad + row0 + 8 * r] = l2[r];
+        dsum[bh * S_pad + row0 + 8 * r] = d[r];
+      }
+    }
+
+    // walk 2: dS = P (dP - D), dQ += dS K with K MN-major (N = hd)
+    float acc[HD / 2];
+#pragma unroll
+    for (int x = 0; x < HD / 2; ++x) acc[x] = 0.0f;
+    for (int i = n_tiles; i < 2 * n_tiles; ++i) {
+      const int st = i % kStages;
+      const int k0 = kv_begin + (i - n_tiles) * BK;
+      const uint32_t k_t = k_s + st * W::kKVBytesA;
+      float s[NS], dp[NS];
+      scores_a<HD>(s, dp, q_wg, do_wg, k_t, v_s + st * W::kKVBytesA,
+                   kv_full + 8 * st, (i / kStages) & 1);
+      const bool edge = edge_a<BK>(k0, r_lo, T_, causal, window);
+#pragma unroll
+      for (int j = 0; j < NS / 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const float p = prob(s[4 * j + e], scale_log2, l2[r], edge,
+                               row0 + 8 * r, k0 + 8 * j + col0 + (e & 1), S,
+                               T_, causal, window);
+          s[4 * j + e] = p * (dp[4 * j + e] - d[r]);
+        }
+      uint32_t ds[KS][4];
+      to_a_frags<KS>(s, ds);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+        wgmma_pv<HD>(acc, ds[kk],
+                     desc_mn_major_rows<HD, BK>(k_t + kk * 16 * L::kRowBytes));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+      fence_regs(ds);
+      mbar_arrive(empty + 8 * st);   // K is no longer read
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= S) continue;
+      __nv_bfloat16* dst = dq + ((int64_t(b) * S + row) * H + h) * HD + col0;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * r] * scale,
+                                  acc[4 * j + 2 * r + 1] * scale);
+    }
+  }
+}
+
+// B: dK and dV of one query head h over a 128-key tile: to dk, dv when
+// H == KV, else (scaled, float32) to partial (2, B, T, H, hd).
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_do,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      const float* __restrict__ lse2,
+                      const float* __restrict__ dsum,
+                      __nv_bfloat16* __restrict__ dk,
+                      __nv_bfloat16* __restrict__ dv,
+                      float* __restrict__ partial, int S, int S_pad, int T_,
+                      int H, int KV, int causal, int window,
+                      float scale_log2, float scale) {
+  using L = Tile<HD>;
+  using W = BwdTile<HD>;
+  constexpr int BQ = W::BQ;
+  constexpr int NS = BQ / 2;         // score registers a thread
+  constexpr int KS = BQ / 16;        // 16-row steps of a query tile
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = smem_u32(smem_raw);
+  const uint32_t k_s = (base + 1023u) & ~1023u;
+  const uint32_t v_s = k_s + L::kKVBytes;
+  const uint32_t q_s = v_s + L::kKVBytes;           // stage st: + st * kQBytesB
+  const uint32_t do_s = q_s + kStagesB * W::kQBytesB;
+  const uint32_t rows_s = do_s + kStagesB * W::kQBytesB;   // + st * kRowsB
+  const uint32_t kv_full = rows_s + kStagesB * W::kRowsB;
+  const uint32_t full = kv_full + 8;                 // + 8 st
+  const uint32_t empty = full + 8 * kStagesB;
+
+  const int h = blockIdx.x;
+  const int k0 = blockIdx.y * kKeysB;   // the first key tiles see most rows
+  const int b = blockIdx.z;
+  const int kvh = h / (H / KV);
+  // query rows that see a key of this tile: [q_begin, q_end)
+  const int q_begin = causal ? k0 : 0;
+  const int q_end = window > 0 ? min(S, k0 + kKeysB - 1 + window) : S;
+  const int n_tiles = (q_end - q_begin + BQ - 1) / BQ;
+  const int64_t bh = int64_t(b) * H + h;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int st = 0; st < kStagesB; ++st) {
+      mbar_init(full + 8 * st, 1);
+      mbar_init(empty + 8 * st, 2 * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // producer: K and V once, then each query tile's Q, dO, lse and D
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(kv_full, 2 * L::kKVBytes);
+      for (int c = 0; c < L::kBoxes; ++c) {
+        tma_load(k_s + c * L::kKBox, &tm_k, kv_full, c * L::kBoxCols, kvh, k0,
+                 b);
+        tma_load(v_s + c * L::kKBox, &tm_v, kv_full, c * L::kBoxCols, kvh, k0,
+                 b);
+      }
+      const float* l_row = lse2 + bh * S_pad + q_begin;
+      const float* d_row = dsum + bh * S_pad + q_begin;
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % kStagesB;
+        const int q0 = q_begin + i * BQ;
+        const uint32_t bar = full + 8 * st;
+        mbar_wait(empty + 8 * st, ((i / kStagesB) & 1) ^ 1);
+        mbar_expect_tx(bar, 2 * W::kQBytesB + W::kRowsB);
+        for (int c = 0; c < L::kBoxes; ++c) {
+          tma_load(q_s + st * W::kQBytesB + c * W::kQBoxB, &tm_q, bar,
+                   c * L::kBoxCols, h, q0, b);
+          tma_load(do_s + st * W::kQBytesB + c * W::kQBoxB, &tm_do, bar,
+                   c * L::kBoxCols, h, q0, b);
+        }
+        bulk_load(rows_s + st * W::kRowsB, l_row + i * BQ, BQ * 4, bar);
+        bulk_load(rows_s + st * W::kRowsB + BQ * 4, d_row + i * BQ, BQ * 4,
+                  bar);
+      }
+    }
+  } else {
+    // consumers: warpgroup wg - 1 owns keys k0 + 64 (wg - 1) + [0, 64)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int lt = threadIdx.x % 128;
+    const int c_lo = k0 + 64 * (wg - 1);
+    const int key0 = c_lo + 16 * (lt / 32) + (lt % 32) / 4;  // and key0 + 8
+    const int col0 = 2 * (lt % 4);
+    const uint32_t k_wg = k_s + 64 * (wg - 1) * L::kRowBytes;
+    const uint32_t v_wg = v_s + 64 * (wg - 1) * L::kRowBytes;
+
+    float dk_acc[HD / 2], dv_acc[HD / 2];
+#pragma unroll
+    for (int x = 0; x < HD / 2; ++x) dk_acc[x] = dv_acc[x] = 0.0f;
+    mbar_wait(kv_full, 0);
+
+    for (int i = 0; i < n_tiles; ++i) {
+      const int st = i % kStagesB;
+      const int q0 = q_begin + i * BQ;
+      const uint32_t q_t = q_s + st * W::kQBytesB;
+      const uint32_t do_t = do_s + st * W::kQBytesB;
+      const float* l2 = reinterpret_cast<const float*>(
+          smem_raw + (rows_s - base) + st * W::kRowsB);
+      const float* dd = l2 + BQ;
+
+      // S^T = K Q^T and dP^T = V dO^T: rows keys, columns query rows
+      float s[NS], dp[NS];
+      mbar_wait(full + 8 * st, (i / kStagesB) & 1);
+      wgmma_fence();
+      product_k_major<HD, BQ, L::kKBox, W::kQBoxB>(s, k_wg, q_t);
+      product_k_major<HD, BQ, L::kKBox, W::kQBoxB>(dp, v_wg, do_t);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s);
+      fence_regs(dp);
+
+      // P^T and dS^T = P^T (dP^T - D) in place; masked per element only
+      // where some (key, row) of the 64 x BQ block is invisible
+      const bool edge = c_lo + 64 > T_ || q0 + BQ > S ||
+                        (causal && c_lo + 63 > q0) ||
+                        (window > 0 && q0 + BQ - 1 - c_lo >= window);
+#pragma unroll
+      for (int j = 0; j < NS / 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * j + col0 + (e & 1);
+          const float p = prob(s[4 * j + e], scale_log2, l2[col], edge,
+                               q0 + col, key0 + 8 * (e >> 1), S, T_, causal,
+                               window);
+          s[4 * j + e] = p;
+          dp[4 * j + e] = p * (dp[4 * j + e] - dd[col]);
+        }
+      uint32_t pa[KS][4], dsa[KS][4];
+      to_a_frags<KS>(s, pa);
+      to_a_frags<KS>(dp, dsa);
+
+      // dV += P^T dO and dK += dS^T Q, dO and Q MN-major (N = hd)
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        wgmma_pv<HD>(dv_acc, pa[kk], desc_mn_major_rows<HD, BQ>(
+                                         do_t + kk * 16 * L::kRowBytes));
+        wgmma_pv<HD>(dk_acc, dsa[kk], desc_mn_major_rows<HD, BQ>(
+                                          q_t + kk * 16 * L::kRowBytes));
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(dk_acc);
+      fence_regs(dv_acc);
+      fence_regs(pa);
+      fence_regs(dsa);
+      mbar_arrive(empty + 8 * st);   // this thread is done with the stage
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int t = key0 + 8 * r;
+      if (t >= T_) continue;
+      if (partial == nullptr) {
+        const int64_t off = ((int64_t(b) * T_ + t) * KV + kvh) * HD + col0;
+#pragma unroll
+        for (int j = 0; j < HD / 8; ++j) {
+          *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * j) =
+              __floats2bfloat162_rn(dk_acc[4 * j + 2 * r] * scale,
+                                    dk_acc[4 * j + 2 * r + 1] * scale);
+          *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * j) =
+              __floats2bfloat162_rn(dv_acc[4 * j + 2 * r],
+                                    dv_acc[4 * j + 2 * r + 1]);
+        }
+      } else {
+        const int64_t off = ((int64_t(b) * T_ + t) * H + h) * HD + col0;
+        const int64_t part = int64_t(gridDim.z) * T_ * H * HD;   // dV's
+#pragma unroll
+        for (int j = 0; j < HD / 8; ++j) {
+          *reinterpret_cast<float2*>(partial + off + 8 * j) =
+              make_float2(dk_acc[4 * j + 2 * r] * scale,
+                          dk_acc[4 * j + 2 * r + 1] * scale);
+          *reinterpret_cast<float2*>(partial + part + off + 8 * j) =
+              make_float2(dv_acc[4 * j + 2 * r], dv_acc[4 * j + 2 * r + 1]);
+        }
+      }
+    }
+  }
+}
+
+// C: dK (blockIdx.y 0) or dV (1), (B, T, KV, hd) bf16, from B's float32
+// partials (2, B, T, H, hd): each kv head's G = H / KV query heads summed
+// in head order, rounded once. n counts float4 groups of one output.
+__global__ void __launch_bounds__(256)
+sum_group_heads(const float4* __restrict__ partial,
+                __nv_bfloat162* __restrict__ dk,
+                __nv_bfloat162* __restrict__ dv, int64_t n, int G, int hd4) {
+  const int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  // (b, t, kv head) row i / hd4; its G heads are G consecutive rows
+  const float4* src =
+      partial + blockIdx.y * n * G + (i / hd4) * G * hd4 + i % hd4;
+  float4 acc = src[0];
+  for (int g = 1; g < G; ++g) {
+    const float4 x = src[g * hd4];
+    acc.x += x.x;
+    acc.y += x.y;
+    acc.z += x.z;
+    acc.w += x.w;
+  }
+  __nv_bfloat162* dst = blockIdx.y == 0 ? dk : dv;
+  dst[2 * i] = __floats2bfloat162_rn(acc.x, acc.y);
+  dst[2 * i + 1] = __floats2bfloat162_rn(acc.z, acc.w);
+}
+
+template <int HD>
+int launch(const void* q, const void* k, const void* v, const void* dout,
+           const float* lse, float* rows, float* partial, void* dq, void* dk,
+           void* dv, int B, int S, int T_, int H, int KV, int causal,
+           int window, cudaStream_t stream) {
+  using L = Tile<HD>;
+  using W = BwdTile<HD>;
+  if (H > KV && partial == nullptr) return -1;
+  CUtensorMap tm_q, tm_do, tm_k, tm_v, tm_qb, tm_dob, tm_kb, tm_vb;
+  if (!encode_map(&tm_q, q, B, S, H, HD, L::kBoxCols, kBQ) ||
+      !encode_map(&tm_do, dout, B, S, H, HD, L::kBoxCols, kBQ) ||
+      !encode_map(&tm_k, k, B, T_, KV, HD, L::kBoxCols, W::BK) ||
+      !encode_map(&tm_v, v, B, T_, KV, HD, L::kBoxCols, W::BK) ||
+      !encode_map(&tm_qb, q, B, S, H, HD, L::kBoxCols, W::BQ) ||
+      !encode_map(&tm_dob, dout, B, S, H, HD, L::kBoxCols, W::BQ) ||
+      !encode_map(&tm_kb, k, B, T_, KV, HD, L::kBoxCols, kKeysB) ||
+      !encode_map(&tm_vb, v, B, T_, KV, HD, L::kBoxCols, kKeysB))
+    return -2;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      W::kSmemA);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<HD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             W::kSmemB);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int S_pad = (S + kRowPad - 1) / kRowPad * kRowPad;
+  float* lse2 = rows;
+  float* dsum = rows + int64_t(B) * H * S_pad;
+  const double rsqrt_hd = 1.0 / sqrt(static_cast<double>(HD));
+  const float scale = static_cast<float>(rsqrt_hd);
+  const float scale_log2 = static_cast<float>(1.4426950408889634 * rsqrt_hd);
+  auto* dk_t = static_cast<__nv_bfloat16*>(dk);
+  auto* dv_t = static_cast<__nv_bfloat16*>(dv);
+
+  // A first: it writes the lse and D rows that B reads
+  flash_bwd_dq_kernel<HD><<<dim3(H, (S + kBQ - 1) / kBQ, B), kThreads,
+                            W::kSmemA, stream>>>(
+      tm_q, tm_do, tm_k, tm_v, lse, lse2, dsum,
+      static_cast<__nv_bfloat16*>(dq), S, S_pad, T_, H, KV, causal, window,
+      scale_log2, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_dkdv_kernel<HD><<<dim3(H, (T_ + kKeysB - 1) / kKeysB, B),
+                              kThreads, W::kSmemB, stream>>>(
+      tm_qb, tm_dob, tm_kb, tm_vb, lse2, dsum, dk_t, dv_t,
+      H > KV ? partial : nullptr, S, S_pad, T_, H, KV, causal, window,
+      scale_log2, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || H == KV) return static_cast<int>(err);
+  const int64_t n = int64_t(B) * T_ * KV * HD / 4;
+  sum_group_heads<<<dim3(static_cast<unsigned>((n + 255) / 256), 2), 256, 0,
+                    stream>>>(reinterpret_cast<const float4*>(partial),
+                              reinterpret_cast<__nv_bfloat162*>(dk_t),
+                              reinterpret_cast<__nv_bfloat162*>(dv_t), n,
+                              H / KV, HD / 4);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
+
+// The route is chosen by dtype: float32 on CUDA cores, bfloat16 on tensor
+// cores. Each dtype has exactly one route; neither falls back to the other.
+template <int HD>
+int launch_route(int dtype, const void* q, const void* k, const void* v,
+                 const void* dout, const float* lse, float* delta,
+                 float* partial, void* dq, void* dk, void* dv, int B, int S,
+                 int T_, int H, int KV, int causal, int window,
+                 cudaStream_t stream) {
   if (dtype == 0)
-    return launch<float, HD>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, T_,
-                             H, KV, causal, window, stream);
+    return simt::launch<float, HD>(q, k, v, dout, lse, delta, dq, dk, dv, B,
+                                   S, T_, H, KV, causal, window, stream);
   if (dtype == 1)
-    return launch<__nv_bfloat16, HD>(q, k, v, dout, lse, delta, dq, dk, dv,
-                                     B, S, T_, H, KV, causal, window, stream);
+    return tc::launch<HD>(q, k, v, dout, lse, delta, partial, dq, dk, dv, B,
+                          S, T_, H, KV, causal, window, stream);
   return -1;
 }
 
@@ -450,34 +1052,43 @@ int launch_dtype(int dtype, const void* q, const void* k, const void* v,
 
 // C interface, bound with ctypes (kernels/flash_attention/kernel.py).
 // q, dout, dq (B, S, H, hd); k, v, dk, dv (B, T, KV, hd), T == S; all
-// contiguous and of one type: dtype 0 = float32, 1 = bfloat16. lse and
-// delta are float32 (B, H, S): lse the forward's, delta scratch that the
-// call writes (D). hd is 32, 64, 128 or 160 and H a multiple of KV.
-// Launches two kernels on `stream`; returns cudaGetLastError() after each
-// (0 = launched) or -1 for a shape or type it does not take.
+// contiguous and of one type: dtype 0 = float32 (the CUDA-core route),
+// 1 = bfloat16 (the tensor-core route, whose q, k, v and dout must be
+// 16-byte aligned for TMA). lse is the forward's (B, H, S) float32.
+// delta is float32 scratch that the call writes: (B, H, S) floats (D) for
+// float32; for bfloat16 2 B H S_pad floats (lse log2(e) and D, rows padded
+// to S_pad = S rounded up to a multiple of 128, 16-byte aligned). partial
+// is float32 scratch of 2 B T H hd floats (each query head's dK and dV),
+// needed by bfloat16 when H > KV, else unused (may be null). hd is 32, 64,
+// 128 or 160 and H a multiple of KV.
+// Launches two kernels (three for bfloat16 with H > KV) on `stream`;
+// returns cudaGetLastError() after each (0 = launched), -1 for a shape or
+// type it does not take, or -2 when the TMA tensor maps cannot be encoded.
 extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* dout,
-                                   const void* lse, void* delta, void* dq,
-                                   void* dk, void* dv, int dtype, int B,
-                                   int S, int T, int H, int KV, int hd,
-                                   int causal, int window, void* stream) {
+                                   const void* lse, void* delta,
+                                   void* partial, void* dq, void* dk,
+                                   void* dv, int dtype, int B, int S, int T,
+                                   int H, int KV, int hd, int causal,
+                                   int window, void* stream) {
   if (B <= 0 || S <= 0 || T != S || KV <= 0 || H % KV != 0) return -1;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* d = static_cast<float*>(delta);
+  float* p = static_cast<float*>(partial);
   switch (hd) {
     case 32:
-      return launch_dtype<32>(dtype, q, k, v, dout, l, d, dq, dk, dv, B, S,
-                              T, H, KV, causal, window, st);
+      return launch_route<32>(dtype, q, k, v, dout, l, d, p, dq, dk, dv, B,
+                              S, T, H, KV, causal, window, st);
     case 64:
-      return launch_dtype<64>(dtype, q, k, v, dout, l, d, dq, dk, dv, B, S,
-                              T, H, KV, causal, window, st);
+      return launch_route<64>(dtype, q, k, v, dout, l, d, p, dq, dk, dv, B,
+                              S, T, H, KV, causal, window, st);
     case 128:
-      return launch_dtype<128>(dtype, q, k, v, dout, l, d, dq, dk, dv, B, S,
-                              T, H, KV, causal, window, st);
+      return launch_route<128>(dtype, q, k, v, dout, l, d, p, dq, dk, dv, B,
+                               S, T, H, KV, causal, window, st);
     case 160:
-      return launch_dtype<160>(dtype, q, k, v, dout, l, d, dq, dk, dv, B, S,
-                              T, H, KV, causal, window, st);
+      return launch_route<160>(dtype, q, k, v, dout, l, d, p, dq, dk, dv, B,
+                               S, T, H, KV, causal, window, st);
     default:
       return -1;
   }

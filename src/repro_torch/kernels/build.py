@@ -4,9 +4,10 @@ Each ``csrc/<name>.cu`` holds one kernel behind a plain C interface. It is
 compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``build/kernels/`` at the repository root and loaded with ``ctypes`` — no
 PyTorch headers, so a build takes seconds. Libraries are named by a hash
-of their source and flags, so an edited source rebuilds and an unchanged
-one is reused. Nothing is imported or compiled until a kernel is first
-needed: the CPU tests import every module of the package.
+of their source, the shared ``csrc/*.cuh`` headers and the flags, so an
+edited source or header rebuilds and an unchanged one is reused. Nothing
+is imported or compiled until a kernel is first needed: the CPU tests
+import every module of the package.
 """
 from __future__ import annotations
 
@@ -45,8 +46,12 @@ def cuda_tool(name: str) -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """Where ``csrc/<name>.cu``'s library is built: named by a hash of the
+    source, every ``csrc/*.cuh`` header it may include, and the flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -22,6 +22,7 @@ from repro_torch.kernels.flash_attention.ref import (
 )
 
 KERNEL_HEAD_DIMS = (32, 64, 128, 160)
+BWD_ROW_PAD = 128      # the bfloat16 backward's padded lse and D rows
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -65,6 +66,15 @@ def _check_cuda(what: str, **operands: torch.Tensor) -> None:
                          f"{q.shape[0]}")
 
 
+def _check_tma_aligned(**operands: torch.Tensor) -> None:
+    """The bfloat16 kernels load their operands with TMA, from 16-byte
+    aligned addresses only."""
+    for name, t in operands.items():
+        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned: the bfloat16 "
+                             "kernel loads it with TMA")
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True,
                           window: int = 0) -> torch.Tensor:
@@ -98,11 +108,7 @@ class FlashAttention:
 
     def _launch(self, q, k, v, causal, window, *, lse: bool):
         _check_cuda("flash_attention", q=q, k=k, v=v)
-        if q.dtype == torch.bfloat16:
-            for name, t in (("q", q), ("k", k), ("v", v)):
-                if t.data_ptr() % 16:
-                    raise ValueError(f"{name} must be 16-byte aligned: the "
-                                     "bfloat16 kernel loads it with TMA")
+        _check_tma_aligned(q=q, k=k, v=v)
         out = torch.empty_like(q)
         b, s, h, _ = q.shape
         lse_t = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
@@ -140,10 +146,26 @@ class FlashAttentionBwd:
     ``lse`` (B, H, S) float32 from ``flash_attention_lse``. On the CPU it
     runs ``ref.flash_attention_bwd_plain``, which recomputes it.
     ``launches`` counts kernel launches (one a call, which runs the dq and
-    dkdv kernels) — the CPU path never adds to it."""
+    dkdv kernels, and for bfloat16 with H > KV the kernel that sums each
+    kv head's query heads) — the CPU path never adds to it."""
 
     def __init__(self):
         self.launches = 0
+
+    @staticmethod
+    def scratch(q: torch.Tensor, k: torch.Tensor):
+        """The kernels' float32 scratch: ``delta``, D (B, H, S) for float32;
+        for bfloat16 lse log2(e) and D, (2, B, H, S_pad) with S_pad the
+        rows rounded up to ``BWD_ROW_PAD``; and ``partial`` (2, B, T, H, hd),
+        each query head's dK and dV, for bfloat16 with H > KV (else None)."""
+        B, S, H, hd = q.shape
+        T, KV = k.shape[1], k.shape[2]
+        f32 = dict(dtype=torch.float32, device=q.device)
+        if q.dtype != torch.bfloat16:
+            return torch.empty((B, H, S), **f32), None
+        s_pad = -(-S // BWD_ROW_PAD) * BWD_ROW_PAD
+        partial = (torch.empty((2, B, T, H, hd), **f32) if H > KV else None)
+        return torch.empty((2, B, H, s_pad), **f32), partial
 
     def __call__(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  dout: torch.Tensor, lse: torch.Tensor, *,
@@ -166,13 +188,14 @@ class FlashAttentionBwd:
             return flash_attention_bwd_plain(q, k, v, dout, causal=causal,
                                              window=window)
         _check_cuda("flash_attention_bwd", q=q, k=k, v=v, dout=dout, lse=lse)
+        _check_tma_aligned(q=q, k=k, v=v, dout=dout)
         dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
         if q.numel() == 0:
             return dq, dk, dv
-        delta = torch.empty_like(lse)
+        delta, partial = self.scratch(q, k)
         from repro_torch.kernels.flash_attention.kernel import launch_bwd
-        launch_bwd(q, k, v, dout, lse, delta, dq, dk, dv, causal=causal,
-                   window=window)
+        launch_bwd(q, k, v, dout, lse, delta, partial, dq, dk, dv,
+                   causal=causal, window=window)
         self.launches += 1
         return dq, dk, dv
 

@@ -71,6 +71,9 @@ CASES = [  # b, s, h, kv, hd, causal, window
     (2, 96, 4, 2, 64, False, 0),         # no mask
     (1, 80, 2, 2, 128, False, 30),       # a window without causality
     (4, 256, 10, 10, 64, True, 0),       # fedsr-lm-100m's lane
+    (1, 1024, 32, 4, 128, True, 0),      # yi-9b's GQA: 8 key tiles, G = 8
+    (1, 512, 32, 8, 160, True, 0),       # stablelm's hd 160 with G = 4
+    (1, 300, 16, 2, 64, True, 100),      # ragged, G = 8, a window
 ]
 
 
@@ -162,6 +165,23 @@ def test_backward_rejects_other_key_lengths(cuda):
         flash_attention_bwd(q, kk, vv, do, lse)
     with pytest.raises(ValueError, match="hd in"):
         ops._check_cuda("flash_attention_bwd", q=q[..., :16])
+
+
+@pytest.mark.gpu
+def test_backward_rejects_a_misaligned_bfloat16_view(cuda):
+    """The bfloat16 kernels load q, k, v and dout with TMA, which reads
+    from 16-byte aligned addresses only: a contiguous view one element
+    into its storage raises instead of launching."""
+    q, k, v, do = _inputs(1, 64, 4, 2, 64, torch.bfloat16, cuda)
+    out, lse = flash_attention_lse(q, k, v, causal=True, window=0)
+    shifted = torch.empty(do.numel() + 1, dtype=do.dtype,
+                          device=cuda)[1:].view(do.shape)
+    shifted.copy_(do)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    before = flash_attention_bwd.launches
+    with pytest.raises(ValueError, match="dout must be 16-byte aligned"):
+        flash_attention_bwd(q, k, v, shifted, lse)
+    assert flash_attention_bwd.launches == before
 
 
 @pytest.mark.gpu
