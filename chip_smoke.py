@@ -15,8 +15,10 @@ non-zero at the end, before any result line is printed):
    kernels at hd 160; ``cuobjdump -sass`` of the flash forward and
    backward libraries must show tensor-core (``HGMMA``) and TMA
    (``UTMALDG``) instructions in each of their bfloat16 kernels at every
-   hd (the backward's dq and dkdv kernels), and that of the SSD-scan
-   library ``HGMMA`` in each of its tensor-core passes.
+   hd (the backward's dq and dkdv kernels), their float32 (``simt::``)
+   kernels ``cp.async`` copies (``LDGSTS``) and no spills at every hd,
+   and that of the SSD-scan library ``HGMMA`` in each of its tensor-core
+   passes.
 2. Every kernel against its plain PyTorch version on the card:
    ``fused_sgd`` bit for bit over the sweep of the JAX package's kernel
    tests, with the gradient as one (C, P) tensor and as leaf lists in each
@@ -352,7 +354,8 @@ non-zero at the end, before any result line is printed):
    version, the step's time and peak memory. Then the backward's time at
    the main path's lane and at yi-9b's and stablelm-12b's shapes in
    bfloat16 (its tensor-core route) against its bound, the plain backward
-   and SDPA's backward; the forward with and without ``lse``;
+   and SDPA's backward; the forward with and without ``lse`` against its
+   bound and SDPA's forward;
    ``fused_sgd`` at (4, 120,602,240) and (1, 870,338,560) with the
    models' 12 leaves.
 
@@ -429,8 +432,9 @@ DECODE_KERNELS = ("decode_split_kernel", "decode_combine_kernel")
 
 
 BWD_TC_KERNELS = ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")
+BWD_SIMT_KERNELS = ("flash_bwd_delta_kernel", "flash_bwd_grad_kernel")
 ATTN_KERNELS = (("flash_attention_kernel",) + BWD_TC_KERNELS
-                + ("sum_group_heads",) + DECODE_KERNELS)
+                + BWD_SIMT_KERNELS + ("sum_group_heads",) + DECODE_KERNELS)
 
 
 def kernel_label(mangled: str) -> str:
@@ -507,6 +511,36 @@ def check_flash_bwd_sass(build) -> None:
           f"{bwd}")
 
 
+SIMT_KERNELS = {"flash_attention": ("flash_attention_kernel",),
+                "flash_attention_bwd": BWD_SIMT_KERNELS}
+
+
+def check_simt_sass(build) -> None:
+    """The flash forward's and backward's float32 kernels (``simt::``)
+    load through ``cp.async`` (SASS ``LDGSTS``) at every hd, and ptxas
+    reported no spills for them when this process built the libraries."""
+    found = {}      # label -> LDGSTS count
+    for lib, kernels in SIMT_KERNELS.items():
+        for name, body in sass_sections(build, lib).items():
+            label = kernel_label(name)
+            if label.split("<")[0] in {f"simt::{k}" for k in kernels}:
+                found[label] = body.count("LDGSTS")
+    log(f"[build] flash float32 kernels' LDGSTS counts: {found}")
+    want = {f"simt::{k}<{hd}>" for ks in SIMT_KERNELS.values() for k in ks
+            for hd in (32, 64, 128, 160)}
+    check(set(found) == want and all(n > 0 for n in found.values()),
+          f"the flash float32 kernels lack LDGSTS: {found}")
+    for lib in SIMT_KERNELS:
+        text = build.BUILD_LOGS.get(lib)
+        if text is None:
+            log(f"[build] {lib}: reused from build/, spills not checked")
+            continue
+        spills = {k: r for k, r in ptxas_by_kernel(text).items()
+                  if k.startswith("simt::")
+                  and "0 bytes spill stores, 0 bytes spill loads" not in r}
+        check(not spills, f"{lib}'s float32 kernels spill: {spills}")
+
+
 def check_tensor_core_sass(build) -> None:
     """Phase 1: each bfloat16 kernel of the flash forward and backward
     libraries (``tc::``: the forward, the backward's dq and dkdv kernels)
@@ -525,6 +559,7 @@ def check_tensor_core_sass(build) -> None:
           f"flash_attention's bfloat16 kernels lack HGMMA or UTMALDG: "
           f"{counts}")
     check_flash_bwd_sass(build)
+    check_simt_sass(build)
     ssd = {kernel_label(name): body.count("HGMMA")
            for name, body in sass_sections(build, "ssd_scan").items()}
     log(f"[build] ssd_scan kernels' HGMMA counts: {ssd}")
@@ -5578,6 +5613,13 @@ def train_fused_and_times(lm_cfg) -> None:
     log(f"[train] (a) a profiled step: busy {100 * busy:.1f}% of its wall "
         f"({100 * busy * wall_us / 1e3 / float(np.median(ms)):.1f}% of the "
         f"unprofiled median)")
+    flash = [(dev, count, key.replace("(anonymous namespace)::", "")
+              .replace("void ", "").split("(")[0])
+             for dev, count, key in device_rows(prof)
+             if "flash_attention_kernel" in key or "flash_bwd" in key]
+    log("[train] (a) the profiled step's flash kernels: " + ", ".join(
+        f"{name} {dev / 1e3:.3f} ms in {count}" for dev, count, name in flash)
+        + f"; together {sum(r[0] for r in flash) / 1e3:.3f} ms")
 
 
 def attention_plain64(q, k, v, *, causal=True, window=0):
@@ -5687,10 +5729,11 @@ def time_flash_bwd(flash_bwd, shape, dtype, reps):
     """The backward's cold-L2 time at ``shape`` against its bound, the
     plain backward and SDPA's backward (autograd of
     ``scaled_dot_product_attention``, causal, GQA); the forward's time with
-    and without lse."""
+    and without lse against its bound, the plain forward and SDPA's forward
+    (causal, GQA, the same dtype)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.ops import (
-        flash_attention, flash_attention_lse,
+        flash_attention, flash_attention_lse, flash_attention_plain,
     )
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_bwd_plain,
@@ -5703,17 +5746,24 @@ def time_flash_bwd(flash_bwd, shape, dtype, reps):
     f0, b0 = flash_attention.launches, flash_bwd.launches
     _, lse = flash_attention_lse(q, k, v, causal=True, window=0)
     ms = time_launch(lambda: flash_bwd(q, k, v, do, lse), reps)
-    # each of the call's kernels by the profiler; the sum over a kv head's
-    # query heads runs in bfloat16 when H > KV
-    names = ["flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel"] + (
-        ["sum_group_heads"] if dtype == torch.bfloat16 and h > kv else [])
+    # each of the call's kernels by the profiler: float32 runs D, then the
+    # dq and dkdv blocks in one launch; bfloat16 dq, dkdv and, when H > KV,
+    # the sum over a kv head's query heads
+    names = (list(BWD_SIMT_KERNELS) if dtype == torch.float32 else
+             list(BWD_TC_KERNELS)
+             + (["sum_group_heads"] if h > kv else []))
     split = kernel_times(lambda: flash_bwd(q, k, v, do, lse), names)
     fwd_ms = time_launch(lambda: flash_attention(q, k, v), reps)
     fwd_lse_ms = time_launch(lambda: flash_attention_lse(
         q, k, v, causal=True, window=0), reps)
     flash_attention.launches, flash_bwd.launches = f0, b0
+    sdpa_fwd_ms = time_launch(lambda: F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=True, enable_gqa=True), reps)
     plain_ms = time_launch(lambda: flash_attention_bwd_plain(q, k, v, do),
                            max(3, reps // 5))
+    plain_fwd_ms = time_launch(lambda: flash_attention_plain(q, k, v),
+                               max(3, reps // 5))
     leaves = [x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
     out = F.scaled_dot_product_attention(*leaves, is_causal=True,
                                          enable_gqa=True)
@@ -5725,6 +5775,9 @@ def time_flash_bwd(flash_bwd, shape, dtype, reps):
     flops = 2.5 * 4 * b * h * hd * s * (s + 1) // 2
     peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
     bound_ms, bound_by = _bound(nbytes, flops, peak)
+    fwd_bytes = esize * (2 * b * s * h * hd + 2 * b * s * kv * hd)
+    fwd_flops = 4 * b * h * hd * s * (s + 1) // 2
+    fwd_bound, fwd_by = _bound(fwd_bytes, fwd_flops, peak)
     log(f"[time] flash_attention_bwd {shape} {str(dtype)[6:]}: kernel "
         f"{ms:.5f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
         f"{100 * bound_ms / ms:.2f}% of the bound), plain {plain_ms:.5f} ms, "
@@ -5733,6 +5786,13 @@ def time_flash_bwd(flash_bwd, shape, dtype, reps):
         f"products, {nbytes / 1e6:.1f} MB); its kernels by the profiler "
         + ", ".join(f"{n} {t:.5f} ms" for n, (t, _) in split.items())
         + f"; the forward {fwd_ms:.5f} ms, with lse {fwd_lse_ms:.5f} ms")
+    log(f"[time] flash_attention forward {shape} {str(dtype)[6:]}: kernel "
+        f"{fwd_ms:.5f} ms ({fwd_flops / fwd_ms / 1e9:.1f} TFLOP/s, "
+        f"{100 * fwd_bound / fwd_ms:.2f}% of the bound), with lse "
+        f"{fwd_lse_ms:.5f} ms, plain {plain_fwd_ms:.5f} ms, SDPA forward "
+        f"{sdpa_fwd_ms:.5f} ms, bound "
+        f"{fwd_bound:.5f} ms ({fwd_by}: {fwd_flops / 1e9:.3f} GFLOP, "
+        f"causal, {fwd_bytes / 1e6:.1f} MB)")
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
 

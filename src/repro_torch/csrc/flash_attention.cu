@@ -56,19 +56,23 @@
 // units, which the backward (flash_attention_bwd.cu) reads to rebuild P.
 // Without the pointer (serving) nothing else changes.
 //
-// float32: CUDA cores (namespace simt), the first design of this kernel,
-// kept as it was: the float32 parity bounds of the on-card checks were set
-// against it, and a float32 product on tensor cores would need a 3xTF32
-// split. One block of 256 threads owns one (b, h, 64-row query tile),
-// staging 64-key tiles through shared memory; the online-softmax state
-// lives in registers: thread (ty, tx) of the 16 x 16 layout owns rows
-// ty + 16 i (i < 4), score columns tx + 16 j (j < 4) and output columns
-// tx + 16 j (j < hd / 16); a row's statistics reduce over the 16 lanes of
-// its half-warp with shuffles. Tiles wholly above the causal diagonal or
-// before the window are never loaded. Rows past S are masked here, not
-// padded by the caller. Shared-memory rows of q and k are padded to hd + 1
-// floats so the 16 lanes reading 16 key rows hit 16 banks. It multiplies
-// with plain float32 FMAs (67 TFLOP/s peak).
+// float32: CUDA cores (namespace simt, on simt_tile.cuh). One block of 128
+// threads owns one (b, h, 32-row query tile); the grid runs the query
+// tiles heaviest (longest causal row) first, so 320 blocks at a
+// fedsr-lm-100m lane (B=4, S=256, H=10, hd=64) spread over the 132 SMs.
+// Key and value tiles of 32 rows go through a two-stage ring of 16-byte
+// cp.async copies, so the next tile's loads are in flight while this one
+// is multiplied; rows are padded to hd + 4 floats (42.5 KB a block at
+// hd 64, so four blocks share an SM). The scores are simt_tile.cuh's
+// chain (each one fmaf chain in d order, then divided by sqrt(hd)): the
+// backward rebuilds these bits. The online-softmax state lives in
+// registers, a row's statistics reduce over its eight lanes with
+// shuffles; P goes through the stage's K tile into the register-blocked
+// P V product (float4 reads, 2 rows x hd / 8 columns a thread). Tiles
+// wholly above the causal diagonal or before the window are never loaded.
+// Rows past S are masked here, not padded by the caller. Bound at the
+// lane: 336.9 MFLOP of causal products at the 67 TFLOP/s float32 rate,
+// 0.0050 ms; a float32 product on tensor cores would need a 3xTF32 split.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -79,6 +83,8 @@
 // tc's geometry (kBQ, kBK, kStages, kThreads, Tile), its TMA, mbarrier and
 // wgmma helpers and encode_map
 #include "hopper_tc.cuh"
+// simt's tile geometry, cp.async loader, score chain and product
+#include "simt_tile.cuh"
 
 namespace {
 
@@ -87,107 +93,78 @@ namespace {
 
 namespace simt {
 
-constexpr int kBQ = 64;         // query rows per block
-constexpr int kBK = 64;         // keys per shared-memory tile
-constexpr int kThreads = 256;   // 16 x 16
-constexpr int kLDP = kBK + 1;   // padded row of the probability tile
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-
+// Shared memory of one block: Q (32 rows) and two ring stages of K and V
+// (32 keys each); P takes the stage's K tile once its scores are formed.
 template <int HD>
-constexpr int smem_floats() {
-  return kBQ * (HD + 1) + kBK * (HD + 1) + kBK * HD + kBQ * kLDP;
+constexpr int fwd_smem_floats() {
+  return 5 * tile_floats<HD>();
 }
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out,
+template <int HD>
+__global__ void __launch_bounds__(kThreads, HD <= 64 ? 4 : 1)
+flash_attention_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ out,
                        float* __restrict__ lse, int S, int T_, int H, int KV,
                        int causal, int window, float sqrt_hd) {
-  constexpr int LD = HD + 1;
-  constexpr int NJ = HD / 16;
-  extern __shared__ float smem[];
-  float* qs = smem;                // kBQ x LD
-  float* ks = qs + kBQ * LD;       // kBK x LD
-  float* vs = ks + kBK * LD;       // kBK x HD
-  float* ps = vs + kBK * HD;       // kBQ x kLDP
+  constexpr int TILE = tile_floats<HD>();
+  extern __shared__ float4 smem_f4[];
+  float* smem = reinterpret_cast<float*>(smem_f4);
+  float* qs = smem;                 // Q; stage st: K at ring + 2 st TILE
+  float* ring = qs + TILE;          // and V one TILE after it
 
   const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int tx = tid % 8, ty = tid / 8;
+  const int h = blockIdx.x % H;
+  const int b = blockIdx.x / H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;   // heaviest first
   const int kvh = h / (H / KV);
+  // keys this query tile can see: [kv_begin, kv_end)
+  const int kv_end = causal ? min(T_, q0 + kRows) : T_;
+  const int kv_begin =
+      window > 0 ? max(0, q0 - window + 1) / kRows * kRows : 0;
+  const int n_tiles = (kv_end - kv_begin + kRows - 1) / kRows;
 
-  for (int i = tid; i < kBQ * HD; i += kThreads) {
-    const int r = i / HD, d = i % HD;
-    const int s = q0 + r;
-    qs[r * LD + d] =
-        s < S ? to_f32(q[((int64_t(b) * S + s) * H + h) * HD + d]) : 0.0f;
-  }
+  load_rows<HD>(qs, q, b, q0, S, H, h);
+  load_rows<HD>(ring, k, b, kv_begin, T_, KV, kvh);
+  load_rows<HD>(ring + TILE, v, b, kv_begin, T_, KV, kvh);
+  cp_async_commit();
 
-  float acc[4][NJ];
-  float m[4], l[4];
+  float acc[2][HD / 8];
+  float m[2], l[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < 2; ++i) {
     m[i] = -INFINITY;
     l[i] = 0.0f;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.0f;
+    for (int j = 0; j < HD / 8; ++j) acc[i][j] = 0.0f;
   }
 
-  // keys this query tile can see: [kv_begin, kv_end)
-  const int kv_end = causal ? min(T_, q0 + kBQ) : T_;
-  const int kv_begin =
-      window > 0 ? max(0, q0 - window + 1) / kBK * kBK : 0;
-
-  for (int k0 = kv_begin; k0 < kv_end; k0 += kBK) {
-    __syncthreads();   // the previous tile's readers are done
-    for (int i = tid; i < kBK * HD; i += kThreads) {
-      const int c = i / HD, d = i % HD;
-      const int t = k0 + c;
-      float kx = 0.0f, vx = 0.0f;
-      if (t < T_) {
-        const int64_t off = ((int64_t(b) * T_ + t) * KV + kvh) * HD + d;
-        kx = to_f32(k[off]);
-        vx = to_f32(v[off]);
-      }
-      ks[c * LD + d] = kx;
-      vs[c * HD + d] = vx;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = kv_begin + it * kRows;
+    float* ks = ring + 2 * (it % 2) * TILE;
+    float* vs = ks + TILE;
+    // the next tile's K and V into the other stage, freed at the end of
+    // the previous iteration, while this one is multiplied
+    if (it + 1 < n_tiles) {
+      float* kn = ring + 2 * ((it + 1) % 2) * TILE;
+      load_rows<HD>(kn, k, b, k0 + kRows, T_, KV, kvh);
+      load_rows<HD>(kn + TILE, v, b, k0 + kRows, T_, KV, kvh);
     }
-    __syncthreads();
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();   // this tile's copies, every thread's, have landed
 
-    float s[4][4];
+    float s[2][4];
+    chain_tile<HD>(s, qs, ks);
+    float p[2][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
-#pragma unroll 4
-    for (int d = 0; d < HD; ++d) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = qs[(ty + 16 * i) * LD + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = ks[(tx + 16 * j) * LD + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < 2; ++i) {
       const int row = q0 + ty + 16 * i;
       float mx = -INFINITY;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
+        const int col = k0 + tx + 8 * j;
         bool ok = col < T_;
         if (causal) ok = ok && col <= row;
         if (window > 0) ok = ok && row - col < window;
@@ -195,7 +172,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         mx = fmaxf(mx, s[i][j]);
       }
 #pragma unroll
-      for (int o = 8; o > 0; o >>= 1)
+      for (int o = 1; o < 8; o <<= 1)
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
       const float m_new = fmaxf(m[i], mx);
       // a row with no visible key yet keeps m = -inf, l = 0, acc = 0
@@ -203,62 +180,58 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float rs = 0.0f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float p = m_new == -INFINITY ? 0.0f : expf(s[i][j] - m_new);
-        ps[(ty + 16 * i) * kLDP + tx + 16 * j] = p;
-        rs += p;
+        p[i][j] = m_new == -INFINITY ? 0.0f : expf(s[i][j] - m_new);
+        rs += p[i][j];
       }
 #pragma unroll
-      for (int o = 8; o > 0; o >>= 1)
+      for (int o = 1; o < 8; o <<= 1)
         rs += __shfl_xor_sync(0xffffffffu, rs, o);
       l[i] = alpha * l[i] + rs;
       m[i] = m_new;
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] *= alpha;
+      for (int j = 0; j < HD / 8; ++j) acc[i][j] *= alpha;
     }
+    __syncthreads();   // every thread's scores are formed: K is free
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) ks[(ty + 16 * i) * kLDP + tx + 8 * j] = p[i][j];
     __syncthreads();   // the probability tile is complete
-
-#pragma unroll 4
-    for (int c = 0; c < kBK; ++c) {
-      float pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = ps[(ty + 16 * i) * kLDP + c];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const float vx = vs[c * HD + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(pv[i], vx, acc[i][j]);
-      }
-    }
+    product_tile<HD>(acc, ks, vs);
+    __syncthreads();   // the stage's readers are done: it takes tile it + 2
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int s = q0 + ty + 16 * i;
-    if (s >= S) continue;
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + ty + 16 * i;
+    if (row >= S) continue;
     const float denom = fmaxf(l[i], 1e-30f);
-    // m and l are the row's over its whole half-warp
+    // m and l are the row's over its eight lanes
     if (lse != nullptr && tx == 0)
-      lse[(int64_t(b) * H + h) * S + s] = m[i] + logf(l[i]);
-    T* o = out + ((int64_t(b) * S + s) * H + h) * HD;
+      lse[(int64_t(b) * H + h) * S + row] = m[i] + logf(l[i]);
+    float* o = out + ((int64_t(b) * S + row) * H + h) * HD;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) o[tx + 16 * j] = from_f32<T>(acc[i][j] / denom);
+    for (int g = 0; g < HD / 32; ++g)
+      *reinterpret_cast<float4*>(o + 4 * (tx + 8 * g)) = make_float4(
+          acc[i][4 * g] / denom, acc[i][4 * g + 1] / denom,
+          acc[i][4 * g + 2] / denom, acc[i][4 * g + 3] / denom);
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 int launch(const void* q, const void* k, const void* v, void* out,
            float* lse, int B, int S, int T_, int H, int KV, int causal,
            int window, cudaStream_t stream) {
-  const int smem = smem_floats<HD>() * static_cast<int>(sizeof(float));
+  const int smem = fwd_smem_floats<HD>() * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, HD>,
+      flash_attention_kernel<HD>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  flash_attention_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), lse, S, T_, H, KV,
-      causal, window, sqrtf(static_cast<float>(HD)));
+  const dim3 grid(B * H, (S + kRows - 1) / kRows);
+  flash_attention_kernel<HD><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), lse, S, T_, H,
+      KV, causal, window, sqrtf(static_cast<float>(HD)));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -507,8 +480,8 @@ int launch_route(const void* q, const void* k, const void* v, void* out,
                  float* lse, int dtype, int B, int S, int T_, int H, int KV,
                  int causal, int window, cudaStream_t stream) {
   if (dtype == 0)
-    return simt::launch<float, HD>(q, k, v, out, lse, B, S, T_, H, KV,
-                                   causal, window, stream);
+    return simt::launch<HD>(q, k, v, out, lse, B, S, T_, H, KV, causal,
+                            window, stream);
   if (dtype == 1)
     return tc::launch<HD>(q, k, v, out, lse, B, S, T_, H, KV, causal, window,
                           stream);
@@ -519,9 +492,9 @@ int launch_route(const void* q, const void* k, const void* v, void* out,
 
 // C interface, bound with ctypes (kernels/flash_attention/kernel.py).
 // q (B, S, H, hd), k and v (B, T, KV, hd), out (B, S, H, hd), all
-// contiguous and of one type: dtype 0 = float32 (the CUDA-core route),
-// 1 = bfloat16 (the tensor-core route, whose q, k and v must be 16-byte
-// aligned for TMA); lse (B, H, S) float32, or null to skip it. hd is 32,
+// contiguous, 16-byte aligned (TMA and cp.async read them) and of one
+// type: dtype 0 = float32 (the CUDA-core route), 1 = bfloat16 (the
+// tensor-core route); lse (B, H, S) float32, or null to skip it. hd is 32,
 // 64, 128 or 160 and H a multiple of KV.
 // Launches on `stream`; returns cudaGetLastError() (0 = launched), -1 for
 // a shape or type it does not take, or -2 when the TMA tensor maps cannot

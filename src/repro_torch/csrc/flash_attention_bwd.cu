@@ -40,25 +40,36 @@
 // Two routes, chosen by dtype (not a fallback: each dtype has exactly one;
 // no atomics in either, so a rerun gives the same bits):
 //
-// float32: CUDA cores (namespace simt), the first design, kept as it was:
-// its scores are summed in the float32 forward's order and divided by
-// sqrt(hd) as it divides them, so they are the forward's bits, s - lse <=
-// 0, and a saturated row's D cancels its dP exactly. Two kernels:
-// 1. dq: one block of 256 threads a (b, h, 64-row query tile), walking the
-//    key tiles the forward walks twice: first for D (written out for the
-//    dkdv kernel), then recomputing P and dP for dS and dQ, which
-//    accumulates in registers.
-// 2. dkdv: one block of 256 threads a (b, kv head, 64-key tile). It keeps
-//    K and V of its tile in shared memory and walks every 64-row query
-//    tile of every head of the kv head's group that can see the tile (the
-//    causal triangle and the window bound the walk), recomputing P from
-//    lse; dK and dV accumulate in registers across the group's heads.
-// Thread (ty, tx) of 16 x 16 owns rows ty + 16 i (i < 4) and score columns
-// tx + 16 j (j < 4) of a 64 x 64 tile, and output columns tx + 16 j
-// (j < hd / 16) of its rows. Shared-memory rows of hd are padded to hd + 1
-// floats, so 16 lanes reading 16 rows hit 16 banks. It multiplies with
-// plain float32 FMAs (67 TFLOP/s peak) and computes QK^T and dO V^T three
-// times: 3.5x the forward's products.
+// float32: CUDA cores (namespace simt, on simt_tile.cuh, the forward's
+// tiles). Its scores are simt_tile.cuh's chain, the float32 forward's, and
+// divided by sqrt(hd) as the forward divides them, so they are the
+// forward's bits, s - lse <= 0, and a saturated row's D cancels its dP
+// exactly: every kernel forms dP with the same chain. Blocks of 128
+// threads; 32-row tiles, rows padded to hd + 4 floats; the streamed tiles
+// go through a two-stage ring of 16-byte cp.async copies, so the next
+// tile's loads are in flight while this one is multiplied; S, dP and the
+// dQ, dK and dV products are register-blocked float32 FMAs with float4
+// reads (simt_tile.cuh). Two launches:
+// 1. delta: one block a (b, h, 32-row query tile), heaviest tiles first,
+//    with Q and dO in shared memory, walks the key tiles the forward walks
+//    and writes D (51.0 KB a block at hd 64).
+// 2. grad: the dkdv blocks, then the dq blocks, in one launch, so that the
+//    two kinds fill the SMs together: at a fedsr-lm-100m lane (B=4, S=256,
+//    H=KV=10, hd=64) 640 blocks, three to an SM, where either kind alone
+//    has 320 for 132 SMs and the heaviest blocks' walks set the time.
+//    A dkdv block owns a (b, kv head, 32-key tile), key tile 0 (the most
+//    rows) first. It keeps K and V in shared memory and streams every
+//    32-row query tile of every head of the kv head's group that can see
+//    the tile (the causal triangle and the window bound the walk) through
+//    the ring; lse and D of a query tile are read into registers (8 floats
+//    a thread), so the block stays at 55.5 KB at hd 64. P^T, then dS^T,
+//    go through one tile into dV += P^T dO and dK += dS^T Q; dK and dV
+//    accumulate in registers across the group's heads. A dq block owns a
+//    (b, h, 32-row query tile), heaviest first: it walks its key tiles
+//    again, forms dS = P (dP - D), which takes the stage's V tile, and
+//    accumulates dQ += dS K in registers.
+// It computes QK^T and dO V^T three times: 9 product passes against the
+// bound's 5.
 //
 // bfloat16: tensor cores (namespace tc), on the forward's skeleton
 // (hopper_tc.cuh): blocks of 384 threads, warpgroup 0 the producer whose
@@ -114,6 +125,8 @@
 // tc's geometry (kBQ, kBK, kStages, kThreads, Tile), its TMA, mbarrier and
 // wgmma helpers and encode_map
 #include "hopper_tc.cuh"
+// simt's tile geometry, cp.async loader, score chain and product
+#include "simt_tile.cuh"
 
 namespace {
 
@@ -122,366 +135,319 @@ namespace {
 
 namespace simt {
 
-constexpr int kBQ = 64;         // query rows per tile
-constexpr int kBK = 64;         // keys per tile
-constexpr int kThreads = 256;   // 16 x 16
-constexpr int kLDP = kBK + 1;   // padded row of the P / dS tile
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-__device__ __forceinline__ bool visible(int row, int col, int S, int T_,
-                                        int causal, int window) {
-  bool ok = row < S && col < T_;
-  if (causal) ok = ok && col <= row;
-  if (window > 0) ok = ok && row - col < window;
-  return ok;
-}
-
+// The D kernel and the dq blocks: Q and dO (32 rows) and two ring stages
+// of K and V (32 keys); dS takes the stage's V tile once dP is formed.
 template <int HD>
-constexpr int smem_floats() {
-  return 4 * 64 * (HD + 1) + kBQ * kLDP + 2 * kBQ;
+constexpr int dq_smem_floats() {
+  return 6 * tile_floats<HD>();
 }
 
-// Rows [r0, r0 + 64) of one head of a (B, seq, heads, HD) tensor into a
-// 64 x (HD + 1) shared tile, zero past `seq`.
-template <typename T, int HD>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int b,
-                                          int r0, int seq, int heads,
-                                          int head) {
-  constexpr int LD = HD + 1;
-  for (int i = threadIdx.x; i < 64 * HD; i += kThreads) {
-    const int r = i / HD, d = i % HD;
-    const int s = r0 + r;
-    dst[r * LD + d] =
-        s < seq ? to_f32(src[((int64_t(b) * seq + s) * heads + head) * HD + d])
-                : 0.0f;
-  }
-}
-
-// acc[i][j] = sum_d a[ty + 16 i][d] * b[tx + 16 j][d] over two padded
-// 64 x HD tiles.
+// The dkdv blocks: K and V (32 keys), two ring stages of Q and dO (32
+// rows) and one tile for P^T, then dS^T.
 template <int HD>
-__device__ __forceinline__ void tile_dot(const float* a, const float* b,
-                                         float (&acc)[4][4]) {
-  constexpr int LD = HD + 1;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-#pragma unroll 4
-  for (int d = 0; d < HD; ++d) {
-    float av[4], bv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) av[i] = a[(ty + 16 * i) * LD + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) bv[j] = b[(tx + 16 * j) * LD + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
+constexpr int dkdv_smem_floats() {
+  return 6 * tile_floats<HD>() + kRows * kLDP;
 }
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const T* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta, T* __restrict__ dk,
-                      T* __restrict__ dv, int S, int T_, int H, int KV,
-                      int causal, int window, float sqrt_hd, float scale) {
-  constexpr int LD = HD + 1;
-  constexpr int NJ = HD / 16;
-  extern __shared__ float smem[];
-  float* ks = smem;                // kBK x LD
-  float* vs = ks + kBK * LD;       // kBK x LD
-  float* qs = vs + kBK * LD;       // kBQ x LD
-  float* dos = qs + kBQ * LD;      // kBQ x LD
-  float* ps = dos + kBQ * LD;      // kBQ x kLDP: P, then dS
-  float* lse_s = ps + kBQ * kLDP;  // kBQ
-  float* del_s = lse_s + kBQ;      // kBQ
+// P of one unscaled score given its row's lse: 0 where (row, col) is
+// invisible, the exponent clamped at 0.
+__device__ __forceinline__ float prob(float s, float sqrt_hd, float lse_r,
+                                      bool ok) {
+  return ok ? expf(fminf(s / sqrt_hd - lse_r, 0.0f)) : 0.0f;
+}
 
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int k0 = blockIdx.x * kBK;
-  const int kvh = blockIdx.y;
-  const int b = blockIdx.z;
-  const int G = H / KV;
+// One walk of a (b, h, 32-row query tile) over the key tiles the forward
+// walks. kDelta: D_r = sum_c P_rc dP_rc, written to delta. Otherwise, with
+// D read from delta: dS = P (dP - D) and dQ += dS K, written to dq.
+template <int HD, bool kDelta>
+__device__ __forceinline__ void dq_walk(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
+    const float* __restrict__ lse, float* __restrict__ delta,
+    float* __restrict__ dq, int S, int T_, int H, int KV, int causal,
+    int window, float sqrt_hd, float scale, int pair, int q0) {
+  constexpr int TILE = tile_floats<HD>();
+  extern __shared__ float4 smem_f4[];
+  float* smem = reinterpret_cast<float*>(smem_f4);
+  float* qs = smem;
+  float* dos = qs + TILE;
+  float* ring = dos + TILE;   // stage st: K at ring + 2 st TILE, V after it
 
-  load_tile<T, HD>(ks, k, b, k0, T_, KV, kvh);
-  load_tile<T, HD>(vs, v, b, k0, T_, KV, kvh);
+  const int tx = threadIdx.x % 8, ty = threadIdx.x / 8;
+  const int h = pair % H;
+  const int b = pair / H;
+  const int kvh = h / (H / KV);
+  // keys this query tile can see: [kv_begin, kv_end), as in the forward
+  const int kv_end = causal ? min(T_, q0 + kRows) : T_;
+  const int kv_begin =
+      window > 0 ? max(0, q0 - window + 1) / kRows * kRows : 0;
+  const int n_tiles = (kv_end - kv_begin + kRows - 1) / kRows;
+  const int64_t bh = int64_t(b) * H + h;
 
-  float acc_dk[4][NJ], acc_dv[4][NJ];
+  load_rows<HD>(qs, q, b, q0, S, H, h);
+  load_rows<HD>(dos, dout, b, q0, S, H, h);
+  load_rows<HD>(ring, k, b, kv_begin, T_, KV, kvh);
+  load_rows<HD>(ring + TILE, v, b, kv_begin, T_, KV, kvh);
+  cp_async_commit();
+
+  // lse and D of rows ty and ty + 16 (0 past S, where Q and dO are zero)
+  float lse_r[2], d_r[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + ty + 16 * i;
+    lse_r[i] = row < S ? lse[bh * S + row] : 0.0f;
+    d_r[i] = !kDelta && row < S ? delta[bh * S + row] : 0.0f;
+  }
+  float acc[2][HD / 8];
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) acc_dk[i][j] = acc_dv[i][j] = 0.0f;
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) acc[i][j] = 0.0f;
 
-  // query rows that see a key of this tile: [q_begin, q_end)
-  const int q_begin = causal ? k0 / kBQ * kBQ : 0;
-  const int q_end = window > 0 ? min(S, k0 + kBK - 1 + window) : S;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = kv_begin + it * kRows;
+    float* ks = ring + 2 * (it % 2) * TILE;
+    float* vs = ks + TILE;
+    if (it + 1 < n_tiles) {
+      float* kn = ring + 2 * ((it + 1) % 2) * TILE;
+      load_rows<HD>(kn, k, b, k0 + kRows, T_, KV, kvh);
+      load_rows<HD>(kn + TILE, v, b, k0 + kRows, T_, KV, kvh);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();   // this tile's copies, every thread's, have landed
 
-  for (int g = 0; g < G; ++g) {
-    const int h = kvh * G + g;
-    for (int q0 = q_begin; q0 < q_end; q0 += kBQ) {
-      __syncthreads();   // the previous tile's readers are done
-      load_tile<T, HD>(qs, q, b, q0, S, H, h);
-      load_tile<T, HD>(dos, dout, b, q0, S, H, h);
-      if (threadIdx.x < kBQ) {
-        const int s = q0 + threadIdx.x;
-        const int64_t off = (int64_t(b) * H + h) * S + s;
-        lse_s[threadIdx.x] = s < S ? lse[off] : 0.0f;
-        del_s[threadIdx.x] = s < S ? delta[off] : 0.0f;
+    float s[2][4], dp[2][4];
+    chain_tile<HD>(s, qs, ks);
+    chain_tile<HD>(dp, dos, vs);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = prob(s[i][j], sqrt_hd, lse_r[i],
+                             visible(q0 + ty + 16 * i, k0 + tx + 8 * j, S,
+                                     T_, causal, window));
+        // a thread sums its columns in order, tile after tile
+        if (kDelta) d_r[i] = fmaf(p, dp[i][j], d_r[i]);
+        s[i][j] = p * (dp[i][j] - d_r[i]);
       }
-      __syncthreads();
-
-      // P and dS, rows (queries) ty + 16 i, columns (keys) tx + 16 j
-      float p[4][4], ds[4][4];
-      tile_dot<HD>(qs, ks, p);
-      tile_dot<HD>(dos, vs, ds);
+    if (!kDelta) {
+      __syncthreads();   // every thread's dP is formed: V is free
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = ty + 16 * i;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int c = tx + 16 * j;
-          const float pv =
-              visible(q0 + r, k0 + c, S, T_, causal, window)
-                  ? expf(fminf(p[i][j] / sqrt_hd - lse_s[r], 0.0f))
-                  : 0.0f;
-          ds[i][j] = pv * (ds[i][j] - del_s[r]);
-          ps[r * kLDP + c] = pv;
-        }
-      }
-      __syncthreads();   // P is complete
-
-      // dV (keys ty + 16 i, columns tx + 16 j) += P^T dO
-#pragma unroll 4
-      for (int r = 0; r < kBQ; ++r) {
-        float pr[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) pr[i] = ps[r * kLDP + ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          const float x = dos[r * LD + tx + 16 * j];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            acc_dv[i][j] = fmaf(pr[i], x, acc_dv[i][j]);
-        }
-      }
-      __syncthreads();   // P's readers are done: the tile takes dS
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 2; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          ps[(ty + 16 * i) * kLDP + tx + 16 * j] = ds[i][j];
-      __syncthreads();
-
-      // dK += dS^T Q (scaled at the end)
-#pragma unroll 4
-      for (int r = 0; r < kBQ; ++r) {
-        float dr[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) dr[i] = ps[r * kLDP + ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          const float x = qs[r * LD + tx + 16 * j];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            acc_dk[i][j] = fmaf(dr[i], x, acc_dk[i][j]);
-        }
-      }
+          vs[(ty + 16 * i) * kLDP + tx + 8 * j] = s[i][j];
+      __syncthreads();   // dS is complete
+      product_tile<HD>(acc, vs, ks);
     }
+    __syncthreads();   // the stage's readers are done: it takes tile it + 2
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + ty + 16 * i;
+    if (kDelta) {
+      // a row's eight partial sums in a fixed butterfly, which leaves the
+      // same bits in all eight lanes
+#pragma unroll
+      for (int o = 1; o < 8; o <<= 1)
+        d_r[i] += __shfl_xor_sync(0xffffffffu, d_r[i], o);
+      if (tx == 0 && row < S) delta[bh * S + row] = d_r[i];
+    } else if (row < S) {
+      store_row<HD>(dq + ((int64_t(b) * S + row) * H + h) * HD, acc[i],
+                    scale);
+    }
+  }
+}
+
+// dK and dV of a (b, kv head, 32-key tile): every 32-row query tile of
+// every head of the kv head's group that can see the tile streams through
+// the ring; P^T, then dS^T, go through one tile.
+template <int HD>
+__device__ __forceinline__ void dkdv_block(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ dk, float* __restrict__ dv, int S, int T_, int H,
+    int KV, int causal, int window, float sqrt_hd, float scale, int pair,
+    int k0) {
+  constexpr int TILE = tile_floats<HD>();
+  extern __shared__ float4 smem_f4[];
+  float* smem = reinterpret_cast<float*>(smem_f4);
+  float* ks = smem;
+  float* vs = ks + TILE;
+  float* ring = vs + TILE;        // stage st: Q at ring + 2 st TILE, dO after
+  float* ps = ring + 4 * TILE;    // P^T, then dS^T: kRows x kLDP
+
+  const int tx = threadIdx.x % 8, ty = threadIdx.x / 8;
+  const int kvh = pair % KV;
+  const int b = pair / KV;
+  const int G = H / KV;
+  // query rows that see a key of this tile: [q_begin, q_end), for each of
+  // the G heads of the kv head's group
+  const int q_begin = causal ? k0 : 0;
+  const int q_end = window > 0 ? min(S, k0 + kRows - 1 + window) : S;
+  const int nq = (q_end - q_begin + kRows - 1) / kRows;
+  const int n_tiles = G * nq;
+
+  load_rows<HD>(ks, k, b, k0, T_, KV, kvh);
+  load_rows<HD>(vs, v, b, k0, T_, KV, kvh);
+  load_rows<HD>(ring, q, b, q_begin, S, H, kvh * G);
+  load_rows<HD>(ring + TILE, dout, b, q_begin, S, H, kvh * G);
+  cp_async_commit();
+
+  float acc_dk[2][HD / 8], acc_dv[2][HD / 8];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) acc_dk[i][j] = acc_dv[i][j] = 0.0f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int h = kvh * G + it / nq;
+    const int q0 = q_begin + it % nq * kRows;
+    float* qs = ring + 2 * (it % 2) * TILE;
+    float* dos = qs + TILE;
+    // this tile's lse and D for query columns tx + 8 j, read here so that
+    // the products below hide their latency
+    float lq[4], dd[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int row = q0 + tx + 8 * j;
+      const int64_t off = (int64_t(b) * H + h) * S + row;
+      lq[j] = row < S ? lse[off] : 0.0f;
+      dd[j] = row < S ? delta[off] : 0.0f;
+    }
+    if (it + 1 < n_tiles) {
+      const int hn = kvh * G + (it + 1) / nq;
+      const int qn = q_begin + (it + 1) % nq * kRows;
+      float* qsn = ring + 2 * ((it + 1) % 2) * TILE;
+      load_rows<HD>(qsn, q, b, qn, S, H, hn);
+      load_rows<HD>(qsn + TILE, dout, b, qn, S, H, hn);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();   // this tile's copies, every thread's, have landed
+
+    // S^T and dP^T: rows keys ty + 16 i, columns query rows tx + 8 j
+    float s[2][4], dp[2][4];
+    // two steps of four d a turn: fewer loads live beside dK and dV
+    chain_tile<HD, 2>(s, ks, qs);
+    chain_tile<HD, 2>(dp, vs, dos);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p =
+            prob(s[i][j], sqrt_hd, lq[j],
+                 visible(q0 + tx + 8 * j, k0 + ty + 16 * i, S, T_, causal,
+                         window));
+        dp[i][j] = p * (dp[i][j] - dd[j]);
+        ps[(ty + 16 * i) * kLDP + tx + 8 * j] = p;
+      }
+    __syncthreads();   // P^T is complete
+    product_tile<HD>(acc_dv, ps, dos);   // dV += P^T dO
+    __syncthreads();   // P^T's readers are done: the tile takes dS^T
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        ps[(ty + 16 * i) * kLDP + tx + 8 * j] = dp[i][j];
+    __syncthreads();
+    product_tile<HD>(acc_dk, ps, qs);    // dK += dS^T Q (scaled at the end)
+    __syncthreads();   // the stage's and the tile's readers are done
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
     const int t = k0 + ty + 16 * i;
     if (t >= T_) continue;
     const int64_t off = ((int64_t(b) * T_ + t) * KV + kvh) * HD;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      dk[off + tx + 16 * j] = from_f32<T>(acc_dk[i][j] * scale);
-      dv[off + tx + 16 * j] = from_f32<T>(acc_dv[i][j]);
-    }
+    store_row<HD>(dk + off, acc_dk[i], scale);
+    store_row<HD>(dv + off, acc_dv[i], 1.0f);
   }
 }
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    float* __restrict__ delta, T* __restrict__ dq,
-                    int S, int T_, int H, int KV, int causal, int window,
-                    float sqrt_hd, float scale) {
-  constexpr int LD = HD + 1;
-  constexpr int NJ = HD / 16;
-  extern __shared__ float smem[];
-  float* ks = smem;
-  float* vs = ks + kBK * LD;
-  float* qs = vs + kBK * LD;
-  float* dos = qs + kBQ * LD;
-  float* ps = dos + kBQ * LD;      // dS
-  float* lse_s = ps + kBQ * kLDP;
-  float* del_s = lse_s + kBQ;
+// 1. D of every (b, h, query tile), the heaviest tiles first.
+template <int HD>
+__global__ void __launch_bounds__(kThreads, HD <= 64 ? 4 : 1)
+flash_bwd_delta_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v,
+                       const float* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       float* __restrict__ delta, int S, int T_, int H,
+                       int KV, int causal, int window, float sqrt_hd) {
+  dq_walk<HD, true>(q, k, v, dout, lse, delta, nullptr, S, T_, H, KV, causal,
+                    window, sqrt_hd, 0.0f, blockIdx.x,
+                    (gridDim.y - 1 - blockIdx.y) * kRows);
+}
 
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kvh = h / (H / KV);
-
-  load_tile<T, HD>(qs, q, b, q0, S, H, h);
-  load_tile<T, HD>(dos, dout, b, q0, S, H, h);
-  if (threadIdx.x < kBQ) {
-    const int s = q0 + threadIdx.x;
-    lse_s[threadIdx.x] = s < S ? lse[(int64_t(b) * H + h) * S + s] : 0.0f;
-  }
-
-  // keys this query tile can see: [kv_begin, kv_end), as in the forward
-  const int kv_end = causal ? min(T_, q0 + kBQ) : T_;
-  const int kv_begin = window > 0 ? max(0, q0 - window + 1) / kBK * kBK : 0;
-
-  // pass 1: D_r = sum_c P_rc dP_rc, rows ty + 16 i; a thread sums its
-  // columns in order, then its half-warp's 16 partial sums in a fixed tree
-  float dsum[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  for (int k0 = kv_begin; k0 < kv_end; k0 += kBK) {
-    __syncthreads();   // the previous tile's readers are done
-    load_tile<T, HD>(ks, k, b, k0, T_, KV, kvh);
-    load_tile<T, HD>(vs, v, b, k0, T_, KV, kvh);
-    __syncthreads();
-    float p[4][4], dp[4][4];
-    tile_dot<HD>(qs, ks, p);
-    tile_dot<HD>(dos, vs, dp);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float pv =
-            visible(q0 + r, k0 + tx + 16 * j, S, T_, causal, window)
-                ? expf(fminf(p[i][j] / sqrt_hd - lse_s[r], 0.0f))
-                : 0.0f;
-        dsum[i] = fmaf(pv, dp[i][j], dsum[i]);
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int o = 8; o > 0; o >>= 1)
-      dsum[i] += __shfl_xor_sync(0xffffffffu, dsum[i], o);
-    const int r = ty + 16 * i;
-    if (tx == 0) {
-      del_s[r] = dsum[i];
-      if (q0 + r < S) delta[(int64_t(b) * H + h) * S + q0 + r] = dsum[i];
-    }
-  }
-
-  // pass 2: dS and dQ
-  float acc[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.0f;
-
-  for (int k0 = kv_begin; k0 < kv_end; k0 += kBK) {
-    __syncthreads();   // the previous tile's readers are done
-    load_tile<T, HD>(ks, k, b, k0, T_, KV, kvh);
-    load_tile<T, HD>(vs, v, b, k0, T_, KV, kvh);
-    __syncthreads();
-
-    float p[4][4], ds[4][4];
-    tile_dot<HD>(qs, ks, p);
-    tile_dot<HD>(dos, vs, ds);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const float pv =
-            visible(q0 + r, k0 + c, S, T_, causal, window)
-                ? expf(fminf(p[i][j] / sqrt_hd - lse_s[r], 0.0f))
-                : 0.0f;
-        ps[r * kLDP + c] = pv * (ds[i][j] - del_s[r]);
-      }
-    }
-    __syncthreads();   // dS is complete
-
-    // dQ (rows ty + 16 i, columns tx + 16 j) += dS K
-#pragma unroll 4
-    for (int c = 0; c < kBK; ++c) {
-      float dr[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dr[i] = ps[(ty + 16 * i) * kLDP + c];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const float x = ks[c * LD + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(dr[i], x, acc[i][j]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int s = q0 + ty + 16 * i;
-    if (s >= S) continue;
-    T* dst = dq + ((int64_t(b) * S + s) * H + h) * HD;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-      dst[tx + 16 * j] = from_f32<T>(acc[i][j] * scale);
+// 2. The dkdv blocks (n_kv of them, key tile 0, which sees the most rows,
+// first), then the dq blocks, the heaviest query tiles first: one launch,
+// so the two kinds share the SMs. Three blocks an SM at hd <= 64: the dq
+// and dkdv bodies together take 154 registers (at four blocks, 128, with
+// a spill, and slower).
+template <int HD>
+__global__ void __launch_bounds__(kThreads, HD <= 64 ? 3 : 1)
+flash_bwd_grad_kernel(const float* __restrict__ q,
+                      const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const float* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      float* __restrict__ delta, float* __restrict__ dq,
+                      float* __restrict__ dk, float* __restrict__ dv, int S,
+                      int T_, int H, int KV, int causal, int window,
+                      float sqrt_hd, float scale, int B, int n_kv) {
+  const int i = blockIdx.x;
+  if (i < n_kv) {
+    dkdv_block<HD>(q, k, v, dout, lse, delta, dk, dv, S, T_, H, KV, causal,
+                   window, sqrt_hd, scale, i % (B * KV),
+                   i / (B * KV) * kRows);
+  } else {
+    const int j = i - n_kv;
+    const int nq = (S + kRows - 1) / kRows;
+    dq_walk<HD, false>(q, k, v, dout, lse, delta, dq, S, T_, H, KV, causal,
+                       window, sqrt_hd, scale, j % (B * H),
+                       (nq - 1 - j / (B * H)) * kRows);
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const float* lse, float* delta, void* dq, void* dk, void* dv,
            int B, int S, int T_, int H, int KV, int causal, int window,
            cudaStream_t stream) {
-  const int smem = smem_floats<HD>() * static_cast<int>(sizeof(float));
+  const int smem_d = dq_smem_floats<HD>() * static_cast<int>(sizeof(float));
+  // the dkdv blocks' window is the larger
+  const int smem_g =
+      dkdv_smem_floats<HD>() * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkdv_kernel<T, HD>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_bwd_delta_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_d);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, HD>,
+  err = cudaFuncSetAttribute(flash_bwd_grad_kernel<HD>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
+                             smem_g);
   if (err != cudaSuccess) return static_cast<int>(err);
   const float sqrt_hd = sqrtf(static_cast<float>(HD));
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(HD)));
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  const T* dot = static_cast<const T*>(dout);
+  const float* qt = static_cast<const float*>(q);
+  const float* kt = static_cast<const float*>(k);
+  const float* vt = static_cast<const float*>(v);
+  const float* dot = static_cast<const float*>(dout);
+  const int nq = (S + kRows - 1) / kRows;
+  const int n_kv = B * KV * ((T_ + kRows - 1) / kRows);
 
-  // dq first: it writes D, which dkdv reads
-  const dim3 grid_q((S + kBQ - 1) / kBQ, H, B);
-  flash_bwd_dq_kernel<T, HD><<<grid_q, kThreads, smem, stream>>>(
-      qt, kt, vt, dot, lse, delta, static_cast<T*>(dq), S, T_, H, KV, causal,
-      window, sqrt_hd, scale);
+  // D first: the dq and dkdv blocks read it
+  flash_bwd_delta_kernel<HD><<<dim3(B * H, nq), kThreads, smem_d, stream>>>(
+      qt, kt, vt, dot, lse, delta, S, T_, H, KV, causal, window, sqrt_hd);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-
-  const dim3 grid_kv((T_ + kBK - 1) / kBK, KV, B);
-  flash_bwd_dkdv_kernel<T, HD><<<grid_kv, kThreads, smem, stream>>>(
-      qt, kt, vt, dot, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
-      S, T_, H, KV, causal, window, sqrt_hd, scale);
+  flash_bwd_grad_kernel<HD><<<n_kv + B * H * nq, kThreads, smem_g, stream>>>(
+      qt, kt, vt, dot, lse, delta, static_cast<float*>(dq),
+      static_cast<float*>(dk), static_cast<float*>(dv), S, T_, H, KV, causal,
+      window, sqrt_hd, scale, B, n_kv);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1040,8 +1006,8 @@ int launch_route(int dtype, const void* q, const void* k, const void* v,
                  int T_, int H, int KV, int causal, int window,
                  cudaStream_t stream) {
   if (dtype == 0)
-    return simt::launch<float, HD>(q, k, v, dout, lse, delta, dq, dk, dv, B,
-                                   S, T_, H, KV, causal, window, stream);
+    return simt::launch<HD>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, T_,
+                            H, KV, causal, window, stream);
   if (dtype == 1)
     return tc::launch<HD>(q, k, v, dout, lse, delta, partial, dq, dk, dv, B,
                           S, T_, H, KV, causal, window, stream);
@@ -1053,8 +1019,9 @@ int launch_route(int dtype, const void* q, const void* k, const void* v,
 // C interface, bound with ctypes (kernels/flash_attention/kernel.py).
 // q, dout, dq (B, S, H, hd); k, v, dk, dv (B, T, KV, hd), T == S; all
 // contiguous and of one type: dtype 0 = float32 (the CUDA-core route),
-// 1 = bfloat16 (the tensor-core route, whose q, k, v and dout must be
-// 16-byte aligned for TMA). lse is the forward's (B, H, S) float32.
+// 1 = bfloat16 (the tensor-core route); q, k, v and dout 16-byte aligned
+// (TMA and cp.async read them), dq, dk and dv too (float4 stores). lse
+// is the forward's (B, H, S) float32.
 // delta is float32 scratch that the call writes: (B, H, S) floats (D) for
 // float32; for bfloat16 2 B H S_pad floats (lse log2(e) and D, rows padded
 // to S_pad = S rounded up to a multiple of 128, 16-byte aligned). partial

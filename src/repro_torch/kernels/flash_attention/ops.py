@@ -66,13 +66,13 @@ def _check_cuda(what: str, **operands: torch.Tensor) -> None:
                          f"{q.shape[0]}")
 
 
-def _check_tma_aligned(**operands: torch.Tensor) -> None:
-    """The bfloat16 kernels load their operands with TMA, from 16-byte
-    aligned addresses only."""
+def _check_aligned(**operands: torch.Tensor) -> None:
+    """The kernels load their operands from 16-byte aligned addresses only:
+    the bfloat16 ones with TMA, the float32 ones with 16-byte cp.async."""
     for name, t in operands.items():
-        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned: the bfloat16 "
-                             "kernel loads it with TMA")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned: the kernel "
+                             "loads it with TMA or 16-byte cp.async")
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -108,7 +108,7 @@ class FlashAttention:
 
     def _launch(self, q, k, v, causal, window, *, lse: bool):
         _check_cuda("flash_attention", q=q, k=k, v=v)
-        _check_tma_aligned(q=q, k=k, v=v)
+        _check_aligned(q=q, k=k, v=v)
         out = torch.empty_like(q)
         b, s, h, _ = q.shape
         lse_t = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
@@ -145,9 +145,10 @@ class FlashAttentionBwd:
     ``flash_attention`` at (q, k, v) against ``dout``, given the forward's
     ``lse`` (B, H, S) float32 from ``flash_attention_lse``. On the CPU it
     runs ``ref.flash_attention_bwd_plain``, which recomputes it.
-    ``launches`` counts kernel launches (one a call, which runs the dq and
-    dkdv kernels, and for bfloat16 with H > KV the kernel that sums each
-    kv head's query heads) — the CPU path never adds to it."""
+    ``launches`` counts kernel launches (one a call, which runs two
+    kernels: in float32 D, then the dq and dkdv blocks; in bfloat16 dq and
+    dkdv, and with H > KV a third that sums each kv head's query heads) —
+    the CPU path never adds to it."""
 
     def __init__(self):
         self.launches = 0
@@ -188,7 +189,7 @@ class FlashAttentionBwd:
             return flash_attention_bwd_plain(q, k, v, dout, causal=causal,
                                              window=window)
         _check_cuda("flash_attention_bwd", q=q, k=k, v=v, dout=dout, lse=lse)
-        _check_tma_aligned(q=q, k=k, v=v, dout=dout)
+        _check_aligned(q=q, k=k, v=v, dout=dout)
         dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
         if q.numel() == 0:
             return dq, dk, dv

@@ -233,8 +233,16 @@ def embedding_specs(cfg: ModelConfig) -> dict:
 
 def embed_tokens(params: dict, tokens: torch.Tensor,
                  cfg: ModelConfig) -> torch.Tensor:
-    # gather, then cast: the same values as the reference's cast-then-gather
-    return params["embed"][tokens].to(activation_dtype(cfg))
+    # The reference casts the table, then gathers: its backward scatter-adds
+    # the rows' cotangents in the activation dtype and rounds to the
+    # parameter dtype once. Training does the same (ROADMAP C13); without a
+    # gradient the rows are gathered first (the same values), so serving
+    # never casts the vocab x d table. ``.to`` is a no-op when the dtypes
+    # agree.
+    table = params["embed"]
+    if torch.is_grad_enabled() and table.requires_grad:
+        return table.to(activation_dtype(cfg))[tokens]
+    return table[tokens].to(activation_dtype(cfg))
 
 
 def unembed(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

@@ -144,6 +144,38 @@ def test_c3_probe_tells_float32_p_from_bfloat16_p(hd):
     assert abs(rounded - exact) / abs(exact) > 10 * smoke.C3_TOL
 
 
+def test_ptxas_report_names_the_float32_flash_kernels():
+    """``chip_smoke.py``'s phase-1 check reads the float32 (``simt::``)
+    flash kernels by label: the forward, the backward's D kernel and its
+    dq-and-dkdv kernel, each with its head dim; a spill shows in the
+    report that the check holds."""
+    smoke = _smoke()
+    pre = "_ZN47_GLOBAL__N__8c21e4aa_22_flash_attention_bwd_cu_5f0d6e2b"
+    labels = {
+        pre + "4simt22flash_bwd_delta_kernelILi64EEEvPKfS3_S3_S3_S3_Pfiiiiiif":
+        "simt::flash_bwd_delta_kernel<64>",
+        pre + "4simt21flash_bwd_grad_kernelILi160EEEvPKfS3_S3_S3_S3_PfS4_S4_"
+        "S4_iiiiiiffii": "simt::flash_bwd_grad_kernel<160>",
+        pre + "2tc19flash_bwd_dq_kernelILi128EEEv14CUtensorMap_st":
+        "tc::flash_bwd_dq_kernel<128>",
+        "_ZN47_GLOBAL__N__0b1d_18_flash_attention_cu_9a4simt22flash_"
+        "attention_kernelILi32EEEvPKfS3_S3_PfS4_iiiiiif":
+        "simt::flash_attention_kernel<32>"}
+    for mangled, label in labels.items():
+        assert smoke.kernel_label(mangled) == label
+    grad = next(iter(k for k in labels if "grad" in k))
+    log = (f"ptxas info    : Compiling entry function '{grad}' for 'sm_90a'\n"
+           f"    8 bytes stack frame, 8 bytes spill stores, 8 bytes spill "
+           f"loads\n"
+           f"ptxas info    : Used 128 registers, used 1 barriers\n")
+    assert smoke.ptxas_by_kernel(log) == {
+        "simt::flash_bwd_grad_kernel<160>": "128 registers, 8 bytes spill "
+        "stores, 8 bytes spill loads; injected wgmma none"}
+    assert {k for ks in smoke.SIMT_KERNELS.values() for k in ks} == {
+        "flash_attention_kernel", "flash_bwd_delta_kernel",
+        "flash_bwd_grad_kernel"}
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,h,kv,t,hd,window", [
     (2, 8, 2, 256, 32, 0),

@@ -7,8 +7,9 @@ against ``jax.grad`` of the reference's
 ``lse`` against a float64 numpy log-sum-exp.
 
 Inputs are drawn with numpy from a seed and cross as numpy arrays. Cases
-cover GQA (G = 1, 2, 4), MQA, windows that start inside a 64-key tile
-and ragged S (not a multiple of the kernels' 64-row tiles), and hd 160.
+cover GQA (G = 1, 2, 4), MQA, windows that start inside a 32-key tile
+and ragged S (not a multiple of the kernels' 32-row float32 tiles), and
+hd 160.
 
 Tolerance: float32 on both sides, summed in other orders: every gradient
 within ``GRAD_TOL`` = 1e-5 of the reference's, relative to the largest
@@ -166,3 +167,16 @@ def test_backward_rejects_what_the_kernel_does_not_take():
         flash_attention_bwd(q, k, v, do[:, :8], lse)
     with pytest.raises(ValueError, match="runs on cuda or cpu"):
         ops._check_cuda("flash_attention_bwd", q=q.to("meta"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_take_only_16_byte_aligned_operands(dtype):
+    """Both kernels' routes read their operands 16 bytes at a time (TMA in
+    bfloat16, cp.async in float32): the wrappers' check passes a fresh
+    tensor and refuses a contiguous view one element into its storage."""
+    q = torch.zeros(1, 8, 2, 32, dtype=dtype)
+    ops._check_aligned(q=q, k=q[:, :, :1].contiguous())
+    shifted = torch.zeros(q.numel() + 1, dtype=dtype)[1:].view(q.shape)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    with pytest.raises(ValueError, match="dout must be 16-byte aligned"):
+        ops._check_aligned(q=q, dout=shifted)

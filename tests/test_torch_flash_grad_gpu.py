@@ -8,7 +8,9 @@ GPU machine without the JAX package's dependencies:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_flash_grad_gpu.py
 
-Without a card every case skips. Tolerances: each gradient against the
+Without a card every case skips. The float32 cases cross the 32-row tiles
+of the CUDA-core kernels (ragged S, windows starting inside a tile, G up to
+8) at every hd they take. Tolerances: each gradient against the
 plain backward computed in float64 from the same inputs, relative to the
 largest |value| of that gradient: ``TOL[float32]`` = 1e-4 (float32 sums
 over up to S keys in another order) and ``TOL[bfloat16]`` = 2e-2 (one
@@ -125,6 +127,36 @@ def test_saturated_rows_give_the_plain_gradient(cuda, scale):
         assert float((g - w).abs().max()) <= bound
 
 
+SATURATED = [  # b, s, h, kv, hd, window
+    (2, 192, 4, 2, 64, 48),      # a window that starts inside a tile
+    (1, 256, 8, 1, 64, 0),       # G = 8
+    (1, 100, 4, 2, 64, 0),       # ragged S
+    (1, 150, 8, 1, 128, 40),     # hd 128: ragged, G = 8, a window
+    (2, 130, 4, 2, 160, 0),      # hd 160, ragged
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scale", [3e3, 3e5])
+@pytest.mark.parametrize("b,s,h,kv,hd,window", SATURATED)
+def test_saturated_rows_with_windows_gqa_and_ragged_rows(cuda, b, s, h, kv,
+                                                         hd, window, scale):
+    """The saturated rows of ``test_saturated_rows_give_the_plain_gradient``
+    at the float32 tiling's edges: a window's first tile, eight query heads
+    summed into one kv head's dK and dV, rows past S in the last tile, and
+    the larger head dims. The backward rebuilds the forward's score bits
+    from the shared chain, so each one-hot row's dS is exactly 0."""
+    q, k, v, do = _inputs(b, s, h, kv, hd, torch.float32, cuda, seed=4)
+    q, k = q * scale, k * scale
+    out, lse = flash_attention_lse(q, k, v, causal=True, window=window)
+    got = flash_attention_bwd(q, k, v, do, lse, causal=True, window=window)
+    want = flash_attention_bwd_plain(q, k, v, do, causal=True, window=window)
+    for g, w in zip(got, want):
+        assert bool(g.isfinite().all())
+        bound = TOL[torch.float32] * max(1.0, float(w.abs().max()))
+        assert float((g - w).abs().max()) <= bound
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(1, 256, 32, 4, 128), (1, 192, 32, 8, 160),
@@ -182,6 +214,24 @@ def test_backward_rejects_a_misaligned_bfloat16_view(cuda):
     with pytest.raises(ValueError, match="dout must be 16-byte aligned"):
         flash_attention_bwd(q, k, v, shifted, lse)
     assert flash_attention_bwd.launches == before
+
+
+@pytest.mark.gpu
+def test_float32_kernels_reject_a_misaligned_view(cuda):
+    """The float32 kernels copy q, k, v and dout with 16-byte cp.async: a
+    contiguous view one element into its storage raises instead of
+    launching, in the forward and in the backward."""
+    q, k, v, do = _inputs(1, 64, 4, 2, 64, torch.float32, cuda)
+    out, lse = flash_attention_lse(q, k, v, causal=True, window=0)
+    shifted = torch.empty(q.numel() + 1, device=cuda)[1:].view(q.shape)
+    shifted.copy_(q)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    f0, b0 = flash_attention.launches, flash_attention_bwd.launches
+    with pytest.raises(ValueError, match="q must be 16-byte aligned"):
+        flash_attention(shifted, k, v)
+    with pytest.raises(ValueError, match="q must be 16-byte aligned"):
+        flash_attention_bwd(shifted, k, v, do, lse)
+    assert (flash_attention.launches, flash_attention_bwd.launches) == (f0, b0)
 
 
 @pytest.mark.gpu

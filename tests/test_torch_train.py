@@ -504,6 +504,89 @@ def test_unfused_bfloat16_step_runs_in_torch_ops():
     assert np.isfinite(float(loss))
 
 
+def _bf16_ulp(x: np.ndarray) -> float:
+    """One bfloat16 ulp at the largest |value| of ``x`` (8 significant
+    bits)."""
+    top = float(np.abs(x).max())
+    return 2.0 ** (np.floor(np.log2(top)) - 7) if top > 0 else 0.0
+
+
+def test_unfused_bfloat16_step_matches_the_reference():
+    """ROADMAP C13: one unfused step with bfloat16 parameters and momentum
+    from the same bits in both packages. The reference casts the embedding
+    table and then gathers, so its backward scatter-adds the rows'
+    cotangents in the activation dtype and rounds once; the port does the
+    same when the table needs a gradient. Each leaf then differs from the
+    reference only where a float32 gradient summed in another order rounds
+    to the other bfloat16 neighbour: at most 0.1% of its elements, each by
+    at most one bfloat16 ulp of the leaf's largest |value|. (Gathering and
+    then casting, the embedding differed in ~1.1% of its elements, by up
+    to 132 ulps.)"""
+    rc, pc = _cfgs()
+    kw = dict(param_dtype="bfloat16", learning_rate=0.1, momentum=0.5)
+    ref_step, _ = ref_steps.make_train_step(rc, RefTrainConfig(**kw),
+                                            ref_mesh.make_host_mesh())
+    port_step, _ = port_steps.make_train_step(pc, TrainConfig(**kw))
+    state = _stacked_state(_weights(rc), 2)
+    rs = {k: (jax.tree.map(lambda x: jnp.asarray(x, jnp.bfloat16), v)
+              if k != "step" else jnp.asarray(v)) for k, v in state.items()}
+    ps = port_steps.train_state_from_numpy(state, CPU)
+    ps = {k: (v.bfloat16() if k != "step" else v) for k, v in ps.items()}
+    batch = _batches(rc, 1, (2,))[0]
+    rs, _ = jax.jit(ref_step)(rs, jax.tree.map(jnp.asarray, batch))
+    ps, _ = port_step(ps, _to_torch(batch))
+    assert ps["params"].dtype == torch.bfloat16
+    ref = flatten_tree(jax.tree.map(
+        lambda x: np.asarray(x.astype(jnp.float32)), rs["params"]))
+    port = _port_tree(ps["params"].float(), pc)
+    assert sorted(ref) == sorted(port)
+    for name in ref:
+        got, want = port[name].numpy(), ref[name]
+        diff = np.abs(got - want)
+        assert np.count_nonzero(diff) <= 1e-3 * want.size, (
+            name, np.count_nonzero(diff), want.size)
+        assert diff.max() <= _bf16_ulp(want), (name, diff.max(),
+                                               _bf16_ulp(want))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_embedding_gathers_before_it_casts_without_a_gradient(dtype):
+    """Serving and decode never cast the whole vocab x d table: under
+    ``torch.no_grad()`` (or a table that needs no gradient) the rows are
+    gathered first, and the values equal cast-then-gather bit for bit."""
+    from repro_torch.models.layers import embed_tokens
+
+    cfg = dataclasses.replace(port_train.lm_100m_config(), **TINY,
+                              dtype=dtype)
+    rng = np.random.default_rng(5)
+    table = torch.from_numpy(rng.standard_normal(
+        (cfg.vocab_size, cfg.d_model)).astype(np.float32)).bfloat16()
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 7)))
+    casts = []
+
+    class Watch(torch.Tensor):
+        @classmethod
+        def __torch_function__(cls, func, types, args=(), kwargs=None):
+            if func is torch.Tensor.to and isinstance(args[0], Watch):
+                casts.append(tuple(args[0].shape))
+            return super().__torch_function__(func, types, args, kwargs or {})
+
+    want = table.to(torch.float32 if dtype == "float32"
+                    else torch.bfloat16)[tokens]
+    for grad in (False, True):
+        casts.clear()
+        leaf = table.clone().requires_grad_(grad).as_subclass(Watch)
+        with torch.no_grad():
+            out = embed_tokens({"embed": leaf}, tokens, cfg)
+        assert torch.equal(out.as_subclass(torch.Tensor), want)
+        assert (cfg.vocab_size, cfg.d_model) not in casts, casts
+    leaf = table.clone().requires_grad_().as_subclass(Watch)
+    casts.clear()
+    out = embed_tokens({"embed": leaf}, tokens, cfg)
+    assert torch.equal(out.detach().as_subclass(torch.Tensor), want)
+    assert casts == [(cfg.vocab_size, cfg.d_model)]
+
+
 def test_importing_the_trainer_leaves_jax_unloaded():
     code = ("import sys, repro_torch.launch.train, repro_torch.optim\n"
             "bad = sorted(m for m in sys.modules\n"
