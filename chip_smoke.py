@@ -90,7 +90,13 @@ non-zero at the end, before any result line is printed):
    the GPU's round-1 FedSR models of the sequential, batched and fused
    engines within it of each other. Then ``fused_sgd``'s times at
    (1, 199,210), and one steady FedSR round of each new engine timed
-   without the profiler and profiled, beside phase 3's fused round.
+   without the profiler and profiled, beside phase 3's fused round. Then
+   the paper's literal ring loop (ROADMAP A12,
+   ``core/ring.py::ring_optimization``): one ring of 5 of phase 3's
+   clients, R = 2 laps, E = 1, ``use_fused_sgd``, GPU then CPU: the model
+   within ``RING_TOL`` (1e-4) of the CPU's with the 1.03x learning rate
+   outside, ``p2p`` equal to ``ring_lap_hops(5, 2)`` = 9, one
+   ``fused_sgd`` launch a step, each bit-equal to its plain version.
 3d. Table III's new rows on the card: FedProx (E=5, R=1, ``mu`` 0.01) and
    HierFAVG (E=1, R=5) as ``benchmarks/fl_tables.py::_fl`` sets them, on
    phase 3's path (the paper MLP at full width, K=20, M=5, batch 32,
@@ -292,6 +298,23 @@ non-zero at the end, before any result line is printed):
    kernels' hd-160 case, 40 flash launches per ``prefill_step`` and
    40 x 48 = 1,920 decode launches per ``prefill_and_decode``, which the
    result line adds to phase 5's.
+4c. The audio and vlm families (ROADMAP A10.4a) at full width and 2
+   layers, as phase 4b, each with its wq x1.03 control: musicgen-large
+   (MHA at hd 64, vocab 2,048) through ``prefill_step`` (B=1, S=256) and
+   ``prefill_and_decode`` (B=4, 16 + 8); llava-next-mistral-7b, which
+   reads embeds (the generation loops refuse it), through ``prefill_step``
+   on numpy-drawn embeds 0.1 N(0, 1) (B=1, S=256) and ``make_serve_step``
+   fed B=4 x 24 embeds positions. Then llava's rolling cache against its
+   full cache in float32 at 2 layers, the window cut from 4096 to 64 over
+   96 positions, within 1e-4, the decode without a window outside.
+5c. Both at full width and depth, weights drawn on the card, bfloat16
+   activations, as phase 5: musicgen-large (48 layers, 12.92 GB)
+   ``prefill_step`` at B=1, S=4096 and ``prefill_and_decode`` at 16 + 32
+   (48 flash launches, 48 x 48 = 2,304 decode launches); llava (32 layers,
+   28.44 GB) ``prefill_step`` on embeds at B=1, S=8192 (prefill_32k cut to
+   one card), so the 4096-key window drops keys for half the rows, and
+   ``make_serve_step`` over B=4 x 16 + 32 embeds positions (32 flash
+   launches, 32 x 48 = 1,536 decode launches); the result line adds them.
 6. The mamba2-2.7b serving path at full width and 2 layers, GPU against
    CPU from the same CPU-drawn weights, in float32 and bfloat16, as in
    phase 4; also ``prefill_step`` (the chunked scan) against
@@ -327,7 +350,11 @@ non-zero at the end, before any result line is printed):
    version and one library call where PyTorch has one
    (``scaled_dot_product_attention``; none computes the SSD scan) at the
    paths' shapes (yi-9b's, then stablelm-12b's at hd 160, then the
-   fleet's batch of 8 at yi-9b's) and at one layer of decode_32k, at its batch of 128 and at batch 1; flash attention's
+   fleet's batch of 8 at yi-9b's, then phase 5c's: musicgen-large's
+   (1, 4096, 32, 32, 64) flash and (4, 32, 32, 48, 64) decode, llava's
+   (1, 8192, 32, 8, 128) flash under its 4096-key window, against SDPA
+   with a boolean mask of the band (its kernels logged), and (4, 32, 8, 48,
+   128) decode) and at one layer of decode_32k, at its batch of 128 and at batch 1; flash attention's
    rate in TFLOP/s of the causal products
    the function needs; decode attention's split count, its split and
    combine kernels each from a profiler run, and its time at split counts
@@ -966,6 +993,83 @@ def engines_path(run_experiment, fused_sgd_lanes, cfg, fl, init) -> int:
               f"round-1 FedSR models of the {a} and {b} engines {err} apart "
               f"on the GPU")
     return launches
+
+
+# Phase 3c's ring loop (ROADMAP A12): core/ring.py::ring_optimization, the
+# paper's Algorithm 1 inner loop as written, on phase 3's path: one ring of
+# the first 5 of phase 3's 20 pathological clients (100 images each, 4
+# steps of 32 a visit), R = 2 laps, E = 1, from phase 3's weights. On the
+# CPU a relative 1e-7 change of the initial weights moves the ring's model
+# by at most 6.0e-8 and the 1.03x learning rate by 3.3e-3, so the GPU is
+# held within RING_TOL of the CPU and the control must land outside.
+RING_K, RING_LAPS = 5, 2
+RING_TOL = 1e-4
+
+
+def ring_path(fused_sgd_lanes, sgd_lanes_reference, cfg, fl, init) -> int:
+    """Phase 3c's ring loop: ``ring_optimization`` on the card with
+    ``use_fused_sgd``, then on the CPU from the same weights and generator
+    seed; the model GPU against CPU within ``RING_TOL``, the 1.03x
+    learning rate outside it, the ``p2p`` meter equal to
+    ``ring_lap_hops(5, 2)`` = 9, one ``fused_sgd`` launch a step, each held
+    against its plain version bit for bit. Returns the GPU run's
+    launches."""
+    from repro_torch.core.comm import CommMeter
+    from repro_torch.core.local import LocalTrainer
+    from repro_torch.core.ring import ring_lap_hops, ring_optimization
+    from repro_torch.data.pipeline import make_clients
+    from repro_torch.data.synthetic import make_task
+    from repro_torch.models.small import params_from_numpy
+    from repro_torch.utils.tree import ravel_params
+
+    train, _ = make_task("mnist_like", seed=fl.seed)
+    ring = make_clients(train, scheme=fl.partition,
+                        num_devices=fl.num_devices,
+                        rng=np.random.default_rng(fl.seed))[:RING_K]
+    rfl = dataclasses.replace(fl, use_fused_sgd=True, local_epochs=1)
+
+    def run(device, lr):
+        trainer = LocalTrainer(cfg, rfl, device)
+        meter = CommMeter()
+        w0 = ravel_params(params_from_numpy(init, torch.device(device)))
+        t0 = time.perf_counter()
+        w = ring_optimization(trainer, w0, ring, lr=lr, laps=RING_LAPS,
+                              local_epochs=1,
+                              rng=np.random.default_rng(fl.seed), meter=meter)
+        w = w.cpu()
+        return w, meter, trainer.dispatches, time.perf_counter() - t0
+
+    t_phase = time.perf_counter()
+    fused_sgd_lanes.launches = 0
+    with checked_sgd(fused_sgd_lanes, sgd_lanes_reference) as sgd:
+        gpu, meter, steps, wall = run("cuda", fl.init_lr)
+    n = fused_sgd_lanes.launches
+    worst = 0.0 if sgd.worst is None else sgd.worst.item()
+    cpu, cpu_meter, cpu_steps, cpu_wall = run("cpu", fl.init_lr)
+    control = run("cuda", fl.init_lr * LR_CONTROL)[0]
+    hops = ring_lap_hops(RING_K, RING_LAPS)
+    err, err_c = (gpu - cpu).abs().max().item(), (control - cpu).abs().max(
+        ).item()
+    log(f"[ring] ring_optimization, {RING_K} clients x {RING_LAPS} laps, "
+        f"E=1: GPU {wall * 1e3:.1f} ms, CPU {cpu_wall * 1e3:.1f} ms; {steps} "
+        f"steps (CPU {cpu_steps}), fused_sgd launches {n}, each against its "
+        f"plain version: max |diff| {worst:.3e} ({sgd.calls} checked); p2p "
+        f"{meter.p2p} (CPU {cpu_meter.p2p}, ring_lap_hops {hops}); the model "
+        f"GPU against CPU: max |diff| {err:.3e} (bound {RING_TOL}); control, "
+        f"{LR_CONTROL}x the learning rate: {err_c:.3e}")
+    check(n == steps == cpu_steps == sgd.calls and n > 0,
+          f"ring loop: {n} fused_sgd launches, {sgd.calls} checked, for "
+          f"{steps} steps (CPU {cpu_steps})")
+    check(worst == 0.0, f"ring loop: a fused_sgd launch {worst} from its "
+          "plain version")
+    check(meter.p2p == cpu_meter.p2p == hops == meter.total_transfers,
+          f"ring loop: p2p {meter.p2p} (CPU {cpu_meter.p2p}), expected "
+          f"{hops}")
+    check(err <= RING_TOL, f"ring loop: the GPU model {err} from the CPU's")
+    check(err_c > RING_TOL, "ring loop: the bound does not tell the 1.03x "
+          "learning rate from the CPU's run")
+    log(f"[ring] phase 3c's ring loop in {time.perf_counter() - t_phase:.1f}s")
+    return n
 
 
 # Phase 3d, Table III's FedProx and HierFAVG rows (fl_tables.py::_fl:
@@ -3726,6 +3830,11 @@ FLASH_SWEEP = [
     (1, 512, 512, 32, 8, 160, 0, True), (1, 1000, 1000, 8, 2, 160, 0, True),
     (1, 1000, 1000, 8, 2, 160, 200, True), (2, 64, 320, 4, 2, 160, 0, False),
     (1, 4096, 4096, 32, 8, 160, 0, True),
+    # phase 5c's prefills: musicgen-large's MHA at hd 64, llava's GQA at
+    # S = 8192 under its 4096-key window (the window drops keys for half
+    # the rows)
+    (1, 4096, 4096, 32, 32, 64, 0, True),
+    (1, 8192, 8192, 32, 8, 128, 4096, True),
 ]
 # (b, h, kv, t, hd, window): tests/test_kernels.py's shapes and windows
 # (MQA included), G = 16, and the yi-9b decode shapes of phases 4-5; then
@@ -3742,6 +3851,9 @@ DECODE_SWEEP = [
     (1, 32, 4, 8448, 128, 0), (2, 16, 1, 777, 32, 0),
     (4, 32, 8, 48, 160, 0), (4, 32, 8, 48, 128, 0), (4, 32, 32, 48, 128, 0),
     (2, 32, 8, 2048, 160, 700), (2, 16, 1, 777, 160, 0),
+    # phase 5c's decodes (musicgen-large at G = 1, hd 64; llava at G = 4),
+    # and llava's window binding in decode (8448 positions, window 4096)
+    (4, 32, 32, 48, 64, 0), (2, 32, 8, 8448, 128, 4096),
 ]
 DECODE_DTYPES = [(torch.float32, torch.float32),
                  (torch.bfloat16, torch.bfloat16),
@@ -3751,6 +3863,11 @@ DECODE_PATH = (4, 32, 4, 48, 128)           # yi-9b CLI defaults, phase 5
 FLEET_DECODE = (8, 32, 4, 48, 128)          # yi-9b's fleet, phase 7b
 FLASH_PATH_160 = (1, 4096, 32, 8, 160)      # stablelm-12b, phase 5b
 DECODE_PATH_160 = (4, 32, 8, 48, 160)
+FLASH_MUSICGEN = (1, 4096, 32, 32, 64)      # musicgen-large, phase 5c
+FLASH_LLAVA = (1, 8192, 32, 8, 128)         # llava's prefill, phase 5c,
+LLAVA_WINDOW = 4096                         # under its sliding window
+DECODE_MUSICGEN = (4, 32, 32, 48, 64)
+DECODE_LLAVA = (4, 32, 8, 48, 128)
 DECODE_32K = (128, 32, 4, 32768, 128)       # one layer of decode_32k
 DECODE_32K_B1 = (1, 32, 4, 32768, 128)      # its cache at batch 1
 
@@ -4288,14 +4405,30 @@ SSM_DEEP_F32 = (1e-4, 1e-3, 0.99)
 
 
 # ---------------------------------------------------------------------------
-# the serving paths: yi-9b (phases 4-5) and mamba2-2.7b (phases 6-7)
+# the serving paths: yi-9b (phases 4-5), the other dense, audio and vlm
+# models (phases 4b-5c) and mamba2-2.7b (phases 6-7)
+
+def path_inputs(rng, cfg, shape) -> torch.Tensor:
+    """A serving path's inputs of ``shape`` (B, S) drawn from numpy's
+    ``rng`` on the host: token ids, or for an ``input_mode="embeds"``
+    model (llava, whose vision tower and projector are stubbed) float32
+    embeds (B, S, d) drawn 0.1 N(0, 1)."""
+    if cfg.input_mode == "tokens":
+        return torch.from_numpy(rng.integers(0, cfg.vocab_size, shape)
+                                .astype(np.int32))
+    return torch.from_numpy((0.1 * rng.standard_normal(
+        shape + (cfg.d_model,))).astype(np.float32))
+
 
 @dataclasses.dataclass
 class ServePath:
     """One serving path as phases 4-7 drive it: its full-width config, the
     model module whose kernel call sites a comparison swaps, its kernels
     and their plain versions, the launch counts it must show and the
-    bounds it is held to."""
+    bounds it is held to. A token model serves through
+    ``prefill_and_decode``; an embeds model through ``make_serve_step``
+    fed its embeds position by position (``serve_positions``), as the
+    generation loops refuse it."""
     name: str
     cfg: object
     module: object
@@ -4316,6 +4449,7 @@ class ServePath:
     decode_kernels: tuple = ()    # the same for a profiled decode step
     control: object = None        # params -> perturbed params whose logits
                                   # must land outside both comparisons
+    prefill_seq: int = 4096       # S of the full-depth prefill_step
 
 
 class swap_calls:
@@ -4378,19 +4512,39 @@ def check_launches(path, cfg, positions, n_prefill, n_serve, what):
           f"prefill_and_decode, expected {want_prefill} and {want_serve}")
 
 
-def teacher_forced_logits(cfg, params, toks, device):
-    """Per-position logits (B, S, V) of ``decode_step`` fed ``toks``."""
+def serve_positions(cfg, params, inputs, device, s0: int = 0):
+    """``make_serve_step`` fed ``inputs`` (B, S) ids or (B, S, d) embeds one
+    position at a time from a fresh cache: what ``prefill_and_decode``
+    does with a prompt and its tokens, and how an embeds model serves.
+    Returns (logits (B, S, V) on ``device``, stats): the first ``s0``
+    positions count as the prefill, the rest as decode steps, each span
+    fenced."""
+    from repro_torch.launch.serve import fence
     from repro_torch.launch.steps import make_serve_step
     from repro_torch.models.transformer import init_cache
 
+    b, seq = inputs.shape[:2]
+    device = torch.device(device)
+    inputs = inputs.to(device)
     step = make_serve_step(cfg)
-    cache = init_cache(cfg, toks.shape[0], toks.shape[1],
-                       dtype=torch.float32, device=device)
+    cache = init_cache(cfg, b, seq, dtype=torch.float32, device=device)
     out = []
-    for i in range(toks.shape[1]):
-        logits, cache = step(params, cache, toks[:, i:i + 1].to(device), i)
-        out.append(logits.float().cpu())
-    return torch.cat(out, dim=1)
+    t0 = t1 = fence(device)
+    for i in range(seq):
+        if i == s0:
+            t1 = fence(device)
+        logits, cache = step(params, cache, inputs[:, i:i + 1], i)
+        out.append(logits)
+    t2 = fence(device)
+    return torch.cat(out, dim=1), {
+        "prefill_s": t1 - t0, "decode_s": t2 - t1,
+        "decode_tok_s": b * (seq - s0) / max(t2 - t1, 1e-9)}
+
+
+def teacher_forced_logits(cfg, params, toks, device):
+    """Per-position logits (B, S, V) of ``decode_step`` fed ``toks`` (ids,
+    or an embeds model's embeds), as float32 on the host."""
+    return serve_positions(cfg, params, toks, device)[0].float().cpu()
 
 
 
@@ -4414,9 +4568,11 @@ def greedy_near_max(want_tf, toks, other, s0, dtype, what, got_name,
 
 
 def serve_two_layers(path: ServePath) -> None:
-    """Phases 4 and 6: ``path`` at full width and 2 layers on the GPU and
-    on the CPU from the same CPU-drawn weights, in float32 and bfloat16;
-    and on the GPU with the plain versions in place of the kernels."""
+    """Phases 4, 4b, 4c and 6: ``path`` at full width and 2 layers on the
+    GPU and on the CPU from the same CPU-drawn weights, in float32 and
+    bfloat16; and on the GPU with the plain versions in place of the
+    kernels. A token model generates 16 + 8 tokens; an embeds model serves
+    24 embeds positions through ``make_serve_step`` (``serve_positions``)."""
     from repro_torch.launch.serve import prefill_and_decode
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models.transformer import init_model
@@ -4428,12 +4584,11 @@ def serve_two_layers(path: ServePath) -> None:
     gpu_params = _tree(cpu_params, lambda x: x.cuda())
     log(f"[serve] 2-layer {path.name} weights drawn on the CPU in "
         f"{time.perf_counter() - t0:.1f}s")
+    embeds = base.input_mode != "tokens"
     rng = np.random.default_rng(0)
-    tokens = torch.from_numpy(rng.integers(0, base.vocab_size, (1, 256))
-                              .astype(np.int32))
-    prompts = torch.from_numpy(rng.integers(0, base.vocab_size, (4, 16))
-                               .astype(np.int32))
-    s0, n = prompts.shape[1], 8
+    s0, n = 16, 8
+    tokens = path_inputs(rng, base, (1, 256))
+    prompts = path_inputs(rng, base, (4, s0 + n if embeds else s0))
     for dtype in ("float32", "bfloat16"):
         cfg = dataclasses.replace(base, dtype=dtype)
         prefill = make_prefill_step(cfg)
@@ -4445,26 +4600,35 @@ def serve_two_layers(path: ServePath) -> None:
             logits = prefill(params, tokens.to(device))
             n_prefill = read_launches(path)
             reset_launches(path)
-            toks, _ = prefill_and_decode(cfg, params, prompts.to(device),
-                                         max_len=s0 + n, new_tokens=n)
+            if embeds:
+                served, _ = serve_positions(cfg, params, prompts, device, s0)
+                toks, served = prompts, served.float().cpu()
+                serve_what = (f"served {tuple(served.shape)} through "
+                              "make_serve_step")
+            else:
+                toks, _ = prefill_and_decode(cfg, params, prompts.to(device),
+                                             max_len=s0 + n, new_tokens=n)
+                served, serve_what = None, f"generated {tuple(toks.shape)}"
             n_serve = read_launches(path)
-            runs[device] = (logits.float().cpu(), toks.cpu())
+            runs[device] = (logits.float().cpu(), toks.cpu(), served)
             log(f"[serve] {what} {device}: prefill_step "
-                f"{tuple(logits.shape)}, generated {tuple(toks.shape)}; "
-                f"launches {n_prefill} per prefill_step, {n_serve} per "
-                f"prefill_and_decode; {time.perf_counter() - t0:.1f}s")
+                f"{tuple(logits.shape)}, {serve_what}; launches {n_prefill} "
+                f"per prefill_step, {n_serve} per serving run; "
+                f"{time.perf_counter() - t0:.1f}s")
             if device == "cuda":
                 check_launches(path, cfg, s0 + n, n_prefill, n_serve, what)
             else:
                 check(not any(n_prefill.values()) and not any(
                     n_serve.values()), f"{what}: the CPU run launched a kernel")
-        (gl, gt), (cl, ct) = runs["cuda"], runs["cpu"]
+        (gl, gt, g_tf), (cl, ct, c_tf) = runs["cuda"], runs["cpu"]
         compare_logits(gl, cl, path.gpu_vs_cpu[dtype],
                        f"{what} prefill_step B=1 S=256, GPU vs CPU")
         # every GPU token, given the same prefix, is a near-maximum of the
-        # CPU's logits; decode logits compared along that same path
-        g_tf = teacher_forced_logits(cfg, gpu_params, gt, "cuda")
-        c_tf = teacher_forced_logits(cfg, cpu_params, gt, "cpu")
+        # CPU's logits; decode logits compared along that same path (an
+        # embeds model's serving run is that path already)
+        if not embeds:
+            g_tf = teacher_forced_logits(cfg, gpu_params, gt, "cuda")
+            c_tf = teacher_forced_logits(cfg, cpu_params, gt, "cpu")
         compare_logits(g_tf, c_tf, path.gpu_vs_cpu[dtype],
                        f"{what} decode_step B=4 (teacher forced), GPU vs CPU")
         ctl = None if path.control is None else path.control(gpu_params)
@@ -4503,8 +4667,9 @@ def serve_two_layers(path: ServePath) -> None:
             prefill(gpu_params, tokens.cuda())
             teacher_forced_logits(cfg, gpu_params, gt, "cuda")
         check_launch_errs(errs, path.launch_tol[getattr(torch, dtype)], what)
-        greedy_near_max(c_tf, gt.cpu(), ct, s0, dtype, f"{what} greedy",
-                        "GPU", "CPU")
+        if not embeds:
+            greedy_near_max(c_tf, gt.cpu(), ct, s0, dtype, f"{what} greedy",
+                            "GPU", "CPU")
     del gpu_params
     torch.cuda.empty_cache()
 
@@ -4525,9 +4690,11 @@ def profiled(fn, what: str, focus=()) -> None:
 
 
 def serve_full_depth(path: ServePath) -> dict:
-    """Phases 5 and 7: ``path`` at full width and depth, weights drawn on
-    the card from a CUDA generator. Returns the launch counts of the timed
-    ``prefill_step`` and ``prefill_and_decode`` together."""
+    """Phases 5, 5b, 5c and 7: ``path`` at full width and depth, weights
+    drawn on the card from a CUDA generator. Returns the launch counts of
+    the timed ``prefill_step`` (at ``path.prefill_seq``) and serving run
+    (``prefill_and_decode``, or an embeds model's ``serve_positions``, over
+    16 + 32 positions) together."""
     from repro_torch.launch.serve import prefill_and_decode
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models.transformer import (
@@ -4535,7 +4702,8 @@ def serve_full_depth(path: ServePath) -> dict:
     )
     from repro_torch.nn.module import param_count
 
-    cfg, cuda, seq = path.cfg, torch.device("cuda"), 4096
+    cfg, cuda, seq = path.cfg, torch.device("cuda"), path.prefill_seq
+    embeds = cfg.input_mode != "tokens"
     what = f"{path.name} {cfg.num_layers} layers"
     t0 = time.perf_counter()
     params = init_model(torch.Generator(device="cuda").manual_seed(0), cfg,
@@ -4546,14 +4714,22 @@ def serve_full_depth(path: ServePath) -> dict:
         f" GB float32) drawn on the card in {time.perf_counter() - t0:.2f}s;"
         f" {cfg.dtype} activations")
     rng = np.random.default_rng(1)
-    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, seq))
-                              .astype(np.int32)).to(cuda)
-    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 16))
-                               .astype(np.int32)).to(cuda)
+    tokens = path_inputs(rng, cfg, (1, seq)).to(cuda)
+    prompts = path_inputs(rng, cfg, (4, 48 if embeds else 16)).to(cuda)
     prefill = make_prefill_step(cfg)
+
+    def serve(positions):
+        """The serving run over ``positions`` = 16 + N: (tokens or the
+        embeds served (B, 16 + N, V) logits, stats)."""
+        if embeds:
+            return serve_positions(cfg, params, prompts[:, :positions],
+                                   cuda, 16)
+        return prefill_and_decode(cfg, params, prompts, max_len=positions,
+                                  new_tokens=positions - 16)
+
     # warm-up at small shapes (library handles, first launches): not timed
     prefill(params, tokens[:, :256])
-    prefill_and_decode(cfg, params, prompts, max_len=18, new_tokens=2)
+    serve(18)
     torch.cuda.synchronize()
 
     torch.cuda.reset_peak_memory_stats()
@@ -4564,13 +4740,14 @@ def serve_full_depth(path: ServePath) -> dict:
     prefill_s = time.perf_counter() - t0
     n_prefill = read_launches(path)
     reset_launches(path)
-    toks, stats = prefill_and_decode(cfg, params, prompts, max_len=48,
-                                     new_tokens=32)
+    toks, stats = serve(48)
     n_serve = read_launches(path)
     peak = torch.cuda.max_memory_allocated() / 1e9
     log(f"[serve] {what}: prefill_step B=1 S={seq}: {prefill_s * 1e3:.3f} ms"
-        f" ({seq / prefill_s:.1f} tokens/s); prefill_and_decode B=4 16+32: "
-        f"prefill {stats['prefill_s'] * 1e3:.3f} ms, decode "
+        f" ({seq / prefill_s:.1f} tokens/s); "
+        + ("make_serve_step B=4 over 16 + 32 embeds positions" if embeds
+           else "prefill_and_decode B=4 16+32")
+        + f": prefill {stats['prefill_s'] * 1e3:.3f} ms, decode "
         f"{stats['decode_s'] * 1e3:.3f} ms ({stats['decode_s'] * 1e3 / 32:.3f}"
         f" ms/step, {stats['decode_tok_s']:.2f} tokens/s); launches "
         f"{n_prefill} in prefill_step, {n_serve} in prefill_and_decode; peak "
@@ -4581,9 +4758,14 @@ def serve_full_depth(path: ServePath) -> dict:
     check(tuple(logits.shape) == (1, seq, cfg.vocab_size)
           and bool(torch.isfinite(logits).all()),
           f"{what}: prefill logits are not finite (1, S, V)")
-    check(tuple(toks.shape) == (4, 48) and int(toks.min()) >= 0
-          and int(toks.max()) < cfg.vocab_size,
-          f"{what}: generated tokens out of shape or range")
+    if embeds:
+        check(tuple(toks.shape) == (4, 48, cfg.vocab_size)
+              and bool(torch.isfinite(toks).all()),
+              f"{what}: the served logits are not finite (4, 48, V)")
+    else:
+        check(tuple(toks.shape) == (4, 48) and int(toks.min()) >= 0
+              and int(toks.max()) < cfg.vocab_size,
+              f"{what}: generated tokens out of shape or range")
     with swap_calls(path.plain, path.module):
         plain_logits = prefill(params, tokens)
     err = ((logits.float() - plain_logits.float()).abs().amax(-1)
@@ -4599,7 +4781,7 @@ def serve_full_depth(path: ServePath) -> dict:
     errs = {k: [] for k in path.kernels}
     with checked_calls(path, errs):
         prefill(params, tokens)
-        prefill_and_decode(cfg, params, prompts, max_len=18, new_tokens=2)
+        serve(18)
     check_launch_errs(errs, path.launch_tol[getattr(torch, cfg.dtype)], what)
     if path.deep_f32 is not None:
         prefill32 = make_prefill_step(dataclasses.replace(cfg,
@@ -4621,12 +4803,60 @@ def serve_full_depth(path: ServePath) -> dict:
              f"{cfg.num_layers} layers", path.device_kernels)
     step = make_serve_step(cfg)
     cache = init_cache(cfg, 4, 48, dtype=torch.float32, device=cuda)
-    profiled(lambda i: step(params, cache, toks[:, 15 + i:16 + i], 15 + i),
+    fed = prompts if embeds else toks
+    profiled(lambda i: step(params, cache, fed[:, 15 + i:16 + i], 15 + i),
              f"one {path.name} decode step, B=4, {cfg.num_layers} layers",
              path.decode_kernels)
     del params, cache
     torch.cuda.empty_cache()
     return {k: n_prefill[k] + n_serve[k] for k in path.kernels}
+
+
+# Phase 4c's rolling cache on llava (layers._attend_cached's window-sized
+# ring buffer): 2 layers at full width, float32, its 4096-key window cut
+# to 64 over 96 positions so that the ring wraps (the reference's own
+# test, tests/test_perf_variants.py, cuts it to 8 over 24), held against
+# the full cache within ROLLING_TOL of the full cache's largest logit, as
+# that test holds it; the same decode without a window must land outside
+# (the window binds).
+ROLLING = {"layers": 2, "window": 64, "positions": 96, "batch": 4}
+ROLLING_TOL = 1e-4
+
+
+def rolling_cache_check(llava_cfg) -> None:
+    from repro_torch.models.transformer import cache_specs, init_model
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(llava_cfg, num_layers=ROLLING["layers"],
+                              dtype="float32",
+                              sliding_window=ROLLING["window"])
+    roll = dataclasses.replace(cfg, rolling_cache=True)
+    params = init_model(torch.Generator(device="cuda").manual_seed(0), cfg,
+                        torch.device("cuda"))
+    x = path_inputs(np.random.default_rng(2), cfg,
+                    (ROLLING["batch"], ROLLING["positions"]))
+    full, rolled, wide = (teacher_forced_logits(c, params, x, "cuda") for c in
+                          (cfg, roll, dataclasses.replace(
+                              cfg, sliding_window=0)))
+    width = cache_specs(roll, ROLLING["batch"], ROLLING["positions"])[
+        "pos0"]["attn"]["k"].shape[2]
+    scale = full.abs().max().item()
+    err = (full - rolled).abs().max().item() / scale
+    err_w = (full - wide).abs().max().item() / scale
+    log(f"[serve] {llava_cfg.name} 2 layers float32, window cut from "
+        f"{llava_cfg.sliding_window} to {ROLLING['window']} over "
+        f"{ROLLING['positions']} positions (B={ROLLING['batch']}): the rolling"
+        f" cache ({width} slots) against the full cache, max |diff| / max "
+        f"|logit| {err:.3e} (bound {ROLLING_TOL}); control, the full cache "
+        f"without the window: {err_w:.3e}; {time.perf_counter() - t0:.1f}s")
+    check(width == ROLLING["window"], f"the rolling cache holds {width} "
+          f"slots, not the window's {ROLLING['window']}")
+    check(err <= ROLLING_TOL, f"llava's rolling cache {err} from the full "
+          "cache")
+    check(err_w > ROLLING_TOL, "llava's window does not bind: the decode "
+          "without it is within the rolling cache's bound")
+    del params
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -4995,7 +5225,45 @@ def _bound(nbytes: float, flops: float, peak: float):
                                    else "operations")
 
 
-def time_flash(flash, flash_plain, shape, dtype, reps):
+def sdpa_kernels(fn) -> str:
+    """The device kernels of one call of ``fn`` (a profiler window after a
+    warm call), largest first: their names say which SDPA backend ran. As
+    in ``kernel_times``, a spin kernel opens the window and a window that
+    saw none of the call's kernels is taken again (three tries): late in a
+    whole run the profiler has missed every kernel of a first window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    rows = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1_000_000)        # ~0.5 ms of device time
+            fn()
+            torch.cuda.synchronize()
+        rows = [r for r in device_rows(prof) if "spin_kernel" not in r[2]]
+        if rows:
+            break
+    return ("; ".join(f"{name[:60]} {us / 1e3:.3f} ms"
+                      for us, _, name in rows[:3])
+            or "none seen in three profiler windows")
+
+
+def visible_pairs(s: int, window: int) -> int:
+    """(row, key) pairs of a causal S x S attention, each row seeing its
+    last ``window`` keys (all of them when ``window`` is 0)."""
+    if window <= 0 or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def time_flash(flash, flash_plain, shape, dtype, reps, window=0):
+    """The kernel's cold-L2 time at ``shape`` (causal, under ``window``)
+    against its bound, the plain version and SDPA: ``is_causal`` with
+    ``enable_gqa``, or with a window (which SDPA does not take) a boolean
+    mask of the causal band, K and V repeated over each kv head's query
+    heads before the timed call; the SDPA kernels that ran are logged."""
     import torch.nn.functional as F
 
     b, s, h, kv, hd = shape
@@ -5003,22 +5271,36 @@ def time_flash(flash, flash_plain, shape, dtype, reps):
     q = _randn(gen, (b, s, h, hd), dtype)
     k, v = (_randn(gen, (b, s, kv, hd), dtype) for _ in range(2))
     before = flash.launches
-    ms = time_launch(lambda: flash(q, k, v), reps)
+    ms = time_launch(lambda: flash(q, k, v, window=window), reps)
     flash.launches = before          # timing launches are not the path's
-    plain_ms = time_launch(lambda: flash_plain(q, k, v), reps)
-    library_ms = time_launch(lambda: F.scaled_dot_product_attention(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        is_causal=True, enable_gqa=True), reps)
+    plain_ms = time_launch(lambda: flash_plain(q, k, v, window=window), reps)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if window:
+        rows = torch.arange(s, device="cuda")
+        band = rows[:, None] - rows[None, :]
+        mask = (band >= 0) & (band < window)
+        kt, vt = (x.repeat_interleave(h // kv, dim=1) for x in (kt, vt))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    else:
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+    library_ms = time_launch(sdpa, reps)
+    library_kernels = sdpa_kernels(sdpa)
     esize = q.element_size()
     nbytes = esize * (2 * b * s * h * hd + 2 * b * s * kv * hd)
-    flops = 4 * b * h * hd * s * (s + 1) // 2     # the causal triangle only
+    flops = 4 * b * h * hd * visible_pairs(s, window)   # visible pairs only
     peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
     bound_ms, bound_by = _bound(nbytes, flops, peak)
-    log(f"[time] flash_attention {shape} {str(dtype)[6:]}: kernel {ms:.5f} "
-        f"ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.5f} ms, SDPA "
-        f"{library_ms:.5f} ms ({flops / library_ms / 1e9:.1f} TFLOP/s), "
-        f"bound {bound_ms:.5f} ms ({bound_by}: {flops / 1e9:.1f} GFLOP, "
-        f"{nbytes / 1e6:.1f} MB)")
+    log(f"[time] flash_attention {shape} {str(dtype)[6:]}"
+        + (f" window {window}" if window else "")
+        + f": kernel {ms:.5f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+        f"{100 * bound_ms / ms:.2f}% of the bound), plain {plain_ms:.5f} ms, "
+        f"SDPA {library_ms:.5f} ms ({flops / library_ms / 1e9:.1f} TFLOP/s; "
+        f"its kernels: {library_kernels}), bound {bound_ms:.5f} ms "
+        f"({bound_by}: {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)")
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
 
@@ -5818,7 +6100,9 @@ def main() -> int:
     from repro_torch.configs.fedsr_cnn import CONFIG as CNN
     from repro_torch.configs.fedsr_mlp import CONFIG
     from repro_torch.configs.granite_8b import CONFIG as GRANITE
+    from repro_torch.configs.llava_next_mistral_7b import CONFIG as LLAVA
     from repro_torch.configs.mamba2_2_7b import CONFIG as MAMBA
+    from repro_torch.configs.musicgen_large import CONFIG as MUSICGEN
     from repro_torch.configs.stablelm_12b import CONFIG as STABLELM
     from repro_torch.configs.yi_9b import CONFIG as YI
     from repro_torch.configs.yi_9b import SMOKE as YI_SMOKE
@@ -5936,6 +6220,9 @@ def main() -> int:
     log(f"[engines] fused_sgd launches of phase 3c's GPU runs: "
         f"{engine_launches}; its runs in {time.perf_counter() - t0:.1f}s")
     launches["fused_sgd"] += engine_launches
+    # phase 3c's ring loop (ROADMAP A12): ring_optimization on the card
+    launches["fused_sgd"] += ring_path(fused_sgd_lanes, sgd_lanes_reference,
+                                       CONFIG, fl, init)
     time_kernels(fused_sgd_lanes, sgd_lanes_reference, LANE_SHAPE, MLP_LEAVES,
                  "MLP leaves (one sequential lane)")
     for engine in ("batched", "sequential"):
@@ -6058,7 +6345,7 @@ def main() -> int:
     # phases 4-7: the dense serving paths (yi-9b; stablelm-12b, granite-8b
     # and deepseek-7b) and the mamba2-2.7b one
     def dense_path(cfg, control=None, gpu_vs_cpu=GPU_VS_CPU,
-                   kernel_vs_plain=KERNEL_VS_PLAIN):
+                   kernel_vs_plain=KERNEL_VS_PLAIN, prefill_seq=4096):
         return ServePath(
             name=cfg.name, cfg=cfg, module=layers,
             kernels={"flash_attention": flash_attention,
@@ -6077,13 +6364,17 @@ def main() -> int:
             deep_note=f"over {cfg.num_layers} layers the near-one-hot "
             "attention rows decorrelate two runs that differ only in the "
             "attention's rounding, which is why each launch is held on its "
-            "own inputs")
+            "own inputs", prefill_seq=prefill_seq)
 
     yi = dense_path(YI)
     stablelm = dense_path(STABLELM, scaled_queries, STABLELM_GPU_VS_CPU,
                           STABLELM_KERNEL_VS_PLAIN)
     granite, deepseek = (dense_path(cfg, scaled_queries)
                          for cfg in (GRANITE, DEEPSEEK))
+    # the audio and vlm families (ROADMAP A10.4a); llava's prefill at
+    # S = 8192 (prefill_32k cut to one card), so its 4096-key window binds
+    musicgen = dense_path(MUSICGEN, scaled_queries)
+    llava = dense_path(LLAVA, scaled_queries, prefill_seq=8192)
     mamba = ServePath(
         name="mamba2-2.7b", cfg=MAMBA, module=mamba2,
         kernels={"ssd_scan": ssd_scan}, plain={"ssd_scan": ssd_scan_plain},
@@ -6115,6 +6406,19 @@ def main() -> int:
     log(f"[serve] phase 5b in {time.perf_counter() - t0:.1f}s; the dense "
         f"paths' launches (yi-9b and stablelm-12b at full depth): "
         f"{launches}")
+    # phase 4c: musicgen-large and llava at 2 layers, llava's rolling cache
+    t0 = time.perf_counter()
+    for path in (musicgen, llava):
+        serve_two_layers(path)
+    rolling_cache_check(LLAVA)
+    log(f"[serve] phase 4c in {time.perf_counter() - t0:.1f}s")
+    # phase 5c: both at full depth
+    t0 = time.perf_counter()
+    for path in (musicgen, llava):
+        for name, n in serve_full_depth(path).items():
+            launches[name] += n
+    log(f"[serve] phase 5c in {time.perf_counter() - t0:.1f}s; the dense, "
+        f"audio and vlm paths' launches at full depth: {launches}")
     serve_two_layers(mamba)
     launches.update(serve_full_depth(mamba))
     path_route = kernel_route(torch.bfloat16, MAMBA.ssm_chunk,
@@ -6144,6 +6448,15 @@ def main() -> int:
                 (3,))
     time_decode(decode_attention, decode_attention_plain, FLEET_DECODE, 50,
                 (3,))
+    t0 = time.perf_counter()
+    time_flash(flash_attention, flash_attention_plain, FLASH_MUSICGEN,
+               torch.bfloat16, 20)
+    time_flash(flash_attention, flash_attention_plain, FLASH_LLAVA,
+               torch.bfloat16, 10, window=LLAVA_WINDOW)
+    for shape in (DECODE_MUSICGEN, DECODE_LLAVA):
+        time_decode(decode_attention, decode_attention_plain, shape, 50,
+                    (3,))
+    log(f"[time] phase 5c's kernel rows in {time.perf_counter() - t0:.1f}s")
     times["ssd_scan"] = time_ssd(ssd_scan, ssd_scan_plain, SSD_PATH,
                                  torch.bfloat16, 20)
     time_ssd(ssd_scan, ssd_scan_plain, SSD_PATH, torch.float32, 10)

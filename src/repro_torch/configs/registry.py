@@ -28,8 +28,10 @@ ARCH_IDS = (
 )
 
 _MODULE_FOR = {
+    "musicgen-large": "musicgen_large",
     "stablelm-12b": "stablelm_12b",
     "granite-8b": "granite_8b",
+    "llava-next-mistral-7b": "llava_next_mistral_7b",
     "deepseek-7b": "deepseek_7b",
     "yi-9b": "yi_9b",
     "mamba2-2.7b": "mamba2_2_7b",
@@ -38,9 +40,7 @@ _MODULE_FOR = {
 }
 
 _NOT_PORTED = {
-    "musicgen-large": "A10",
     "jamba-v0.1-52b": "A10",
-    "llava-next-mistral-7b": "A10",
     "qwen3-moe-30b-a3b": "A10",
     "phi3.5-moe-42b-a6.6b": "A10",
 }

@@ -7,9 +7,10 @@ from repro_torch.core.engines import make_engine
 from repro_torch.core.executor import ExperimentResult, RoundRecord, run_experiment
 from repro_torch.core.local import LocalTrainer
 from repro_torch.core.plan import AggSpec, RoundPlan, VisitGroup
+from repro_torch.core.ring import ring_optimization
 
 __all__ = [
     "ALGORITHMS", "AggSpec", "CommMeter", "ExperimentResult", "LocalTrainer",
     "RoundPlan", "RoundRecord", "VisitGroup", "make_algorithm",
-    "make_engine", "run_experiment",
+    "make_engine", "ring_optimization", "run_experiment",
 ]

@@ -6,8 +6,13 @@ with cache (the twin of the JAX package's ``launch/serve.py``).
 
 serves the full-width model on the GPU from random weights drawn from a
 seed on the card. The dense archs are yi-9b, stablelm-12b (head dim 160),
-granite-8b and deepseek-7b (MHA); mamba2-2.7b is the ssm one. Each fits
-one 80 GB card in float32 (stablelm-12b's 48.6 GB the largest).
+granite-8b and deepseek-7b (MHA); musicgen-large is the audio one (MHA at
+head dim 64 over a 2,048-token codebook) and mamba2-2.7b the ssm one. Each
+fits one 80 GB card in float32 (stablelm-12b's 48.6 GB the largest).
+The generation loops feed each argmax token back into the model, so a
+model fed embeds (``input_mode="embeds"``: llava-next-mistral-7b) cannot
+run through them and they raise ``ValueError``; such a model serves through
+``launch/steps.py``'s ``make_prefill_step`` and ``make_serve_step``.
 ``--smoke`` serves the reduced config the reference's CLI serves, and
 ``--device cpu`` runs on the CPU. As in the reference, the
 prompt is fed through ``decode_step`` one position at a time, so a Mamba2
@@ -61,6 +66,18 @@ def next_tokens(logits: torch.Tensor, temperature: float,
     return nxt.to(torch.int32)
 
 
+def check_token_inputs(cfg: ModelConfig) -> None:
+    """Raise ``ValueError`` unless ``cfg``'s model reads token ids, which a
+    generation loop feeds back."""
+    if cfg.input_mode != "tokens":
+        raise ValueError(
+            f"{cfg.name} reads input_mode={cfg.input_mode!r}: a generation "
+            "loop feeds argmax tokens back into the model, which an embeds "
+            "model cannot take; serve it with launch/steps.py's "
+            "make_prefill_step and make_serve_step, fed (B, S, d) and "
+            "(B, 1, d) embeds")
+
+
 def _prefill(params, prompts: torch.Tensor, cache, cfg: ModelConfig):
     """Fill the cache one prompt position at a time, as the reference's
     ``lax.scan`` of ``decode_step`` does. Returns (last logits (B, V),
@@ -85,7 +102,9 @@ def prefill_and_decode(
     Returns (tokens (B, S0 + N), stats). Temperature sampling draws from a
     ``torch.Generator`` seeded with ``seed`` on that device. Every clock
     read is fenced by a device synchronize, and decoded tokens are joined
-    once at the end."""
+    once at the end. Raises ``ValueError`` for an embeds model
+    (``check_token_inputs``)."""
+    check_token_inputs(cfg)
     b, s0 = prompts.shape
     device = prompts.device
     cache = init_cache(cfg, b, max_len, dtype=torch.float32, device=device)
@@ -206,8 +225,9 @@ def _serve_fleet(args, cfg: ModelConfig, device: torch.device) -> None:
 def main(argv: Optional[List[str]] = None) -> None:
     ap = argparse.ArgumentParser(description="batched LM serving (PyTorch)")
     ap.add_argument("--arch", default="yi-9b",
-                    help="yi-9b, stablelm-12b, granite-8b, deepseek-7b or "
-                         "mamba2-2.7b")
+                    help="yi-9b, stablelm-12b, granite-8b, deepseek-7b, "
+                         "musicgen-large or mamba2-2.7b "
+                         "(llava-next-mistral-7b reads embeds and raises)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--new-tokens", type=int, default=32)
@@ -224,6 +244,7 @@ def main(argv: Optional[List[str]] = None) -> None:
 
     device = resolve_device(args.device)
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
+    check_token_inputs(cfg)        # before any weights are drawn
     if args.fleet > 0:
         _serve_fleet(args, cfg, device)
         return

@@ -86,7 +86,8 @@ def lane_grads(flat: torch.Tensor, batch: Batch, cfg: ModelConfig,
                layout: Layout, remat: bool
                ) -> Tuple[torch.Tensor, Sequence[torch.Tensor]]:
     """Each client lane's loss on its own batch and the gradient of that
-    loss: ``flat`` (C, P), batch leaves (C, B, S). Returns the (C,) losses
+    loss: ``flat`` (C, P), batch leaves (C, B, S), or (C, B, S, d) for
+    an embeds model's inputs. Returns the (C,) losses
     and the gradient as ``layout``'s leaves, each a contiguous (C, *shape)
     tensor (what ``fused_sgd_lanes`` reads in place). The lanes run one
     after another through ``lm_loss``; one backward of their sum gives
@@ -112,7 +113,7 @@ def _check_trainable(cfg: ModelConfig, tcfg: TrainConfig) -> None:
         raise NotImplementedError(
             "training the ssm family needs a backward of the SSD scan "
             "kernel, which is not ported yet (ROADMAP A10.5)")
-    block_pattern(cfg)           # the unported families raise (ROADMAP A10)
+    block_pattern(cfg)           # moe and hybrid raise (ROADMAP A10)
     if tcfg.param_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"param_dtype {tcfg.param_dtype!r} is not float32 "
                          "or bfloat16")
@@ -132,7 +133,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig
                                Callable[[State], State]]:
     """FedSR train step + cloud sync step (``ring_mode``: pipelined |
     serial). ``train_step(state, batch) -> (state, mean loss)`` with batch
-    ``{"inputs", "labels"}`` of (C, B, S) ints, C the client lanes.
+    ``{"inputs", "labels"}`` of (C, B, S) ints, C the client lanes (an
+    embeds model's inputs (C, B, S, d) floats).
 
     Pipelined: every lane takes one SGD step on its own batch; then the
     ring hop moves lane c's model to lane c + 1 (``torch.roll`` of the
@@ -224,7 +226,10 @@ def _make_serial_train_step(cfg: ModelConfig, layout: Layout, remat: bool,
 
 
 def make_prefill_step(cfg: ModelConfig):
-    """``prefill_step(params, inputs (B, S) int) -> logits (B, S, V)``."""
+    """``prefill_step(params, inputs) -> logits (B, S, V)``: ``inputs`` are
+    int tokens (B, S), or float embeds (B, S, d) for an
+    ``input_mode="embeds"`` model (the reference's ``lower_prefill`` feeds
+    them as bfloat16)."""
     def prefill_step(params, inputs):
         logits, _ = forward(params, inputs, cfg)
         return logits
@@ -233,8 +238,11 @@ def make_prefill_step(cfg: ModelConfig):
 
 
 def make_serve_step(cfg: ModelConfig):
-    """``serve_step(params, cache, tokens (B, 1), pos: int) -> (logits
-    (B, 1, V), cache)``; the cache is updated in place."""
+    """``serve_step(params, cache, tokens, pos: int) -> (logits (B, 1, V),
+    cache)``: ``tokens`` are int ids (B, 1), or float embeds (B, 1, d) for
+    an ``input_mode="embeds"`` model (``lower_serve``'s inputs); the cache
+    is updated in place. This is the way to serve an embeds model: the
+    generation loops feed argmax tokens back and refuse one."""
     def serve_step(params, cache, tokens, pos):
         return decode_step(params, tokens, cache, pos, cfg)
 

@@ -1,9 +1,14 @@
 """Decoder model of the LM zoo — the port's twin of the JAX package's
-``models/transformer.py``, for the ``dense`` and ``ssm`` families.
+``models/transformer.py``, for the ``dense``, ``vlm``, ``audio`` and
+``ssm`` families.
 
 A model is a repetition of a *block pattern*, the smallest repeating
-sequence of (mixer, ffn) layer kinds: a dense decoder's is
-``[("attn", "dense")]``, a Mamba2 model's ``[("ssm", "none")]``.
+sequence of (mixer, ffn) layer kinds: a dense, vlm or audio decoder's is
+``[("attn", "dense")]``, a Mamba2 model's ``[("ssm", "none")]``. A model
+with ``input_mode="embeds"`` (the vlm family's llava) has no embedding
+table: ``forward`` takes float embeds (B, S, d) and ``decode_step``
+(B, 1, d), cast to the activation dtype, where a token model takes int
+ids (B, S) and (B, 1).
 Parameters for each pattern position are stacked over a leading
 ``num_repeats`` dim with the reference's names
 (``blocks/pos0/attn/{wq,wk,wv,wo,norm}``, ``blocks/pos0/ffn/...``,
@@ -16,8 +21,8 @@ the stack with ``lax.scan``; here a Python loop walks it, one layer's
 slice at a time. The decode cache (KV for attention, conv window and SSM
 state for Mamba2) is updated in place. ``decode_step_lanes`` decodes a
 batch whose every request runs under its own model of a fleet. The other
-families (moe, hybrid, vlm, audio) raise ``NotImplementedError`` naming
-their ROADMAP item.
+families (moe, hybrid) raise ``NotImplementedError`` naming their ROADMAP
+item.
 """
 from __future__ import annotations
 
@@ -36,7 +41,7 @@ from repro_torch.nn.module import init_params
 
 Params = Dict[str, Any]          # nested dict of tensors
 
-_NOT_PORTED = {"moe": "A10", "hybrid": "A10", "vlm": "A10", "audio": "A10"}
+_NOT_PORTED = {"moe": "A10", "hybrid": "A10"}
 
 
 # ---------------------------------------------------------------------------
@@ -45,14 +50,11 @@ _NOT_PORTED = {"moe": "A10", "hybrid": "A10", "vlm": "A10", "audio": "A10"}
 
 def block_pattern(cfg: ModelConfig) -> List[Tuple[str, str]]:
     """Returns [(mixer_kind, ffn_kind)] of length = pattern period."""
-    if cfg.family not in ("dense", "ssm"):
+    if cfg.family not in ("dense", "vlm", "audio", "ssm"):
         item = _NOT_PORTED.get(cfg.family)
         raise NotImplementedError(
             f"model family {cfg.family!r} is not ported yet"
             + (f" (ROADMAP {item})" if item else ""))
-    if cfg.input_mode != "tokens":
-        raise NotImplementedError(
-            f"input_mode {cfg.input_mode!r} is not ported yet (ROADMAP A10)")
     if cfg.family == "ssm":
         return [("ssm", "none")]
     period = cfg.attn_every if cfg.attn_every > 0 else 1
@@ -126,6 +128,15 @@ def _layers(tree: Mapping[str, Any], n: int) -> List[Dict[str, Any]]:
 # forward (prefill)
 
 
+def embed_inputs(params: Params, inputs: torch.Tensor,
+                 cfg: ModelConfig) -> torch.Tensor:
+    """The first layer's input: int tokens through the embedding table, or
+    (``input_mode="embeds"``) float embeds cast to the activation dtype."""
+    if cfg.input_mode == "tokens":
+        return L.embed_tokens(params["embed"], inputs, cfg)
+    return inputs.to(L.activation_dtype(cfg))
+
+
 def _apply_block_position(
     entry: dict,
     x: torch.Tensor,
@@ -150,7 +161,8 @@ def _apply_block_position(
 
 def forward(params: Params, inputs: torch.Tensor, cfg: ModelConfig, *,
             remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward. inputs: int tokens (B, S). Returns
+    """Full-sequence forward. inputs: int tokens (B, S) or float embeds
+    (B, S, d). Returns
     (logits (B, S, V) in the activation dtype, aux_loss) — the aux loss is
     the reference's MoE term, 0 for the dense and ssm families.
 
@@ -159,7 +171,7 @@ def forward(params: Params, inputs: torch.Tensor, cfg: ModelConfig, *,
     ``torch.utils.checkpoint`` (non-reentrant), where the reference wraps
     them in ``jax.checkpoint``."""
     pattern = block_pattern(cfg)
-    x = L.embed_tokens(params["embed"], inputs, cfg)
+    x = embed_inputs(params, inputs, cfg)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
 
     reps = num_repeats(cfg)
@@ -189,7 +201,8 @@ def forward(params: Params, inputs: torch.Tensor, cfg: ModelConfig, *,
 def lm_loss(params: Params, batch: Mapping[str, torch.Tensor],
             cfg: ModelConfig, *, remat: bool = False) -> torch.Tensor:
     """Next-token cross-entropy (+ the MoE aux term, 0 here), in float32.
-    batch: {"inputs" (B, S), "labels" (B, S)} and an optional "mask"
+    batch: {"inputs" (B, S) ints or (B, S, d) embeds, passed to
+    ``forward`` as they are, "labels" (B, S)} and an optional "mask"
     (B, S): the mean over the masked positions (at least one), as in the
     reference."""
     logits, aux = forward(params, batch["inputs"], cfg, remat=remat)
@@ -249,11 +262,12 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
 
 def decode_step(params: Params, tokens: torch.Tensor, cache: Params,
                 pos: int, cfg: ModelConfig) -> Tuple[torch.Tensor, Params]:
-    """One-token decode with cache. tokens (B, 1) int; ``pos`` is the index
-    of the token being decoded, a host int. Returns (logits (B, 1, V),
-    cache); the cache is updated in place and returned."""
+    """One-token decode with cache. tokens (B, 1) int, or embeds (B, 1, d)
+    for an ``input_mode="embeds"`` model; ``pos`` is the index of the token
+    being decoded, a host int. Returns (logits (B, 1, V), cache); the cache
+    is updated in place and returned."""
     pattern = block_pattern(cfg)
-    x = L.embed_tokens(params["embed"], tokens, cfg)
+    x = embed_inputs(params, tokens, cfg)
     positions = torch.full((x.shape[0], 1), pos, device=x.device)
     for i in range(num_repeats(cfg)):
         for p in range(len(pattern)):

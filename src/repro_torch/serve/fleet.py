@@ -39,7 +39,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.store import Stager
-from repro_torch.launch.serve import fence, next_tokens, prefill_and_decode
+from repro_torch.launch.serve import (
+    check_token_inputs, fence, next_tokens, prefill_and_decode,
+)
 from repro_torch.models.small import small_model_apply, small_model_apply_lanes
 from repro_torch.models.transformer import (
     block_pattern, decode_step_lanes, init_cache,
@@ -269,10 +271,12 @@ class FleetDecoder:
     too: like ``launch/serve.py``'s, it feeds the prompt through the decode
     step one position at a time. ``dispatches`` counts calls, as the
     reference's counts compiled calls; ``gathered_bytes`` is the rows the
-    last call's steps gathered, a step on average."""
+    last call's steps gathered, a step on average. An embeds model raises
+    ``ValueError``: its loop feeds tokens back (``check_token_inputs``)."""
 
     def __init__(self, cfg: ModelConfig):
-        block_pattern(cfg)          # the unported families raise, naming A10
+        block_pattern(cfg)          # moe and hybrid raise, naming A10
+        check_token_inputs(cfg)
         self.cfg = cfg
         self.dispatches = 0
         self.gathered_bytes = 0

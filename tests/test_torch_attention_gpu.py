@@ -96,6 +96,10 @@ def _smoke():
     (1, 1000, 1000, 8, 2, 160, 0, True),
     (1, 1000, 1000, 8, 2, 160, 200, True),
     (2, 64, 320, 4, 2, 160, 0, False),
+    # the audio and vlm prefills: musicgen-large's MHA at hd 64, llava's
+    # GQA at S = 8192 under its 4096-key window, which binds
+    (1, 4096, 4096, 32, 32, 64, 0, True),
+    (1, 8192, 8192, 32, 8, 128, 4096, True),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain_version(cuda, b, s, t, h, kv, hd, window,
@@ -189,7 +193,9 @@ def test_ptxas_report_names_the_float32_flash_kernels():
     (4, 32, 8, 48, 160, 0),               # stablelm-12b serving default
     (3, 8, 1, 128, 160, 100),             # hd 160, MQA, window
     (4, 32, 32, 48, 128, 0),              # deepseek-7b serving default (G = 1)
-    (4, 32, 8, 48, 128, 0),               # granite-8b serving default
+    (4, 32, 8, 48, 128, 0),               # granite-8b's and llava's
+    (4, 32, 32, 48, 64, 0),               # musicgen-large (G = 1, hd 64)
+    (2, 32, 8, 8448, 128, 4096),          # llava's window binding
 ])
 @pytest.mark.parametrize("qd,cd", DECODE_DTYPES)
 @pytest.mark.parametrize("edge", [None, "one", "full"])

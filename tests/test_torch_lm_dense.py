@@ -56,8 +56,9 @@ ARCHS = {"stablelm-12b": "stablelm_12b", "granite-8b": "granite_8b",
 HEADS = {"stablelm-12b": (32, 8, 160), "granite-8b": (32, 8, 128),
          "deepseek-7b": (32, 32, 128)}
 VARIANTS = {"smoke": {}, "hd160": {"head_dim": 160}}
-UNPORTED = ("musicgen-large", "jamba-v0.1-52b", "llava-next-mistral-7b",
-            "qwen3-moe-30b-a3b", "phi3.5-moe-42b-a6.6b")
+UNPORTED = ("jamba-v0.1-52b", "qwen3-moe-30b-a3b", "phi3.5-moe-42b-a6.6b")
+# the vlm and audio archs, ported since (tests/test_torch_lm_multimodal.py)
+MULTIMODAL = ("musicgen-large", "llava-next-mistral-7b")
 
 
 def _modules(arch):
@@ -104,6 +105,13 @@ def test_the_other_archs_still_raise_naming_a10(arch):
     for fn in (get_config, get_smoke_config):
         with pytest.raises(NotImplementedError, match="ROADMAP A10"):
             fn(arch)
+
+
+@pytest.mark.parametrize("arch", MULTIMODAL)
+def test_the_multimodal_archs_now_resolve(arch):
+    from repro_torch.configs.registry import get_config, get_smoke_config
+    for fn in (get_config, get_smoke_config):
+        assert fn(arch).name == arch
 
 
 @pytest.mark.parametrize("size", ["smoke", "full"])

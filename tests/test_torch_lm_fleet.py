@@ -372,13 +372,21 @@ def test_the_cli_draws_each_client_from_its_own_seed():
                                    atol=1e-6)
 
 
-@pytest.mark.parametrize("family", ["moe", "hybrid", "vlm", "audio"])
+@pytest.mark.parametrize("family", ["moe", "hybrid"])
 def test_unported_families_raise_naming_a10(family):
     from repro_torch.serve.fleet import FleetDecoder
 
     with pytest.raises(NotImplementedError, match="ROADMAP A10"):
         FleetDecoder(dataclasses.replace(get_smoke_config("yi-9b"),
                                          family=family))
+
+
+@pytest.mark.parametrize("family", ["vlm", "audio"])
+def test_the_vlm_and_audio_families_build_a_fleet_decoder(family):
+    from repro_torch.serve.fleet import FleetDecoder
+
+    cfg = dataclasses.replace(get_smoke_config("yi-9b"), family=family)
+    assert FleetDecoder(cfg).cfg is cfg
 
 
 def test_a_fleet_that_cannot_fit_raises_naming_the_bytes():

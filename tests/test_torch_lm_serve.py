@@ -2,7 +2,8 @@
 JAX package's, with the reference's weights carried across.
 
 * Configs: ``configs/registry.py`` and ``configs/yi_9b.py`` are pinned
-  equal to the reference's; archs the port does not run raise.
+  equal to the reference's; archs the port does not run raise, and the
+  vlm and audio ones resolve.
 * ``nn/module.py``: the spec tree's shapes and init kinds equal the
   reference's, and each kind draws what it should.
 * ``forward``, ``decode_step`` at every position and greedy
@@ -71,8 +72,13 @@ def _weights(ref_cfg, seed=0):
 
 
 def _tokens(cfg, shape, seed=0):
-    return np.random.default_rng(seed).integers(
-        0, cfg.vocab_size, size=shape).astype(np.int32)
+    """Token ids of ``shape`` (B, S) for a token model; for an embeds model
+    (``input_mode="embeds"``) float32 embeds (B, S, d) drawn 0.1 N(0, 1)."""
+    rng = np.random.default_rng(seed)
+    if cfg.input_mode != "tokens":
+        return (0.1 * rng.standard_normal(shape + (cfg.d_model,))).astype(
+            np.float32)
+    return rng.integers(0, cfg.vocab_size, size=shape).astype(np.int32)
 
 
 def _rel_err(ref, port):
@@ -155,8 +161,7 @@ def test_registry_and_yi_9b_configs_equal_the_reference():
     assert CONFIG.resolved_head_dim == 128
 
 
-@pytest.mark.parametrize("arch", ["llava-next-mistral-7b", "qwen3-moe-30b-a3b",
-                                  "jamba-v0.1-52b", "musicgen-large"])
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "jamba-v0.1-52b"])
 def test_unported_archs_raise_naming_their_roadmap_item(arch):
     from repro_torch.configs.registry import get_config, get_smoke_config
     for fn in (get_config, get_smoke_config):
@@ -164,11 +169,26 @@ def test_unported_archs_raise_naming_their_roadmap_item(arch):
             fn(arch)
 
 
-@pytest.mark.parametrize("family", ["moe", "hybrid", "vlm", "audio"])
+@pytest.mark.parametrize("arch", ["llava-next-mistral-7b", "musicgen-large"])
+def test_the_vlm_and_audio_archs_resolve(arch):
+    from repro_torch.configs.registry import get_config, get_smoke_config
+    for fn in (get_config, get_smoke_config):
+        assert fn(arch).name == arch
+
+
+@pytest.mark.parametrize("family", ["moe", "hybrid"])
 def test_unported_families_raise_naming_their_roadmap_item(family):
     cfg = dataclasses.replace(SMOKE, family=family)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PT.model_specs(cfg)
+
+
+@pytest.mark.parametrize("family", ["vlm", "audio"])
+def test_the_vlm_and_audio_families_build_the_dense_specs(family):
+    cfg = dataclasses.replace(SMOKE, family=family)
+    assert PT.block_pattern(cfg) == [("attn", "dense")]
+    assert _flat(PT.model_specs(cfg)).keys() == _flat(
+        PT.model_specs(SMOKE)).keys()
 
 
 def _flat(tree, prefix=""):
@@ -300,8 +320,9 @@ def test_prefill_step_is_forward_and_never_launches_on_the_cpu():
 
 
 def _decode_both(ref_cfg, cfg, steps, batch=2, cache_len=None):
-    """Feed the same tokens position by position through both packages'
-    ``decode_step``; returns the per-step logits (ref list, port list)."""
+    """Feed the same tokens (an embeds model: embeds) position by position
+    through both packages' ``decode_step``; returns the per-step logits
+    (ref list, port list)."""
     from repro_torch.launch.steps import make_serve_step
 
     params, port = _weights(ref_cfg)
