@@ -33,6 +33,8 @@ _MODULE_FOR = {
     "granite-8b": "granite_8b",
     "llava-next-mistral-7b": "llava_next_mistral_7b",
     "deepseek-7b": "deepseek_7b",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "phi3.5-moe-42b-a6.6b": "phi35_moe_42b",
     "yi-9b": "yi_9b",
     "mamba2-2.7b": "mamba2_2_7b",
     "fedsr-mlp": "fedsr_mlp",
@@ -41,8 +43,6 @@ _MODULE_FOR = {
 
 _NOT_PORTED = {
     "jamba-v0.1-52b": "A10",
-    "qwen3-moe-30b-a3b": "A10",
-    "phi3.5-moe-42b-a6.6b": "A10",
 }
 
 

@@ -60,7 +60,24 @@
 // Every multiply and add is an explicitly rounded intrinsic, so nvcc cannot
 // contract p - lr * d into an FMA: the kernel matches its plain PyTorch
 // version (kernels/fused_sgd/ref.py) bit for bit.
+//
+// bfloat16 (fused_sgd_lanes_bf16; the reference's fused_sgd_flat at
+// p.dtype = bfloat16, as launch/steps.py::make_train_step calls it with
+// bfloat16 parameters). p, m, the leaves and lr are bfloat16, and the
+// reference rounds to bfloat16 after every operation, mu and lr included
+// (mu is a weakly typed Python float, lr is cast to p.dtype):
+//   m' = bf16(bf16(mu * m_in) + g)
+//   d  = nesterov ? bf16(g + bf16(mu * m')) : m'
+//   p' = bf16(p - bf16(lr * d))
+// each operation in float32 (a product of two bfloat16 values is exact
+// there), mu rounded to bfloat16 on the host. Bound: memory, 10 B an
+// element (read p, g, m, write p, m). Same grid as the float32 kernel:
+// a block per span of a (lane, leaf) segment, spans cut on p's 16-byte
+// grid, so the blocks between a segment's first and last move whole
+// 8-element vectors of p and m; g is loaded 16 bytes at a time where it
+// shares p's alignment, else element by element.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -71,8 +88,11 @@ constexpr int kThreads = 256;
 constexpr int kSpan = 1000;  // elements a block: at most 256 items
 constexpr int kMaxLeaves = 16;
 
-struct Leaves {
-  const float* ptr[kMaxLeaves];
+constexpr int kSpanBf16 = 2048;  // elements a block: 256 8-element slots
+
+template <typename T>
+struct LeafTable {
+  const T* ptr[kMaxLeaves];
   long long size[kMaxLeaves];
   long long off[kMaxLeaves];    // leaf k's first element within a row
   long long first[kMaxLeaves];  // leaf k's first block within a lane
@@ -80,6 +100,35 @@ struct Leaves {
   long long span;               // elements a block
   int count;
 };
+using Leaves = LeafTable<float>;
+
+// The leaf table of a launch and its blocks a lane; false for a table or
+// span the kernels do not take. span is rounded up to a multiple of
+// `align`, the elements of one 16-byte vector (0: `dflt`).
+template <typename T>
+bool make_table(LeafTable<T>& leaves, long long& blocks,
+                const T* const* leaf_ptrs, const long long* leaf_sizes,
+                int num_leaves, long long n, int span, int align,
+                int dflt) {
+  if (num_leaves < 1 || num_leaves > kMaxLeaves || span < 0) return false;
+  leaves = LeafTable<T>{};
+  leaves.span = span > 0 ? (span + align - 1) / align * align : dflt;
+  long long off = 0;
+  blocks = 0;
+  for (int k = 0; k < num_leaves; ++k) {
+    if (leaf_sizes[k] < 1) return false;
+    leaves.ptr[k] = leaf_ptrs[k];
+    leaves.size[k] = leaf_sizes[k];
+    leaves.off[k] = off;
+    leaves.first[k] = blocks;
+    off += leaf_sizes[k];
+    blocks += (leaf_sizes[k] + leaves.span - 1) / leaves.span;
+  }
+  if (off != n) return false;
+  leaves.n = n;
+  leaves.count = num_leaves;
+  return true;
+}
 
 __device__ __forceinline__ void sgd_one(float& p, float g, float& m, float lr,
                                         float mu, bool nesterov, bool reset) {
@@ -216,6 +265,143 @@ fused_sgd_kernel(const uint8_t* __restrict__ ok,
   }
 }
 
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// One element of the bfloat16 update, each operation rounded to bfloat16.
+__device__ __forceinline__ void sgd_one_bf16(float& p, float g, float& m,
+                                             float lr, float mu,
+                                             bool nesterov, bool reset) {
+  const float m_in = reset ? 0.0f : m;
+  const float m_new = bf16_round(__fadd_rn(bf16_round(__fmul_rn(mu, m_in)),
+                                           g));
+  const float d =
+      nesterov ? bf16_round(__fadd_rn(g, bf16_round(__fmul_rn(mu, m_new))))
+               : m_new;
+  p = bf16_round(__fsub_rn(p, bf16_round(__fmul_rn(lr, d))));
+  m = m_new;
+}
+
+// Eight bfloat16 values of one 16-byte vector as floats, and back.
+__device__ __forceinline__ void unpack8(uint4 v, float* f) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    f[2 * j] = __uint_as_float(w[j] << 16);
+    f[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
+  }
+}
+
+// f holds values already rounded to bfloat16: their top halves are exact.
+__device__ __forceinline__ uint4 pack8(const float* f) {
+  uint32_t w[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    w[j] = (__float_as_uint(f[2 * j]) >> 16) |
+           (__float_as_uint(f[2 * j + 1]) & 0xffff0000u);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+__device__ __forceinline__ uint4 load_g8(const __nv_bfloat16* a,
+                                         uint64_t policy) {
+  uint4 v;
+  asm("ld.global.nc.L2::cache_hint.v4.u32 {%0, %1, %2, %3}, [%4], %5;"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "l"(a), "l"(policy));
+  return v;
+}
+
+// kVec: p and m share their alignment modulo 16 (see fused_sgd_kernel).
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads)
+fused_sgd_bf16_kernel(const uint8_t* __restrict__ ok,
+                      const __nv_bfloat16* __restrict__ lr_ptr,
+                      unsigned per_lane, __nv_bfloat16* __restrict__ p,
+                      __nv_bfloat16* __restrict__ m, float mu, int nesterov,
+                      int reset,
+                      const __grid_constant__ LeafTable<__nv_bfloat16> leaves) {
+  const unsigned lane = blockIdx.x / per_lane;
+  const long long b = blockIdx.x - lane * per_lane;
+  const bool step = __ldg(ok + lane) != 0;
+  const float lr = __bfloat162float(lr_ptr[0]);
+  const __nv_bfloat16* g0 = leaves.ptr[0];
+  long long size = leaves.size[0], off = 0, first = 0;
+#pragma unroll
+  for (int i = 1; i < kMaxLeaves; ++i) {
+    if (i < leaves.count && b >= leaves.first[i]) {
+      g0 = leaves.ptr[i];
+      size = leaves.size[i];
+      off = leaves.off[i];
+      first = leaves.first[i];
+    }
+  }
+  __nv_bfloat16* pk = p + lane * leaves.n + off;
+  __nv_bfloat16* mk = m + lane * leaves.n + off;
+  const __nv_bfloat16* gk = g0 + lane * size;
+  long long h =
+      ((16u - (reinterpret_cast<uintptr_t>(pk) & 15u)) & 15u) / 2;
+  if (h > size) h = size;
+  const long long i = b - first;
+  long long lo = i == 0 ? 0 : h + i * leaves.span;
+  long long hi = h + (i + 1) * leaves.span;
+  if (lo > size) lo = size;
+  if (hi > size) hi = size;
+  const bool nest = nesterov != 0;
+  const bool rs = reset != 0;
+  const uint64_t policy = evict_first_policy();
+
+  // items: elements before the first slot, 16-byte slots of 8, a tail
+  long long a = kVec ? (i == 0 ? h : lo) : hi;
+  if (a > hi) a = hi;
+  const long long slots = (hi - a) / 8;
+  const long long tail = a + 8 * slots;
+  const long long head = a - lo;
+  const long long items = head + slots + (hi - tail);
+  for (long long it = threadIdx.x; it < items; it += kThreads) {
+    if (it >= head && it < head + slots) {
+      const long long e = a + 8 * (it - head);
+      uint4* pq = reinterpret_cast<uint4*>(pk + e);
+      uint4* mq = reinterpret_cast<uint4*>(mk + e);
+      if (step) {
+        float pv[8], mv[8], gv[8];
+        unpack8(*pq, pv);
+        if (rs) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) mv[j] = 0.0f;
+        } else {
+          unpack8(*mq, mv);
+        }
+        if ((reinterpret_cast<uintptr_t>(gk + e) & 15u) == 0) {
+          unpack8(load_g8(gk + e, policy), gv);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) gv[j] = __bfloat162float(gk[e + j]);
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          sgd_one_bf16(pv[j], gv[j], mv[j], lr, mu, nest, rs);
+        }
+        *pq = pack8(pv);
+        *mq = pack8(mv);
+      } else if (rs) {
+        *mq = make_uint4(0u, 0u, 0u, 0u);
+      }
+    } else {
+      const long long e = it < head ? lo + it : tail + (it - head - slots);
+      if (step) {
+        float pv = __bfloat162float(pk[e]);
+        float mv = rs ? 0.0f : __bfloat162float(mk[e]);
+        sgd_one_bf16(pv, __bfloat162float(gk[e]), mv, lr, mu, nest, rs);
+        pk[e] = __float2bfloat16_rn(pv);
+        mk[e] = __float2bfloat16_rn(mv);
+      } else if (rs) {
+        mk[e] = __float2bfloat16_rn(0.0f);
+      }
+    }
+  }
+}
+
 }  // namespace
 
 // C interface, bound with ctypes (kernels/fused_sgd/kernel.py). p and m are
@@ -233,24 +419,12 @@ extern "C" int fused_sgd_lanes(float* p, float* m,
                                long long lanes, long long n, float momentum,
                                int nesterov, int reset, int span,
                                void* stream) {
-  if (num_leaves < 1 || num_leaves > kMaxLeaves || span < 0) {
+  Leaves leaves;
+  long long blocks;
+  if (!make_table(leaves, blocks, leaf_ptrs, leaf_sizes, num_leaves, n, span,
+                  4, kSpan)) {   // spans on p's grid
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Leaves leaves{};
-  leaves.span = span > 0 ? (span + 3) / 4 * 4 : kSpan;   // on p's grid
-  long long off = 0, blocks = 0;
-  for (int k = 0; k < num_leaves; ++k) {
-    if (leaf_sizes[k] < 1) return static_cast<int>(cudaErrorInvalidValue);
-    leaves.ptr[k] = leaf_ptrs[k];
-    leaves.size[k] = leaf_sizes[k];
-    leaves.off[k] = off;
-    leaves.first[k] = blocks;
-    off += leaf_sizes[k];
-    blocks += (leaf_sizes[k] + leaves.span - 1) / leaves.span;
-  }
-  if (off != n) return static_cast<int>(cudaErrorInvalidValue);
-  leaves.n = n;
-  leaves.count = num_leaves;
   if (lanes <= 0) return 0;
   if (lanes > 0x7fffffffLL / blocks) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -266,6 +440,43 @@ extern "C" int fused_sgd_lanes(float* p, float* m,
         ok, lr, per_lane, p, m, momentum, nesterov, reset, leaves);
   } else {
     fused_sgd_kernel<false><<<grid, kThreads, 0, s>>>(
+        ok, lr, per_lane, p, m, momentum, nesterov, reset, leaves);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bfloat16 case: p, m and the leaves are bfloat16, lr points at one
+// bfloat16 value, momentum is mu already rounded to bfloat16 by the caller
+// (kernels/fused_sgd/kernel.py); otherwise as fused_sgd_lanes, with span
+// rounded up to a multiple of 8 (0: kSpanBf16).
+extern "C" int fused_sgd_lanes_bf16(__nv_bfloat16* p, __nv_bfloat16* m,
+                                    const __nv_bfloat16* const* leaf_ptrs,
+                                    const long long* leaf_sizes,
+                                    int num_leaves, const uint8_t* ok,
+                                    const __nv_bfloat16* lr, long long lanes,
+                                    long long n, float momentum, int nesterov,
+                                    int reset, int span, void* stream) {
+  LeafTable<__nv_bfloat16> leaves;
+  long long blocks;
+  if (!make_table(leaves, blocks, leaf_ptrs, leaf_sizes, num_leaves, n, span,
+                  8, kSpanBf16)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (lanes <= 0) return 0;
+  if (lanes > 0x7fffffffLL / blocks) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const unsigned per_lane = static_cast<unsigned>(blocks);
+  const unsigned grid = static_cast<unsigned>(lanes * blocks);
+  const bool vec =
+      ((reinterpret_cast<uintptr_t>(p) ^ reinterpret_cast<uintptr_t>(m)) &
+       15u) == 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec) {
+    fused_sgd_bf16_kernel<true><<<grid, kThreads, 0, s>>>(
+        ok, lr, per_lane, p, m, momentum, nesterov, reset, leaves);
+  } else {
+    fused_sgd_bf16_kernel<false><<<grid, kThreads, 0, s>>>(
         ok, lr, per_lane, p, m, momentum, nesterov, reset, leaves);
   }
   return static_cast<int>(cudaGetLastError());

@@ -25,10 +25,13 @@ def _check(p, leaves, m, ok, lr) -> None:
             (f"grads[{k}]", g) for k, g in enumerate(leaves)):
         if t.device != p.device:
             raise ValueError(f"{name} is on {t.device}, p on {p.device}")
-    for name, t in (("p", p), ("m", m), ("lr", lr)) + tuple(
+    if p.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"p must be float32 or bfloat16, got {p.dtype}")
+    for name, t in (("m", m), ("lr", lr)) + tuple(
             (f"grads[{k}]", g) for k, g in enumerate(leaves)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.dtype != p.dtype:
+            raise TypeError(f"{name} must be {p.dtype} as p is, got "
+                            f"{t.dtype}")
     if ok.dtype != torch.bool:
         raise TypeError(f"ok must be bool, got {ok.dtype}")
     if p.dim() != 2 or m.shape != p.shape:
@@ -58,16 +61,20 @@ def _check(p, leaves, m, ok, lr) -> None:
 
 class FusedSGDLanes:
     """``fused_sgd_lanes(p, grads, m, ok, lr, reset=, momentum=,
-    nesterov=)`` updates the (C, P) float32 buffers ``p`` and ``m`` in
-    place with one masked momentum step (see ``ref.sgd_lanes_reference``).
-    ``grads`` is the (C, P) gradient or a sequence of at most 16 contiguous
-    leaves, leaf k a (C, *shape_k) tensor holding the next prod(shape_k)
-    elements of every lane's row (the sorted-leaf layout of ``utils.tree``);
-    the kernel reads each leaf in place. ``launches`` counts kernel
-    launches — the CPU path never adds to it."""
+    nesterov=)`` updates the (C, P) buffers ``p`` and ``m`` in place with
+    one masked momentum step (see ``ref.sgd_lanes_reference``), all of
+    ``p``, ``m``, the gradient and ``lr`` float32 or all bfloat16 (the
+    bfloat16 case rounds after every operation, as the reference's kernel
+    does at ``p.dtype``). ``grads`` is the (C, P) gradient or a sequence of
+    at most 16 contiguous leaves, leaf k a (C, *shape_k) tensor holding the
+    next prod(shape_k) elements of every lane's row (the sorted-leaf layout
+    of ``utils.tree``); the kernel reads each leaf in place. ``launches``
+    counts kernel launches, ``bf16_launches`` those of the bfloat16 case
+    among them — the CPU path never adds to either."""
 
     def __init__(self):
         self.launches = 0
+        self.bf16_launches = 0
 
     def __call__(self, p: torch.Tensor, grads: Grads, m: torch.Tensor,
                  ok: torch.Tensor, lr: torch.Tensor, *, reset: bool,
@@ -89,6 +96,8 @@ class FusedSGDLanes:
         launch(p, leaves, m, ok, lr, reset=reset, momentum=momentum,
                nesterov=nesterov)
         self.launches += 1
+        if p.dtype == torch.bfloat16:
+            self.bf16_launches += 1
 
 
 fused_sgd_lanes = FusedSGDLanes()

@@ -113,15 +113,10 @@ def _check_trainable(cfg: ModelConfig, tcfg: TrainConfig) -> None:
         raise NotImplementedError(
             "training the ssm family needs a backward of the SSD scan "
             "kernel, which is not ported yet (ROADMAP A10.5)")
-    block_pattern(cfg)           # moe and hybrid raise (ROADMAP A10)
+    block_pattern(cfg)           # the hybrid family raises (ROADMAP A10.4c)
     if tcfg.param_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"param_dtype {tcfg.param_dtype!r} is not float32 "
                          "or bfloat16")
-    if tcfg.fused_sgd and tcfg.param_dtype != "float32":
-        raise NotImplementedError(
-            "fused_sgd with param_dtype='bfloat16': the port's fused_sgd "
-            "kernel is float32-only (ROADMAP A10.6); the unfused bfloat16 "
-            "step runs in torch ops")
     if tcfg.ring_mode not in ("pipelined", "serial"):
         raise ValueError(f"ring_mode {tcfg.ring_mode!r} is not pipelined or "
                          "serial")
@@ -146,13 +141,14 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig
     each against its own reference path): unfused, ``m' = mu m + g`` and
     ``p' = p - lr m'`` per leaf in torch ops (p - lr m' in float32, then
     rounded to ``param_dtype``); with ``fused_sgd``, one ``fused_sgd_lanes``
-    launch over the (C, P) state reading the gradient leaves in place.
+    launch over the (C, P) state reading the gradient leaves in place, at
+    the state's dtype (lr rounded to it, as the reference's ``lr.astype(
+    p.dtype)``; bfloat16 rounds after every operation).
 
     Like the reference's LM step, it ignores ``optimizer``,
     ``weight_decay``, ``compute_dtype``, ``dp_clip`` and ``dp_noise_mult``
     (ROADMAP C11). Raises ``NotImplementedError`` for the ssm family
-    (A10.5), the unported families (A10) and ``fused_sgd`` with bfloat16
-    parameters (A10.6)."""
+    (A10.5) and the hybrid family (A10.4c)."""
     _check_trainable(cfg, tcfg)
     layout = train_layout(cfg)
     remat = tcfg.remat != "none"
@@ -163,8 +159,9 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig
         lr_t = torch.tensor(lr, dtype=torch.float32, device=p.device)
         if tcfg.fused_sgd:
             ok = torch.ones(p.shape[0], dtype=torch.bool, device=p.device)
-            fused_sgd_lanes(p, list(grads), m, ok, lr_t.reshape(1),
-                            reset=False, momentum=mu)
+            fused_sgd_lanes(p, list(grads), m, ok,
+                            lr_t.to(p.dtype).reshape(1), reset=False,
+                            momentum=mu)
             return
         ps, ms = unravel(p, layout), unravel(m, layout)
         for (name, _), g in zip(layout, grads):

@@ -1,10 +1,12 @@
 """Decoder model of the LM zoo — the port's twin of the JAX package's
-``models/transformer.py``, for the ``dense``, ``vlm``, ``audio`` and
-``ssm`` families.
+``models/transformer.py``, for the ``dense``, ``vlm``, ``audio``, ``moe``
+and ``ssm`` families.
 
 A model is a repetition of a *block pattern*, the smallest repeating
 sequence of (mixer, ffn) layer kinds: a dense, vlm or audio decoder's is
-``[("attn", "dense")]``, a Mamba2 model's ``[("ssm", "none")]``. A model
+``[("attn", "dense")]``, a MoE decoder's ``[("attn", "moe")]`` (its FFN
+``models/moe.py``'s experts, whose aux loss ``forward`` sums over the
+layers), a Mamba2 model's ``[("ssm", "none")]``. A model
 with ``input_mode="embeds"`` (the vlm family's llava) has no embedding
 table: ``forward`` takes float embeds (B, S, d) and ``decode_step``
 (B, 1, d), cast to the activation dtype, where a token model takes int
@@ -20,9 +22,9 @@ kernel's own backward on the card. The reference applies
 the stack with ``lax.scan``; here a Python loop walks it, one layer's
 slice at a time. The decode cache (KV for attention, conv window and SSM
 state for Mamba2) is updated in place. ``decode_step_lanes`` decodes a
-batch whose every request runs under its own model of a fleet. The other
-families (moe, hybrid) raise ``NotImplementedError`` naming their ROADMAP
-item.
+batch whose every request runs under its own model of a fleet (not for
+the moe family: ROADMAP A10.4b-fleet). The hybrid family raises
+``NotImplementedError`` naming its ROADMAP item (A10.4c).
 """
 from __future__ import annotations
 
@@ -37,11 +39,12 @@ from repro_torch.models import layers as L
 from repro_torch.models.mamba2 import (
     mamba_block, mamba_block_lanes, mamba_cache_shape, mamba_specs,
 )
+from repro_torch.models.moe import moe_block, moe_specs
 from repro_torch.nn.module import init_params
 
 Params = Dict[str, Any]          # nested dict of tensors
 
-_NOT_PORTED = {"moe": "A10", "hybrid": "A10"}
+_NOT_PORTED = {"hybrid": "A10.4c"}
 
 
 # ---------------------------------------------------------------------------
@@ -50,7 +53,7 @@ _NOT_PORTED = {"moe": "A10", "hybrid": "A10"}
 
 def block_pattern(cfg: ModelConfig) -> List[Tuple[str, str]]:
     """Returns [(mixer_kind, ffn_kind)] of length = pattern period."""
-    if cfg.family not in ("dense", "vlm", "audio", "ssm"):
+    if cfg.family not in ("dense", "vlm", "audio", "moe", "ssm"):
         item = _NOT_PORTED.get(cfg.family)
         raise NotImplementedError(
             f"model family {cfg.family!r} is not ported yet"
@@ -61,9 +64,10 @@ def block_pattern(cfg: ModelConfig) -> List[Tuple[str, str]]:
     pattern = []
     for pos in range(period):
         if cfg.moe_on_layer(pos):
-            raise NotImplementedError("MoE layers are not ported yet "
-                                      "(ROADMAP A10)")
-        pattern.append(("attn", "dense" if cfg.d_ff > 0 else "none"))
+            ffn = "moe"
+        else:
+            ffn = "dense" if cfg.d_ff > 0 else "none"
+        pattern.append(("attn", ffn))
     return pattern
 
 
@@ -90,6 +94,8 @@ def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
             entry["ssm"] = mamba_specs(cfg, stack=reps)
         if ffn == "dense":
             entry["ffn"] = L.ffn_specs(cfg, stack=reps)
+        elif ffn == "moe":
+            entry["moe"] = moe_specs(cfg, stack=reps)
         blocks[f"pos{pos}"] = entry
     return {"embed": L.embedding_specs(cfg), "blocks": blocks}
 
@@ -144,9 +150,9 @@ def _apply_block_position(
     positions: torch.Tensor,
     cache_entry: Optional[dict],
     decode_pos: Optional[int],
-) -> torch.Tensor:
-    """One (mixer, ffn) position of one layer; a cache entry is updated in
-    place."""
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One (mixer, ffn) position of one layer: (x, the MoE aux loss or
+    None); a cache entry is updated in place."""
     if "attn" in entry:
         c = cache_entry["attn"] if cache_entry else None
         x, _ = L.attention_block(entry["attn"], x, cfg, positions=positions,
@@ -156,7 +162,9 @@ def _apply_block_position(
         x, _ = mamba_block(entry["ssm"], x, cfg, cache=c)
     if "ffn" in entry:
         x = L.ffn_block(entry["ffn"], x, cfg)
-    return x
+    if "moe" in entry:
+        return moe_block(entry["moe"], x, cfg)
+    return x, None
 
 
 def forward(params: Params, inputs: torch.Tensor, cfg: ModelConfig, *,
@@ -164,7 +172,7 @@ def forward(params: Params, inputs: torch.Tensor, cfg: ModelConfig, *,
     """Full-sequence forward. inputs: int tokens (B, S) or float embeds
     (B, S, d). Returns
     (logits (B, S, V) in the activation dtype, aux_loss) — the aux loss is
-    the reference's MoE term, 0 for the dense and ssm families.
+    the MoE layers' terms summed in float32, 0 for the other families.
 
     ``remat`` recomputes each layer's activations in the backward instead
     of keeping them: the layer's positions run under
@@ -178,20 +186,23 @@ def forward(params: Params, inputs: torch.Tensor, cfg: ModelConfig, *,
     blocks = [_layers(params["blocks"][f"pos{pos}"], reps)
               for pos in range(len(pattern))]
 
-    def layer(x, i):
+    def layer(x, aux, i):
         for pos in range(len(pattern)):
-            x = _apply_block_position(blocks[pos][i], x, cfg, positions,
-                                      None, None)
-        return x
+            x, a = _apply_block_position(blocks[pos][i], x, cfg, positions,
+                                         None, None)
+            if a is not None:
+                aux = aux + a
+        return x, aux
 
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(reps):
         if remat:
-            x = torch.utils.checkpoint.checkpoint(layer, x, i,
-                                                  use_reentrant=False)
+            x, aux = torch.utils.checkpoint.checkpoint(layer, x, aux, i,
+                                                       use_reentrant=False)
         else:
-            x = layer(x, i)
+            x, aux = layer(x, aux, i)
     logits = L.unembed(params["embed"], x, cfg)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux
 
 
 # ---------------------------------------------------------------------------
@@ -200,7 +211,7 @@ def forward(params: Params, inputs: torch.Tensor, cfg: ModelConfig, *,
 
 def lm_loss(params: Params, batch: Mapping[str, torch.Tensor],
             cfg: ModelConfig, *, remat: bool = False) -> torch.Tensor:
-    """Next-token cross-entropy (+ the MoE aux term, 0 here), in float32.
+    """Next-token cross-entropy (+ the MoE aux term), in float32.
     batch: {"inputs" (B, S) ints or (B, S, d) embeds, passed to
     ``forward`` as they are, "labels" (B, S)} and an optional "mask"
     (B, S): the mean over the masked positions (at least one), as in the
@@ -273,7 +284,8 @@ def decode_step(params: Params, tokens: torch.Tensor, cache: Params,
         for p in range(len(pattern)):
             entry = _layer(params["blocks"][f"pos{p}"], i)
             centry = _layer(cache[f"pos{p}"], i)
-            x = _apply_block_position(entry, x, cfg, positions, centry, pos)
+            x, _ = _apply_block_position(entry, x, cfg, positions, centry,
+                                         pos)
     logits = L.unembed(params["embed"], x, cfg)
     return logits, cache
 
@@ -316,6 +328,19 @@ class LaneRows(Mapping):
         return len(self._tree)
 
 
+def check_lanes(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a model ``decode_step_lanes``
+    does not decode: the hybrid family (``block_pattern``) and the moe
+    family, whose experts need a block with a request axis on every leaf
+    (``moe_block_lanes``, ROADMAP A10.4b-fleet); the dense lanes block
+    must not stand in for its experts."""
+    pattern = block_pattern(cfg)
+    if cfg.family == "moe" or any(ffn == "moe" for _, ffn in pattern):
+        raise NotImplementedError(
+            f"fleet decoding of the {cfg.family!r} family needs "
+            "moe_block_lanes, which is not ported yet (ROADMAP A10.4b-fleet)")
+
+
 def _apply_block_position_lanes(entry, x, cfg, positions, cache_entry,
                                 decode_pos) -> torch.Tensor:
     """``_apply_block_position``'s decode with a request axis on every
@@ -348,6 +373,7 @@ def decode_step_lanes(stack: Params, lanes: torch.Tensor,
     or test reads a cache across the packages. Returns (logits (B, 1, V),
     cache); ``meter[0]`` adds up the bytes gathered."""
     meter = [0] if meter is None else meter
+    check_lanes(cfg)
     pattern = block_pattern(cfg)
     embed = stack["embed"]["embed"]
     x = L.embed_tokens_lanes(embed, lanes, tokens, cfg)

@@ -44,7 +44,7 @@ from repro_torch.launch.serve import (
 )
 from repro_torch.models.small import small_model_apply, small_model_apply_lanes
 from repro_torch.models.transformer import (
-    block_pattern, decode_step_lanes, init_cache,
+    check_lanes, decode_step_lanes, init_cache,
 )
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.tree import Layout, flatten_tree, nest_tree, unravel
@@ -275,7 +275,7 @@ class FleetDecoder:
     ``ValueError``: its loop feeds tokens back (``check_token_inputs``)."""
 
     def __init__(self, cfg: ModelConfig):
-        block_pattern(cfg)          # moe and hybrid raise, naming A10
+        check_lanes(cfg)            # moe, hybrid raise (A10.4b-fleet, A10.4c)
         check_token_inputs(cfg)
         self.cfg = cfg
         self.dispatches = 0

@@ -17,6 +17,14 @@ does. The CNN trainer hands the wrapper leaves it takes: autograd returns
 the conv weights' gradients as strided views, which the wrapper refuses,
 and ``lane_grads`` makes them dense.
 
+In bfloat16 (the reference's kernel at ``p.dtype = bfloat16``, as its LM
+step runs it with bfloat16 parameters) the plain version rounds to
+bfloat16 after every operation, with mu rounded to bfloat16 and lr read
+at bfloat16, as the reference does; it is held against the Pallas kernel
+bit for bit, with mu 0.5 and 0.9, Nesterov on and off, over sizes that
+are not multiples of its 65,536-wide block, and as a leaf list. The
+wrapper refuses a mixed set of dtypes.
+
 The CUDA kernel itself runs only on the card:
 ``tests/test_torch_fused_sgd_gpu.py``.
 """
@@ -131,6 +139,99 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         fused_sgd_lanes(torch.zeros(8, 2).t(), g, m, ok, lr, **kw)
     with pytest.raises(ValueError):
         fused_sgd_lanes(p, g, m, ok, torch.tensor([0.1, 0.2]), **kw)
+
+
+def _bf16(x):
+    """numpy float32 -> (the jnp bfloat16 array, the same bits in torch)."""
+    j = jnp.asarray(x, jnp.bfloat16)
+    return j, torch.from_numpy(np.array(j.astype(jnp.float32))).bfloat16()
+
+
+@pytest.mark.parametrize("n", [1, 257, 65_535, 200_003])
+@pytest.mark.parametrize("momentum", [0.5, 0.9])
+@pytest.mark.parametrize("nesterov", [False, True])
+def test_bf16_plain_version_is_the_pallas_kernel_bit_for_bit(n, momentum,
+                                                             nesterov):
+    p, g, m = _arrays(n, seed=n + 1)
+    (jp, tp), (jg, tg), (jm, tm) = _bf16(p), _bf16(g), _bf16(m)
+    lr = jnp.asarray(0.3, jnp.float32).astype(jnp.bfloat16)   # 0.30078125
+    pr, mr = fused_sgd_update(jp, jg, jm, lr=lr, momentum=momentum,
+                              nesterov=nesterov)
+    tp, tm = tp[None].clone(), tm[None].clone()
+    fused_sgd_lanes(tp, tg[None], tm, torch.ones(1, dtype=torch.bool),
+                    torch.tensor([0.3]).bfloat16(), reset=False,
+                    momentum=momentum, nesterov=nesterov)
+    assert tp.dtype == tm.dtype == torch.bfloat16
+    np.testing.assert_array_equal(tp[0].float().numpy(),
+                                  np.asarray(pr.astype(jnp.float32)))
+    np.testing.assert_array_equal(tm[0].float().numpy(),
+                                  np.asarray(mr.astype(jnp.float32)))
+
+
+def test_bf16_rounds_every_operation_as_the_reference():
+    """The rounding the bit-equality rests on: computing in float32 and
+    rounding once, or keeping mu = 0.9 in float32 (as a Python float
+    times a bfloat16 tensor does in PyTorch), gives other bits on many
+    elements."""
+    p, g, m = _arrays(20_000, seed=5)
+    (_, tp), (_, tg), (_, tm) = _bf16(p), _bf16(g), _bf16(m)
+    lr = torch.tensor([0.3]).bfloat16()
+    pk, mk = tp[None].clone(), tm[None].clone()
+    fused_sgd_lanes(pk, tg[None], mk, torch.ones(1, dtype=torch.bool), lr,
+                    reset=False, momentum=0.9)
+    m_once = (0.9 * tm.float() + tg.float()).bfloat16()
+    p_once = (tp.float() - lr.float() * m_once.float()).bfloat16()
+    assert (m_once != mk[0]).sum() > 1000
+    assert (p_once != pk[0]).sum() > 10
+    m_mu32 = ((0.9 * tm.float()).bfloat16().float() + tg.float()).bfloat16()
+    assert (m_mu32 != mk[0]).sum() > 1000
+
+
+@pytest.mark.parametrize("reset", [False, True])
+def test_bf16_leaf_list_is_the_pallas_kernel_on_raveled_leaves(reset):
+    """The narrow MLP's six leaves over C = 3 lanes, one of which takes no
+    step, in bfloat16: each stepping lane bit for bit the Pallas kernel
+    on its raveled leaves (momentum zeroed first under ``reset``)."""
+    shapes = LAYOUTS["narrow_mlp"]
+    C = 3
+    p, leaves, m = _leaf_arrays(C, shapes, seed=11)
+    ok = np.asarray([True, False, True])
+    (jp, tp), (jm, tm) = _bf16(p), _bf16(m)
+    tleaves = [_bf16(x)[1] for x in leaves]
+    lr = jnp.asarray(0.05, jnp.float32).astype(jnp.bfloat16)
+    pk, mk = tp.clone(), tm.clone()
+    fused_sgd_lanes(pk, tleaves, mk, torch.from_numpy(ok),
+                    torch.tensor([0.05]).bfloat16(), reset=reset,
+                    momentum=0.9)
+    for c in range(C):
+        m_in = jnp.zeros_like(jm[c]) if reset else jm[c]
+        if not ok[c]:
+            np.testing.assert_array_equal(pk[c].float().numpy(),
+                                          tp[c].float().numpy())
+            np.testing.assert_array_equal(
+                mk[c].float().numpy(), np.asarray(m_in.astype(jnp.float32)))
+            continue
+        g = jnp.concatenate([jnp.asarray(x[c].reshape(-1), jnp.bfloat16)
+                             for x in leaves])
+        pr, mr = fused_sgd_update(jp[c], g, m_in, lr=lr, momentum=0.9)
+        np.testing.assert_array_equal(pk[c].float().numpy(),
+                                      np.asarray(pr.astype(jnp.float32)))
+        np.testing.assert_array_equal(mk[c].float().numpy(),
+                                      np.asarray(mr.astype(jnp.float32)))
+
+
+def test_wrapper_refuses_mixed_dtypes():
+    p, g, m = (torch.zeros(2, 8, dtype=torch.bfloat16) for _ in range(3))
+    ok = torch.ones(2, dtype=torch.bool)
+    lr = torch.tensor([0.1]).bfloat16()
+    kw = {"reset": False, "momentum": 0.5}
+    for args in ((p, g.float(), m, ok, lr), (p, g, m.float(), ok, lr),
+                 (p, g, m, ok, lr.float()), (p.float(), g, m, ok, lr),
+                 (p.half(), g.half(), m.half(), ok, lr.half())):
+        with pytest.raises(TypeError):
+            fused_sgd_lanes(*args, **kw)
+    fused_sgd_lanes(p, [g[:, :3].contiguous(), g[:, 3:].contiguous()], m, ok,
+                    lr, **kw)
 
 
 def test_cpu_path_counts_no_launch():

@@ -12,7 +12,11 @@ each class of alignment between p and a leaf (sharing 16 bytes, 8 bytes,
 4 bytes), with the span a block updates forced through ``kernel.launch``
 (every block one 16-byte slot, a few slots, more than a segment) as well
 as the kernel's default; and at the full-width paper CNN's ten leaves
-with 1, 5 and 20 lanes (the FedSR rings and the FedAvg cohort).
+with 1, 5 and 20 lanes (the FedSR rings and the FedAvg cohort). The
+bfloat16 case (its own entry point, rounding after every operation) is
+held bit for bit the same way: every leaf layout, forced spans of one
+8-element slot, a few and more than a segment, p and m off their 16-byte
+grid, and yi-9b's 2-layer training shape.
 """
 import math
 
@@ -232,3 +236,89 @@ def test_cuda_tensor_never_falls_back_to_the_plain_version():
                             torch.zeros(2, 4, device="cuda")], p.clone(), ok,
                         lr, reset=False, momentum=0.5)
     assert not p.any()
+
+
+BF16_SPANS = [0, 8, 24, 4096]
+
+
+def _bf16_case(cuda, C, shapes, seed):
+    P = sum(math.prod(s) for s in shapes)
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    p, g, m = (torch.randn(C, P, device=cuda, generator=gen).bfloat16()
+               for _ in range(3))
+    return p, _split(g, shapes), m, torch.tensor([0.3], device=cuda).bfloat16()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+@pytest.mark.parametrize("span", BF16_SPANS)
+@pytest.mark.parametrize("C", [1, 5])
+def test_bf16_leaf_list_equals_plain_version_bit_for_bit(cuda, layout, span,
+                                                         C):
+    p, leaves, m, lr = _bf16_case(cuda, C, LAYOUTS[layout], C + span)
+    for mask in MASKS:
+        ok = torch.tensor(mask[:C], device=cuda)
+        for reset in (False, True):
+            for momentum, nesterov in STEPS + ((0.5, True),):
+                want = sgd_lanes_reference(p, leaves, m, ok, lr, reset=reset,
+                                           momentum=momentum,
+                                           nesterov=nesterov)
+                pk, mk = p.clone(), m.clone()
+                if span == 0:
+                    before = (fused_sgd_lanes.launches,
+                              fused_sgd_lanes.bf16_launches)
+                    fused_sgd_lanes(pk, leaves, mk, ok, lr, reset=reset,
+                                    momentum=momentum, nesterov=nesterov)
+                    assert (fused_sgd_lanes.launches,
+                            fused_sgd_lanes.bf16_launches) == (
+                        before[0] + 1, before[1] + 1)
+                else:
+                    kernel.launch(pk, leaves, mk, ok, lr, reset=reset,
+                                  momentum=momentum, nesterov=nesterov,
+                                  span=span)
+                torch.cuda.synchronize()
+                assert pk.dtype == mk.dtype == torch.bfloat16
+                assert torch.equal(pk, want[0]) and torch.equal(mk, want[1]), (
+                    mask[:C], reset, momentum, nesterov)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("off_p,off_m", [(1, 1), (3, 3), (0, 1), (5, 0)])
+def test_bf16_p_and_m_off_the_16_byte_grid(cuda, off_p, off_m):
+    C, shapes = 3, LAYOUTS["mlp"][:4]
+    P = sum(math.prod(s) for s in shapes)
+    gen = torch.Generator(device=cuda).manual_seed(off_p * 8 + off_m)
+    bp, bm = (torch.randn(C * P + 8, device=cuda, generator=gen).bfloat16()
+              for _ in range(2))
+    p, m = (b[o:o + C * P].view(C, P) for b, o in ((bp, off_p), (bm, off_m)))
+    leaves = _split(torch.randn(C, P, device=cuda, generator=gen).bfloat16(),
+                    shapes)
+    ok = torch.tensor([True, False, True], device=cuda)
+    lr = torch.tensor([0.02], device=cuda).bfloat16()
+    for reset in (False, True):
+        want = sgd_lanes_reference(p, leaves, m, ok, lr, reset=reset,
+                                   momentum=0.9)
+        pk = bp.clone()[off_p:off_p + C * P].view(C, P)
+        mk = bm.clone()[off_m:off_m + C * P].view(C, P)
+        fused_sgd_lanes(pk, leaves, mk, ok, lr, reset=reset, momentum=0.9)
+        torch.cuda.synchronize()
+        assert torch.equal(pk, want[0]) and torch.equal(mk, want[1])
+
+
+@pytest.mark.gpu
+def test_bf16_at_yi_9b_two_layer_training_shape(cuda):
+    """(1, 870,338,560) over yi-9b's twelve leaves, as phase 9 (d) of
+    ``chip_smoke.py`` steps it."""
+    from repro_torch.configs.yi_9b import CONFIG
+    from repro_torch.launch.steps import train_layout
+    import dataclasses
+
+    shapes = [s for _, s in train_layout(dataclasses.replace(CONFIG,
+                                                             num_layers=2))]
+    p, leaves, m, lr = _bf16_case(cuda, 1, shapes, 9)
+    ok = torch.ones(1, dtype=torch.bool, device=cuda)
+    want = sgd_lanes_reference(p, leaves, m, ok, lr, reset=False,
+                               momentum=0.5)
+    fused_sgd_lanes(p, leaves, m, ok, lr, reset=False, momentum=0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(p, want[0]) and torch.equal(m, want[1])

@@ -24,6 +24,7 @@ from repro_torch.kernels import build
 # entry point -> (binding module, its loader, the library it loads)
 ENTRY_POINTS = {
     "fused_sgd_lanes": ("fused_sgd", "_fn", "fused_sgd"),
+    "fused_sgd_lanes_bf16": ("fused_sgd", "_fn_bf16", "fused_sgd"),
     "flash_attention_fwd": ("flash_attention", "_fwd", "flash_attention"),
     "flash_attention_bwd": ("flash_attention", "_bwd", "flash_attention_bwd"),
     "decode_attention_fwd": ("decode_attention", "_fn", "decode_attention"),
