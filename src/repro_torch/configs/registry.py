@@ -1,13 +1,13 @@
 """Architecture config registry of the port: ``--arch <id>`` resolution
 and smoke reduction (the twin of the JAX package's ``configs/registry.py``).
 
-Only the archs whose model family the port runs resolve; every other id
-raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+Every id of the JAX package's registry resolves, with the same fields.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
+from typing import Dict
 
 from repro_torch.configs.base import ModelConfig
 
@@ -29,6 +29,7 @@ ARCH_IDS = (
 
 _MODULE_FOR = {
     "musicgen-large": "musicgen_large",
+    "jamba-v0.1-52b": "jamba_v0_1_52b",
     "stablelm-12b": "stablelm_12b",
     "granite-8b": "granite_8b",
     "llava-next-mistral-7b": "llava_next_mistral_7b",
@@ -41,15 +42,8 @@ _MODULE_FOR = {
     "fedsr-cnn": "fedsr_cnn",
 }
 
-_NOT_PORTED = {
-    "jamba-v0.1-52b": "A10",
-}
-
 
 def _module(arch: str):
-    if arch in _NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported yet (ROADMAP {_NOT_PORTED[arch]})")
     if arch not in _MODULE_FOR:
         raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
     return importlib.import_module(f"repro_torch.configs.{_MODULE_FOR[arch]}")
@@ -61,6 +55,10 @@ def get_config(arch: str) -> ModelConfig:
 
 def get_smoke_config(arch: str) -> ModelConfig:
     return _module(arch).SMOKE
+
+
+def all_configs() -> Dict[str, ModelConfig]:
+    return {a: get_config(a) for a in ARCH_IDS}
 
 
 def reduce_for_smoke(cfg: ModelConfig, **overrides) -> ModelConfig:

@@ -7,8 +7,12 @@ with cache (the twin of the JAX package's ``launch/serve.py``).
 serves the full-width model on the GPU from random weights drawn from a
 seed on the card. The dense archs are yi-9b, stablelm-12b (head dim 160),
 granite-8b and deepseek-7b (MHA); musicgen-large is the audio one (MHA at
-head dim 64 over a 2,048-token codebook) and mamba2-2.7b the ssm one. Each
-fits one 80 GB card in float32 (stablelm-12b's 48.6 GB the largest).
+head dim 64 over a 2,048-token codebook), mamba2-2.7b the ssm one and
+jamba-v0.1-52b the hybrid one (Mamba2 and attention layers, MoE FFNs on the
+odd ones). Each dense, audio and ssm arch fits one 80 GB card in float32
+(stablelm-12b's 48.6 GB the largest); the moe archs and jamba do not (jamba
+is 205.8 GB in float32, one period of its 8-layer pattern 53.07 GB) and
+serve here with ``--smoke``.
 The generation loops feed each argmax token back into the model, so a
 model fed embeds (``input_mode="embeds"``: llava-next-mistral-7b) cannot
 run through them and they raise ``ValueError``; such a model serves through
@@ -226,8 +230,9 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap = argparse.ArgumentParser(description="batched LM serving (PyTorch)")
     ap.add_argument("--arch", default="yi-9b",
                     help="yi-9b, stablelm-12b, granite-8b, deepseek-7b, "
-                         "musicgen-large or mamba2-2.7b "
-                         "(llava-next-mistral-7b reads embeds and raises)")
+                         "musicgen-large, mamba2-2.7b, the moe archs or "
+                         "jamba-v0.1-52b (llava-next-mistral-7b reads "
+                         "embeds and raises)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--new-tokens", type=int, default=32)

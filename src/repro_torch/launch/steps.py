@@ -109,11 +109,10 @@ def lane_grads(flat: torch.Tensor, batch: Batch, cfg: ModelConfig,
 
 
 def _check_trainable(cfg: ModelConfig, tcfg: TrainConfig) -> None:
-    if cfg.family == "ssm":
+    if any(mixer == "ssm" for mixer, _ in block_pattern(cfg)):
         raise NotImplementedError(
-            "training the ssm family needs a backward of the SSD scan "
-            "kernel, which is not ported yet (ROADMAP A10.5)")
-    block_pattern(cfg)           # the hybrid family raises (ROADMAP A10.4c)
+            f"training the {cfg.family} family needs a backward of the SSD "
+            "scan kernel, which is not ported yet (ROADMAP A10.5)")
     if tcfg.param_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"param_dtype {tcfg.param_dtype!r} is not float32 "
                          "or bfloat16")
@@ -147,8 +146,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig
 
     Like the reference's LM step, it ignores ``optimizer``,
     ``weight_decay``, ``compute_dtype``, ``dp_clip`` and ``dp_noise_mult``
-    (ROADMAP C11). Raises ``NotImplementedError`` for the ssm family
-    (A10.5) and the hybrid family (A10.4c)."""
+    (ROADMAP C11). Raises ``NotImplementedError`` for a model with Mamba2
+    layers, the ssm and hybrid families (A10.5)."""
     _check_trainable(cfg, tcfg)
     layout = train_layout(cfg)
     remat = tcfg.remat != "none"

@@ -1,12 +1,16 @@
 """Decoder model of the LM zoo — the port's twin of the JAX package's
-``models/transformer.py``, for the ``dense``, ``vlm``, ``audio``, ``moe``
-and ``ssm`` families.
+``models/transformer.py``, for the ``dense``, ``vlm``, ``audio``, ``moe``,
+``ssm`` and ``hybrid`` families.
 
 A model is a repetition of a *block pattern*, the smallest repeating
 sequence of (mixer, ffn) layer kinds: a dense, vlm or audio decoder's is
 ``[("attn", "dense")]``, a MoE decoder's ``[("attn", "moe")]`` (its FFN
 ``models/moe.py``'s experts, whose aux loss ``forward`` sums over the
-layers), a Mamba2 model's ``[("ssm", "none")]``. A model
+layers), a Mamba2 model's ``[("ssm", "none")]``. A hybrid (jamba) model's
+period is ``lcm(attn_every, moe_every)``: attention where
+``pos % attn_every == attn_offset`` and Mamba2 elsewhere, the MoE FFN on
+``moe_on_layer(pos)`` and the dense one elsewhere (jamba's is 8 long:
+attention at 4, experts at the odd positions). A model
 with ``input_mode="embeds"`` (the vlm family's llava) has no embedding
 table: ``forward`` takes float embeds (B, S, d) and ``decode_step``
 (B, 1, d), cast to the activation dtype, where a token model takes int
@@ -23,11 +27,11 @@ the stack with ``lax.scan``; here a Python loop walks it, one layer's
 slice at a time. The decode cache (KV for attention, conv window and SSM
 state for Mamba2) is updated in place. ``decode_step_lanes`` decodes a
 batch whose every request runs under its own model of a fleet (not for
-the moe family: ROADMAP A10.4b-fleet). The hybrid family raises
-``NotImplementedError`` naming its ROADMAP item (A10.4c).
+a model with MoE layers, moe or hybrid: ROADMAP A10.4b-fleet).
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Iterator, List, Mapping, Optional, Tuple
 
 import numpy as np
@@ -44,7 +48,7 @@ from repro_torch.nn.module import init_params
 
 Params = Dict[str, Any]          # nested dict of tensors
 
-_NOT_PORTED = {"hybrid": "A10.4c"}
+_FAMILIES = ("dense", "vlm", "audio", "moe", "ssm", "hybrid")
 
 
 # ---------------------------------------------------------------------------
@@ -53,21 +57,25 @@ _NOT_PORTED = {"hybrid": "A10.4c"}
 
 def block_pattern(cfg: ModelConfig) -> List[Tuple[str, str]]:
     """Returns [(mixer_kind, ffn_kind)] of length = pattern period."""
-    if cfg.family not in ("dense", "vlm", "audio", "moe", "ssm"):
-        item = _NOT_PORTED.get(cfg.family)
-        raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet"
-            + (f" (ROADMAP {item})" if item else ""))
+    if cfg.family not in _FAMILIES:
+        raise ValueError(f"model family {cfg.family!r} is not an LM family "
+                         f"of {_FAMILIES}")
     if cfg.family == "ssm":
         return [("ssm", "none")]
     period = cfg.attn_every if cfg.attn_every > 0 else 1
+    if cfg.family == "hybrid":
+        period = math.lcm(cfg.attn_every or 1, cfg.moe_every or 1)
     pattern = []
     for pos in range(period):
+        if cfg.family == "hybrid":
+            mixer = "attn" if pos % cfg.attn_every == cfg.attn_offset else "ssm"
+        else:
+            mixer = "attn"
         if cfg.moe_on_layer(pos):
             ffn = "moe"
         else:
             ffn = "dense" if cfg.d_ff > 0 else "none"
-        pattern.append(("attn", ffn))
+        pattern.append((mixer, ffn))
     return pattern
 
 
@@ -330,8 +338,8 @@ class LaneRows(Mapping):
 
 def check_lanes(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a model ``decode_step_lanes``
-    does not decode: the hybrid family (``block_pattern``) and the moe
-    family, whose experts need a block with a request axis on every leaf
+    does not decode: one with MoE layers (the moe and hybrid families),
+    whose experts need a block with a request axis on every leaf
     (``moe_block_lanes``, ROADMAP A10.4b-fleet); the dense lanes block
     must not stand in for its experts."""
     pattern = block_pattern(cfg)

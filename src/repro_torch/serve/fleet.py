@@ -275,7 +275,7 @@ class FleetDecoder:
     ``ValueError``: its loop feeds tokens back (``check_token_inputs``)."""
 
     def __init__(self, cfg: ModelConfig):
-        check_lanes(cfg)            # moe, hybrid raise (A10.4b-fleet, A10.4c)
+        check_lanes(cfg)            # moe, hybrid raise (A10.4b-fleet)
         check_token_inputs(cfg)
         self.cfg = cfg
         self.dispatches = 0

@@ -56,9 +56,9 @@ ARCHS = {"stablelm-12b": "stablelm_12b", "granite-8b": "granite_8b",
 HEADS = {"stablelm-12b": (32, 8, 160), "granite-8b": (32, 8, 128),
          "deepseek-7b": (32, 32, 128)}
 VARIANTS = {"smoke": {}, "hd160": {"head_dim": 160}}
+# archs once left for later, all ported since (tests/test_torch_moe.py,
+# tests/test_torch_hybrid.py)
 UNPORTED = ("jamba-v0.1-52b", "qwen3-moe-30b-a3b", "phi3.5-moe-42b-a6.6b")
-# the moe archs among them, ported since (tests/test_torch_moe.py)
-MOE = ("qwen3-moe-30b-a3b", "phi3.5-moe-42b-a6.6b")
 # the vlm and audio archs, ported since (tests/test_torch_lm_multimodal.py)
 MULTIMODAL = ("musicgen-large", "llava-next-mistral-7b")
 
@@ -103,17 +103,13 @@ def test_configs_equal_the_reference_and_resolve_in_the_registry(arch):
 
 @pytest.mark.parametrize("arch", UNPORTED)
 def test_the_other_archs_still_raise_naming_a10(arch):
-    """jamba still raises; the moe archs resolve to the reference's
-    configs."""
+    """The moe archs (A10.4b) and jamba (A10.4c), ported since, resolve to
+    the reference's configs."""
     from repro.configs import registry as ref_reg
     from repro_torch.configs import registry as reg
     for fn in ("get_config", "get_smoke_config"):
-        if arch in MOE:
-            assert (dataclasses.asdict(getattr(reg, fn)(arch))
-                    == dataclasses.asdict(getattr(ref_reg, fn)(arch)))
-            continue
-        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-            getattr(reg, fn)(arch)
+        assert (dataclasses.asdict(getattr(reg, fn)(arch))
+                == dataclasses.asdict(getattr(ref_reg, fn)(arch)))
 
 
 @pytest.mark.parametrize("arch", MULTIMODAL)

@@ -374,11 +374,17 @@ def test_the_cli_draws_each_client_from_its_own_seed():
 
 @pytest.mark.parametrize("family", ["moe", "hybrid"])
 def test_unported_families_raise_naming_a10(family):
+    """A fleet of a model with MoE layers (the moe family, and the hybrid
+    one's jamba) raises naming A10.4b-fleet, in the decoder and the step."""
     from repro_torch.serve.fleet import FleetDecoder
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        FleetDecoder(dataclasses.replace(get_smoke_config("yi-9b"),
-                                         family=family))
+    cfg = (get_smoke_config("jamba-v0.1-52b") if family == "hybrid"
+           else dataclasses.replace(get_smoke_config("yi-9b"), family=family))
+    with pytest.raises(NotImplementedError, match="ROADMAP A10.4b-fleet"):
+        FleetDecoder(cfg)
+    with pytest.raises(NotImplementedError, match="ROADMAP A10.4b-fleet"):
+        PT.decode_step_lanes({}, torch.zeros(1, dtype=torch.long),
+                             torch.zeros(1, 1, dtype=torch.int32), {}, 0, cfg)
 
 
 @pytest.mark.parametrize("family", ["vlm", "audio"])

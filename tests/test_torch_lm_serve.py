@@ -2,8 +2,8 @@
 JAX package's, with the reference's weights carried across.
 
 * Configs: ``configs/registry.py`` and ``configs/yi_9b.py`` are pinned
-  equal to the reference's; archs the port does not run raise, and the
-  vlm, audio and moe ones resolve.
+  equal to the reference's; the vlm, audio, moe and hybrid archs
+  resolve.
 * ``nn/module.py``: the spec tree's shapes and init kinds equal the
   reference's, and each kind draws what it should.
 * ``forward``, ``decode_step`` at every position and greedy
@@ -163,17 +163,13 @@ def test_registry_and_yi_9b_configs_equal_the_reference():
 
 @pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "jamba-v0.1-52b"])
 def test_unported_archs_raise_naming_their_roadmap_item(arch):
-    """jamba still raises; qwen3-moe, ported since (ROADMAP A10.4b),
-    resolves to the reference's configs."""
+    """qwen3-moe (ROADMAP A10.4b) and jamba (A10.4c), ported since,
+    resolve to the reference's configs."""
     from repro.configs import registry as ref_reg
     from repro_torch.configs import registry as reg
     for fn in ("get_config", "get_smoke_config"):
-        if arch == "qwen3-moe-30b-a3b":
-            assert (dataclasses.asdict(getattr(reg, fn)(arch))
-                    == dataclasses.asdict(getattr(ref_reg, fn)(arch)))
-            continue
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            getattr(reg, fn)(arch)
+        assert (dataclasses.asdict(getattr(reg, fn)(arch))
+                == dataclasses.asdict(getattr(ref_reg, fn)(arch)))
 
 
 @pytest.mark.parametrize("arch", ["llava-next-mistral-7b", "musicgen-large"])
@@ -185,18 +181,20 @@ def test_the_vlm_and_audio_archs_resolve(arch):
 
 @pytest.mark.parametrize("family", ["moe", "hybrid"])
 def test_unported_families_raise_naming_their_roadmap_item(family):
-    """The hybrid family still raises; the moe family, ported since
-    (ROADMAP A10.4b), builds the reference's specs."""
-    cfg = dataclasses.replace(SMOKE, family=family)
-    if family == "moe":
-        ref = _flat(RT.model_specs(dataclasses.replace(REF_SMOKE,
-                                                       family=family)))
-        port = _flat(PT.model_specs(cfg))
-        assert list(ref) == list(port)
-        assert all(tuple(port[k].shape) == tuple(ref[k].shape) for k in ref)
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PT.model_specs(cfg)
+    """The moe family (ROADMAP A10.4b) and the hybrid one (A10.4c, at
+    jamba's reduced config: a hybrid pattern needs ``attn_every``), ported
+    since, build the reference's specs."""
+    if family == "hybrid":
+        from repro.configs.jamba_v0_1_52b import SMOKE as ref_cfg
+        from repro_torch.configs.jamba_v0_1_52b import SMOKE as cfg
+    else:
+        ref_cfg = dataclasses.replace(REF_SMOKE, family=family)
+        cfg = dataclasses.replace(SMOKE, family=family)
+    assert PT.block_pattern(cfg) == RT.block_pattern(ref_cfg)
+    ref = _flat(RT.model_specs(ref_cfg))
+    port = _flat(PT.model_specs(cfg))
+    assert list(ref) == list(port)
+    assert all(tuple(port[k].shape) == tuple(ref[k].shape) for k in ref)
 
 
 @pytest.mark.parametrize("family", ["vlm", "audio"])
@@ -249,8 +247,12 @@ def test_registry_dispatches_specs_and_init_by_family():
     assert all(torch.equal(a, b) for a, b in
                zip(_flat(p).values(), _flat(q).values()))
     assert specs_for(CNN) == cnn_specs(CNN)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        specs_for(dataclasses.replace(SMOKE, family="hybrid"))
+    # the hybrid family (jamba) dispatches through model_specs too
+    from repro.configs.jamba_v0_1_52b import SMOKE as REF_JAMBA
+    from repro_torch.configs.jamba_v0_1_52b import SMOKE as JAMBA
+    ref, port = _flat(RT.model_specs(REF_JAMBA)), _flat(specs_for(JAMBA))
+    assert list(ref) == list(port)
+    assert all(tuple(port[k].shape) == tuple(ref[k].shape) for k in ref)
 
 
 def test_init_params_draws_each_kind():

@@ -2,7 +2,8 @@
 the JAX package's, with the reference's weights carried across.
 
 * Configs: ``configs/mamba2_2_7b.py`` and its smoke reduction equal the
-  reference's field by field; jamba (hybrid) still raises.
+  reference's field by field; jamba (hybrid, ported since) resolves to
+  the reference's configs and pattern.
 * Specs: ``models/mamba2.py``'s names, shapes and init kinds equal the
   reference's; the SSM cache is float32 whatever dtype is asked for.
 * ``forward`` (the chunked scan), ``decode_step`` with its conv and SSM
@@ -109,12 +110,17 @@ def test_mamba2_configs_equal_the_reference():
 
 
 def test_jamba_still_raises_naming_a10():
+    """Ported since (ROADMAP A10.4c): jamba resolves to the reference's
+    configs, and its Mamba2 layers sit where the reference's do."""
+    from repro.configs import registry as ref_reg
     from repro_torch.configs.registry import get_config, get_smoke_config
-    for fn in (get_config, get_smoke_config):
-        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-            fn("jamba-v0.1-52b")
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        PT.block_pattern(dataclasses.replace(SMOKE, family="hybrid"))
+    for fn, ref_fn in ((get_config, ref_reg.get_config),
+                       (get_smoke_config, ref_reg.get_smoke_config)):
+        cfg, ref_cfg = fn("jamba-v0.1-52b"), ref_fn("jamba-v0.1-52b")
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(ref_cfg)
+        assert PT.block_pattern(cfg) == RT.block_pattern(ref_cfg)
+    assert PT.block_pattern(get_smoke_config("jamba-v0.1-52b")) == [
+        ("ssm", "dense"), ("attn", "moe")]
     assert PT.block_pattern(SMOKE) == RT.block_pattern(REF_SMOKE) == [
         ("ssm", "none")]
 

@@ -42,13 +42,15 @@ DT = {"float32": (jnp.float32, torch.float32),
       "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
 # (b, l, h, g, p, n, chunk): tests/test_kernels.py's sweep, a ragged length
-# with groups, and mamba2-2.7b's head shape (G=1, P=64, N=Q=128) at 8 heads
+# with groups, jamba's N = 16 at chunk 128 (ragged, G=2), and mamba2-2.7b's
+# head shape (G=1, P=64, N=Q=128) at 8 heads
 SWEEP = [
     (2, 64, 4, 1, 16, 8, 16),
     (1, 96, 8, 2, 32, 16, 32),
     (2, 50, 4, 1, 16, 8, 16),      # L not a multiple of the chunk
     (1, 128, 4, 4, 64, 32, 64),    # groups == heads
     (1, 100, 4, 2, 16, 8, 32),     # L not a multiple of the chunk, G=2
+    (2, 300, 8, 2, 64, 16, 128),   # jamba's N = 16 at chunk 128, ragged
     (1, 200, 8, 1, 64, 128, 128),  # path-shaped: G=1, H=8, ragged
 ]
 
@@ -395,6 +397,7 @@ def test_pass_wrappers_on_the_cpu_compose_the_scan(b, l, h, g, p, n, chunk):
     (torch.bfloat16, 64, 128, 64, "tensor_cores"),
     (torch.bfloat16, 64, 32, 64, "tensor_cores"),
     (torch.bfloat16, 128, 64, 16, "tensor_cores"),
+    (torch.bfloat16, 128, 16, 64, "tensor_cores"),   # jamba-v0.1-52b's path
     (torch.bfloat16, 32, 128, 64, "cuda_cores"),     # Q < 64
     (torch.bfloat16, 16, 8, 16, "cuda_cores"),
     (torch.bfloat16, 100, 128, 64, "cuda_cores"),    # Q not a tile size
@@ -412,6 +415,17 @@ def test_mamba2_prefill_takes_the_tensor_core_route():
     P = 64."""
     from repro_torch.configs.mamba2_2_7b import CONFIG
     assert CONFIG.dtype == "bfloat16"
+    assert kernel_route(torch.bfloat16, CONFIG.ssm_chunk, CONFIG.ssm_state,
+                        CONFIG.ssm_headdim) == "tensor_cores"
+
+
+def test_jamba_prefill_takes_the_tensor_core_route():
+    """jamba-v0.1-52b's Mamba2 layers in bfloat16: Q = 128, N = 16,
+    P = 64, one 64-column box of B and C whose last 48 columns are zero
+    fill."""
+    from repro_torch.configs.jamba_v0_1_52b import CONFIG
+    assert (CONFIG.dtype, CONFIG.ssm_chunk, CONFIG.ssm_state,
+            CONFIG.ssm_headdim) == ("bfloat16", 128, 16, 64)
     assert kernel_route(torch.bfloat16, CONFIG.ssm_chunk, CONFIG.ssm_state,
                         CONFIG.ssm_headdim) == "tensor_cores"
 

@@ -37,8 +37,10 @@ TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 # and mamba2-2.7b's prefill shape (G=1, H=80, P=64, N=Q=128, S=4096); then
 # what the three passes and the routes meet: two batch rows of two groups
 # across 34 chunks with L = 33 Q + 1, L < Q, the tensor-core route at
-# chunk 64 (N = 64: one box), and the model's head shape at chunks 16 and
-# 32 (the CUDA-core route in bfloat16 too)
+# chunk 64 (N = 64: one box), the model's head shape at chunks 16 and
+# 32 (the CUDA-core route in bfloat16 too), and jamba-v0.1-52b's prefill
+# (H=128, N=16 at chunk 128: the tensor-core route in bfloat16, 48 of the
+# box's 64 columns zero fill) with a ragged N = 16 case beside it
 SWEEP = [
     (2, 64, 4, 1, 16, 8, 16),
     (1, 96, 8, 2, 32, 16, 32),
@@ -52,8 +54,11 @@ SWEEP = [
     (2, 1000, 8, 2, 64, 64, 64),
     (1, 200, 4, 1, 64, 128, 32),
     (1, 160, 4, 1, 64, 128, 16),
+    (1, 4096, 128, 1, 64, 16, 128),    # jamba-v0.1-52b's prefill
+    (2, 300, 8, 2, 64, 16, 128),       # N = 16 at chunk 128, ragged, G=2
 ]
 PATH = (1, 4096, 80, 1, 64, 128, 128)
+JAMBA = (1, 4096, 128, 1, 64, 16, 128)
 
 
 @functools.cache
@@ -147,6 +152,24 @@ def test_path_shape_in_bfloat16_takes_the_tensor_core_route(cuda):
     ssd_scan(*args, chunk=PATH[-1])
     torch.cuda.synchronize()
     assert ssd_scan.routes["tensor_cores"] == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [JAMBA, (2, 300, 8, 2, 64, 16, 128)])
+def test_n16_at_chunk_128_in_bfloat16_takes_the_tensor_core_route(cuda,
+                                                                  shape):
+    """jamba's N = 16: one 64-column box of B and C, 48 of its columns
+    zero fill; the route is the tensor cores', never the CUDA cores'."""
+    assert kernel_route(torch.bfloat16, shape[-1], shape[5],
+                        shape[4]) == "tensor_cores"
+    args = _inputs(shape, torch.bfloat16, cuda, True, seed=shape[1])
+    before = ssd_scan.routes.copy()
+    out = ssd_scan(*args, chunk=shape[-1])
+    want = ssd_scan_plain(*args, chunk=shape[-1])
+    torch.cuda.synchronize()
+    assert ssd_scan.routes["tensor_cores"] == before["tensor_cores"] + 1
+    assert ssd_scan.routes["cuda_cores"] == before["cuda_cores"]
+    assert _rel(out, want) <= TOL[torch.bfloat16]
 
 
 def _rel(got, want):

@@ -483,10 +483,11 @@ def test_c11_both_steps_ignore_the_unread_knobs():
     ("mamba2-2.7b", {}, "ROADMAP A10.5"),
     ("yi-9b", {"param_dtype": "bfloat16", "fused_sgd": True}, None),
     ("qwen3-moe-30b-a3b", {}, None),
-    ("jamba-v0.1-52b", {}, "ROADMAP A10.4c"),
+    ("jamba-v0.1-52b", {}, "ROADMAP A10.5"),
 ])
 def test_unported_training_raises(arch, kw, match):
-    """The ssm and hybrid families raise naming their ROADMAP items; the
+    """The ssm and hybrid families raise naming A10.5 (their Mamba2
+    layers need the SSD scan's backward); the
     bfloat16 fused step (A10.6) and the moe family (A10.4b), ported since,
     build a step that runs on the CPU and launches no kernel there."""
     from repro_torch.configs.base import ModelConfig
